@@ -1,0 +1,22 @@
+"""tpu_viterbi_torch — the PyTorch/CUDA port of ``tpu_viterbi``.
+
+The K=7 rate-1/2 convolutional code SDR chain (bit source -> encoder ->
+AWGN -> quantize/pack -> decode -> BER) in plain PyTorch, with the
+block-parallel decoder's fused unpack + branch metric + add-compare-select
++ traceback written by hand in CUDA C++ for Hopper (kernel K1,
+``csrc/viterbi_k1.cu``).  Module names mirror the JAX package's, so each
+counterpart sits at the same relative path.  Imports torch and numpy,
+never jax.
+"""
+
+from .config import (ChannelIn, CompMode, ConfigResolutionError, DecodeOut,
+                     DecoderConfig, Metric, from_reference, options_valid)
+from .decoder.api import ViterbiGPU
+
+__all__ = [
+    "ChannelIn", "CompMode", "ConfigResolutionError", "DecodeOut",
+    "DecoderConfig", "Metric", "from_reference", "options_valid",
+    "ViterbiGPU",
+]
+
+__version__ = "0.1.0"
