@@ -201,9 +201,32 @@ def test_k1_wrapper_runs_plain_version_on_cpu(rng):
 
 
 def test_k1_rejects_what_it_does_not_decode():
+    """Each full-store kernel decodes its own channels and names the other;
+    kernel_for routes FP32 to K2 and the window to K3, for any channel."""
     from tpu_viterbi_torch.config import ConfigResolutionError
+    fp32 = from_reference(_cfg(ChannelIn.FP32))
+    soft8 = from_reference(_cfg(ChannelIn.SOFT8))
+    plan = core_torch.plan_blocks(2048, 32)
     with pytest.raises(ConfigResolutionError, match="K2"):
-        core_cuda.check_supported(from_reference(_cfg(ChannelIn.FP32)))
-    with pytest.raises(ConfigResolutionError, match="K3"):
-        core_cuda.check_supported(from_reference(_cfg(ChannelIn.SOFT8)),
-                                  survivor="window")
+        core_cuda.K1(torch.zeros(600), fp32, plan)
+    with pytest.raises(ConfigResolutionError, match="K1"):
+        core_cuda.K2(torch.zeros(600, dtype=torch.int32), soft8, plan)
+    assert core_cuda.kernel_for(soft8, False) is core_cuda.K1
+    assert core_cuda.kernel_for(fp32, False) is core_cuda.K2
+    assert core_cuda.kernel_for(fp32, True) is core_cuda.K3
+    assert core_cuda.kernel_for(soft8, True) is core_cuda.K3
+
+
+@pytest.mark.parametrize("out", [B32, B16], ids=lambda o: o.name)
+def test_fp32_nan_and_inf_match_xla(out):
+    """A captured float wire can hold NaN and +-inf: the clamp maps +-inf
+    to the window's bounds and keeps NaN, whose correlation must become 0
+    as XLA's float->int32 conversion makes it (torch's gives INT32_MIN)."""
+    jcfg, jplan, cfg, plan = _pair(_cfg(ChannelIn.FP32, out), 1184, 128)
+    for seed in range(3):
+        rng = np.random.default_rng(seed)
+        x = _words(rng, jcfg, jplan)
+        x[rng.random(x.shape[0]) < 0.1] = np.nan
+        x[rng.random(x.shape[0]) < 0.03] = np.inf
+        x[rng.random(x.shape[0]) < 0.03] = -np.inf
+        assert np.array_equal(_port(x, cfg, plan), _xla(x, jcfg, jplan))

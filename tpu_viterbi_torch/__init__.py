@@ -3,8 +3,8 @@
 The K=7 rate-1/2 convolutional code SDR chain (bit source -> encoder ->
 AWGN -> quantize/pack -> decode -> BER) in plain PyTorch, with the
 block-parallel decoder's fused unpack + branch metric + add-compare-select
-+ traceback written by hand in CUDA C++ for Hopper (kernel K1,
-``csrc/viterbi_k1.cu``).  Module names mirror the JAX package's, so each
++ traceback written by hand in CUDA C++ for Hopper (kernels K1, K2 and K3,
+``csrc/``), a streaming decoder and file serving.  Module names mirror the JAX package's, so each
 counterpart sits at the same relative path.  Imports torch and numpy,
 never jax.
 """

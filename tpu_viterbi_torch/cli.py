@@ -4,15 +4,17 @@ src/main.cpp:174-264 parseArg, :14-172 main/runPipeline), so runs are
 drop-in comparable.
 
 Usage:  python -m tpu_viterbi_torch -n 1000000 -s 5.5 -i s8 -m b32 -v
+        python -m tpu_viterbi_torch -i s8 --decode-file stream.bin -v
 
-The chain runs on the GPU when there is one (kernel K1 decodes), else on
-the CPU with the plain torch core.  File serving, the in-graph e2e mode
-and profiling are not ported yet.
+The chain and the file decodes run on the GPU when there is one (kernels
+K1, K2 and K3 decode), else on the CPU with the plain torch core.  The
+in-graph e2e mode and profiling are not ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 import numpy as np
@@ -23,6 +25,8 @@ from .chain import (AddNoise, ConvolutionalEncoder, RandBitGen,
 from .chain.decoder_element import ViterbiDecoder
 from .config import (ChannelIn, CompMode, ConfigResolutionError, DecodeOut,
                      DecoderConfig, Metric)
+from .decoder.api import DEFAULT_DEC_LEN, ViterbiGPU
+from .decoder.streaming import StreamingViterbi
 from .utils.bits import count_bit_errors
 
 _CHANNEL_NAMES = {"HARD": ChannelIn.HARD, "h": ChannelIn.HARD,
@@ -47,9 +51,9 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(
         prog="tpu_viterbi_torch",
         description="Viterbi decoder simulation chain on PyTorch/CUDA")
-    p.add_argument("-n", "--num", type=int, default=32_000_000,
+    p.add_argument("-n", "--num", type=int, default=None,
                    help="message length (default 32000000)")
-    p.add_argument("-s", "--snr", type=float, default=15.0,
+    p.add_argument("-s", "--snr", type=float, default=None,
                    help="SNR in dB (sigma = 10^(-SNR/5); default 15.0)")
     p.add_argument("-i", "--input", choices=sorted(_CHANNEL_NAMES),
                    default="HARD", help="input channel type")
@@ -68,23 +72,199 @@ def parse_args(argv=None):
                         "for the JAX package's message-size-aware choice)")
     p.add_argument("--backend", choices=["auto", "cuda", "torch"],
                    default="auto",
-                   help="'cuda' = kernel K1 (needs a GPU); 'torch' = the "
-                        "plain torch core; 'auto' = K1 on a GPU, else the "
-                        "torch core on the CPU")
+                   help="'cuda' = the CUDA kernels K1/K2/K3 (needs a GPU); "
+                        "'torch' = the plain torch core; 'auto' = the "
+                        "kernels on a GPU, else the torch core on the CPU")
     p.add_argument("--survivor", choices=["auto", "full", "window"],
                    default="auto",
                    help="survivor-buffer mode: 'window' = the reference's "
-                        "one-pointer circular buffer (viterbi.cu:99-100), "
-                        "which needs the not yet ported kernel K3")
+                        "one-pointer circular buffer (viterbi.cu:99-100); "
+                        "'auto' uses it when the full store would take "
+                        "more than half of the GPU's total memory")
+    p.add_argument("--decode-file", metavar="PATH", default=None,
+                   nargs="+",
+                   help="decode real packed channel stream(s) from PATH(s) "
+                        "instead of simulating: raw little-endian words in "
+                        "the getInputSize layout (int32 for HARD/SOFT*, "
+                        "float32 for FP32; viterbi.cu:64-84), inputNum "
+                        "derived from the file size exactly as the "
+                        "reference adapter does (viterbiDF.h:190); several "
+                        "files decode back to back through one decoder")
+    p.add_argument("--out-file", metavar="PATH", default=None,
+                   help="with a single --decode-file: where to write the "
+                        "packed decoded words (uint32 for -o b32, uint16 "
+                        "for b16; default <decode-file>.dec)")
+    p.add_argument("--emit-file", metavar="PATH", default=None,
+                   help="simulation mode: also write the packed channel "
+                        "stream the chain produced to PATH, in the exact "
+                        "format --decode-file reads back")
+    p.add_argument("--stream-words", type=int, default=None, metavar="N",
+                   help="with --decode-file: decode in chunks of N packed "
+                        "words through the streaming decoder "
+                        "(decoder/streaming.py overlap-save carry) — "
+                        "fixed host memory for arbitrarily long files, "
+                        "bit-identical output to the one-shot decode; N "
+                        "must be a multiple of 1024")
     return p.parse_args(argv)
+
+
+def _too_short(path: str, n_words: int, cfg: DecoderConfig,
+               input_num=None) -> int:
+    bits = "" if input_num is None else f" ({input_num} encoded bits)"
+    print(f"Error: {path} holds {n_words} words{bits} — no decodable bits "
+          f"after the {cfg.extra_l}+{cfg.extra_r}-bit overlap-save "
+          f"framing.", file=sys.stderr)
+    return 1
+
+
+def _file_words(path: str, in_dtype):
+    """Words in the channel file at ``path``, or None (after an error
+    line) when it cannot be read or is not a whole number of words — a
+    truncated or corrupt capture is refused, not decoded short."""
+    try:
+        size = os.path.getsize(path)
+    except OSError as e:
+        print(f"Error: cannot read {path}: {e}", file=sys.stderr)
+        return None
+    item = np.dtype(in_dtype).itemsize
+    if size % item:
+        print(f"Error: {path} holds {size} bytes, not a whole number of "
+              f"{item}-byte {np.dtype(in_dtype).name} words (truncated or "
+              f"corrupt channel file).", file=sys.stderr)
+        return None
+    return size // item
+
+
+def _stream_decode_one(args, cfg: DecoderConfig, sv: StreamingViterbi,
+                       path: str, n_words: int):
+    """--decode-file --stream-words N: chunked decode of one file through
+    the overlap-save streaming decoder (decoder/streaming.py) — fixed host
+    memory at any file size, output bit-identical to the one-shot decode
+    of the same stream.  A stream too short to decode is refused before
+    the output file is opened, and a read that fails midway removes the
+    partial output.  Returns (rc, decoded_bits)."""
+    in_dtype = np.float32 if cfg.channel_in == ChannelIn.FP32 else np.int32
+    if cfg.get_message_len(n_words * cfg.enc_data_per_pack) <= 0:
+        return _too_short(path, n_words, cfg), 0
+    out_path = args.out_file or path + ".dec"
+    emitted_words = n_chunks = 0
+    try:
+        with open(path, "rb") as fi, open(out_path, "wb") as fo:
+            while True:
+                buf = np.fromfile(fi, dtype=in_dtype,
+                                  count=args.stream_words)
+                if buf.size == 0:
+                    break
+                n_chunks += 1
+                out = sv.push(buf)
+                out.tofile(fo)
+                emitted_words += out.size
+            out = sv.flush()
+            out.tofile(fo)
+            emitted_words += out.size
+    except OSError as e:
+        if os.path.exists(out_path):
+            os.remove(out_path)
+        print(f"Error: cannot stream {path}: {e}", file=sys.stderr)
+        return 1, 0
+    if args.verbose:
+        print(f"Input file: {path} ({n_words} words in {n_chunks} chunks "
+              f"of {args.stream_words})")
+    print("Decode executed.")
+    print(f"Final results -> {emitted_words * cfg.bits_per_pack} bits "
+          f"decoded to {out_path} "
+          f"({emitted_words * (cfg.bits_per_pack // 8)} bytes)")
+    return 0, emitted_words * cfg.bits_per_pack
+
+
+def run_decode_file(args, cfg: DecoderConfig) -> int:
+    """--decode-file: serve real decodes — read packed channel words, run
+    the decoder, write packed output words.  The one mode with no
+    simulated ground truth, so it reports size + kernel time instead of
+    BEN/BER.  Every file is checked before any is decoded, and all of them
+    go through ONE decoder: one ViterbiGPU, or one StreamingViterbi with
+    --stream-words."""
+    in_dtype = np.float32 if cfg.channel_in == ChannelIn.FP32 else np.int32
+    sizes = []
+    for path in args.decode_file:
+        n = _file_words(path, in_dtype)
+        if n is None:
+            return 1
+        sizes.append(n)
+    dec_len = args.dec_len or DEFAULT_DEC_LEN
+
+    if args.stream_words:
+        sv = StreamingViterbi(cfg, dec_len=dec_len, backend=args.backend,
+                              survivor=args.survivor)
+        total_bits = 0
+        for path, n in zip(args.decode_file, sizes):
+            rc, bits = _stream_decode_one(args, cfg, sv, path, n)
+            if rc != 0:
+                return rc
+            total_bits += bits
+        if len(args.decode_file) > 1 and args.verbose:
+            print(f"{len(args.decode_file)} files, {total_bits} bits total")
+        return 0
+
+    dec = ViterbiGPU(cfg, dec_len=dec_len, backend=args.backend,
+                     survivor=args.survivor)
+    if len(args.decode_file) > 1 and len(set(sizes)) == 1:
+        # equal-sized files queue back to back through run_stream
+        # (sustained serving: no synchronize between decodes)
+        input_num = sizes[0] * cfg.enc_data_per_pack
+        m = cfg.get_message_len(input_num)
+        if m <= 0:
+            return _too_short(args.decode_file[0], sizes[0], cfg)
+        raws = [np.fromfile(path, dtype=in_dtype)
+                for path in args.decode_file]
+        outs, per = dec.run_stream(raws, input_num, want_time=args.verbose)
+        for path, out in zip(args.decode_file, outs):
+            out.tofile(path + ".dec")
+            print("Decode executed.")
+            print(f"Final results -> {m} bits decoded to {path}.dec "
+                  f"({out.nbytes} bytes)")
+        if args.verbose and per:
+            print(f"{len(outs)} files queued back to back: "
+                  f"{per * 1e3:.3f} ms/file sustained "
+                  f"({m / per / 1e9:.3f} Gb/s)")
+        return 0
+
+    total_bits = 0
+    for path, n in zip(args.decode_file, sizes):
+        # inputNum = packed words x values-per-word (viterbiDF.h:190)
+        input_num = n * cfg.enc_data_per_pack
+        m = cfg.get_message_len(input_num)
+        if m <= 0:
+            return _too_short(path, n, cfg, input_num)
+        raw = np.fromfile(path, dtype=in_dtype)
+        if args.verbose:
+            print(f"Input file: {path} ({n} words, {input_num} encoded "
+                  f"bits, {m} message bits)")
+        out, kernel_s = dec.run(raw, input_num)
+        out_path = args.out_file or path + ".dec"
+        out.tofile(out_path)
+        if args.verbose:
+            # reference kernel-time pretty-print (viterbiDF.h:197-208)
+            ms = kernel_s * 1e3
+            t = (f"{ms * 1e3:.3f} us" if ms < 1.0 else
+                 f"{ms:.3f} ms" if ms < 1000.0 else f"{ms / 1e3:.3f} s")
+            print(f"Kernel time: {t}  ({m / kernel_s / 1e9:.3f} Gb/s)")
+        print("Decode executed.")
+        print(f"Final results -> {m} bits decoded to {out_path} "
+              f"({out.nbytes} bytes)")
+        total_bits += m
+    if len(args.decode_file) > 1 and args.verbose:
+        print(f"{len(args.decode_file)} files, {total_bits} bits total")
+    return 0
 
 
 def run_pipeline(message_len: int, snr: float, cfg: DecoderConfig,
                  verbose: bool = False, seed=None, dec_len=None,
                  backend: str = "auto", survivor: str = "auto",
-                 device=None):
+                 device=None, emit_file=None):
     """Build and run the full chain; returns (BEN, pipeline, decoded_words)
-    with the decoded int32 words left on the device.
+    with the decoded int32 words left on the device.  ``emit_file``: also
+    write the packed channel stream there, as --decode-file reads it.
     (reference: main.cpp:119-172 runPipeline)"""
     if seed is None:
         seed = int(np.random.SeedSequence().entropy % (2 ** 31))
@@ -98,8 +278,15 @@ def run_pipeline(message_len: int, snr: float, cfg: DecoderConfig,
     noise = AddNoise(snr_to_sigma(snr), seed=seed + 1, device=device)
     packer = SoftDecisionPacker(cfg.channel_in, scale=40000.0)
 
+    if emit_file:
+        packer.probe()   # capture the packed stream mid-pipeline
     pipe = rand_gen.probe() | conv_enc | noise | packer | viterbi
     result = pipe.run()
+    if emit_file:
+        # raw little-endian words in the getInputSize layout, exactly what
+        # --decode-file reads back (probed_outputs[1]: the packer sits
+        # after the probed source)
+        result.probed_outputs[1].cpu().numpy().tofile(emit_file)
 
     if verbose:
         print()
@@ -141,15 +328,53 @@ def main(argv=None) -> int:
 
     cfg = DecoderConfig(**cfg_fields)
 
-    if cfg.get_message_len(2 * args.num) <= 0:
+    if args.decode_file:
+        # file mode is a real decode — the simulation knobs make no sense
+        # here; reject rather than silently ignore (OptionsValid
+        # philosophy, viterbi.h:22-41)
+        for bad, flag in ((args.num is not None, "-n/--num"),
+                          (args.snr is not None, "-s/--snr"),
+                          (args.seed is not None, "--seed"),
+                          (args.emit_file is not None, "--emit-file")):
+            if bad:
+                print(f"Error: {flag} is not applicable with --decode-file "
+                      "(the file IS the channel stream).", file=sys.stderr)
+                return -1
+        if args.out_file is not None and len(args.decode_file) > 1:
+            print("Error: --out-file takes a single output path; with "
+                  "several --decode-file inputs each writes <file>.dec.",
+                  file=sys.stderr)
+            return -1
+        if args.stream_words is not None and (
+                args.stream_words <= 0 or args.stream_words % 1024):
+            print("Error: --stream-words must be a positive multiple "
+                  "of 1024 (whole-pack alignment across chunks for "
+                  "every channel width).", file=sys.stderr)
+            return -1
+    elif args.stream_words is not None:
+        print("Error: --stream-words requires --decode-file.",
+              file=sys.stderr)
+        return -1
+    elif args.out_file is not None:
+        print("Error: --out-file requires --decode-file (simulation mode "
+              "verifies in memory; use --emit-file to dump its packed "
+              "stream).", file=sys.stderr)
+        return -1
+    if args.num is None:
+        args.num = 32_000_000        # reference default (main.cpp:176)
+    if args.snr is None:
+        args.snr = 15.0              # reference default (main.cpp:177)
+
+    if not args.decode_file and cfg.get_message_len(2 * args.num) <= 0:
         print(f"Error: message length {args.num} too short — no decodable "
               f"bits after the {cfg.extra_l}+{cfg.extra_r}-bit overlap-save "
               f"framing.", file=sys.stderr)
         return 1
 
     if args.verbose:
-        print(f"Message Length: {args.num}")
-        print(f"SNR: {args.snr} dB")
+        if not args.decode_file:
+            print(f"Message Length: {args.num}")
+            print(f"SNR: {args.snr} dB")
         print(f"Input Channel Type: {_CHANNEL_PRETTY[cfg.channel_in]}")
         metric_pretty = {"M_B16": "16-bit", "M_B32": "32-bit",
                          "M_FP16": "FP16"}[cfg.metric.name]
@@ -161,14 +386,17 @@ def main(argv=None) -> int:
         print()
 
     try:
+        if args.decode_file:
+            return run_decode_file(args, cfg)
         ben, _, _ = run_pipeline(args.num, args.snr, cfg,
                                  verbose=args.verbose, seed=args.seed,
                                  dec_len=args.dec_len, backend=args.backend,
-                                 survivor=args.survivor)
+                                 survivor=args.survivor,
+                                 emit_file=args.emit_file)
     except ConfigResolutionError as e:
         # flag combinations the resolved backend cannot honor (no GPU for
-        # --backend cuda, a kernel not ported yet): reference-style error
-        # line; any other error is a real bug and keeps its traceback
+        # --backend cuda): reference-style error line; any other error is
+        # a real bug and keeps its traceback
         print(f"Error: {e}", file=sys.stderr)
         return -1
     ber = ben / args.num

@@ -38,6 +38,11 @@ from ..utils.bits import to_int32_bits
 
 WARMUP = 64          # extra_l + extra_r stages per block (viterbi.h:73-76)
 
+# Minimum depth in ACS stages of the windowed survivor's per-pack chase
+# (core_pallas.py:82-88): a 32-stage chase measured ~3x the full store's
+# error count in the JAX package, so bpp 16 chases as many stages as bpp 32.
+WINDOW_MIN_CHASE_STAGES = 64
+
 
 @dataclass(frozen=True)
 class BlockPlan:
@@ -181,9 +186,15 @@ def _branch_metrics(r0, r1, s0, s1, is_float: bool):
     """(64, B) int32 j=0 branch metrics bmA[s] = sign0[s]*r0 + sign1[s]*r1
     (reference: viterbiBM.cuh dp2a/dp4a correlations with +-1 coeffs); the
     FP32 correlation is truncated toward zero (viterbiBM.cuh:128-153).  The
-    j=1 metric is -bmA (see _acs_stage)."""
+    j=1 metric is -bmA (see _acs_stage).
+
+    A NaN on the FP32 wire survives the clamp and makes a NaN correlation;
+    it becomes 0, as XLA's float->int32 conversion makes it in the JAX
+    core (core_xla.py:331-337), where torch's gives INT32_MIN."""
     bm = s0 * r0[None, :] + s1 * r1[None, :]
-    return torch.trunc(bm).to(torch.int32) if is_float else bm
+    if not is_float:
+        return bm
+    return torch.trunc(bm).nan_to_num(nan=0.0).to(torch.int32)
 
 
 def _repeat2(x):
@@ -207,11 +218,10 @@ def _acs_stage(pm, pp, bm_a):
     return pm_new, pp_new
 
 
-def forward_scan(rs: torch.Tensor, cfg: DecoderConfig,
-                 plan: BlockPlan) -> torch.Tensor:
+def _pack_scan(rs: torch.Tensor, cfg: DecoderConfig, plan: BlockPlan):
     """ACS over all stages of all blocks from the (block_len, 2, B) stage
-    pairs.  Returns the survivor packs (n_packs, 64, B) int64, each masked
-    to bits_per_pack bits."""
+    pairs.  Yields each survivor pack (64, B) int64, masked to
+    bits_per_pack bits, as its last stage completes."""
     b = rs.shape[2]
     bpp = plan.bits_per_pack
     is_float = cfg.channel_in == ChannelIn.FP32
@@ -221,16 +231,23 @@ def forward_scan(rs: torch.Tensor, cfg: DecoderConfig,
     s1 = torch.as_tensor(_SIGN1_NP, device=rs.device).to(dt)
     pm = torch.zeros((NUM_STATES, b), dtype=torch.int32, device=rs.device)
     pp = torch.zeros((NUM_STATES, b), dtype=torch.int64, device=rs.device)
-    surv = torch.empty((plan.n_packs, NUM_STATES, b), dtype=torch.int64,
-                       device=rs.device)
     for p in range(plan.n_packs):
         for t in range(p * bpp, (p + 1) * bpp):
             bm_a = _branch_metrics(rs[t, 0], rs[t, 1], s0, s1, is_float)
             pm, pp = _acs_stage(pm, pp, bm_a)
-        surv[p] = pp & ((1 << bpp) - 1)
+        yield pp & ((1 << bpp) - 1)
         if renorm:
             # once per pack, as the kernels do (decision-invariant)
             pm = pm - pm.min(dim=0, keepdim=True).values
+
+
+def forward_scan(rs: torch.Tensor, cfg: DecoderConfig,
+                 plan: BlockPlan) -> torch.Tensor:
+    """The full survivor store: all packs (n_packs, 64, B) int64."""
+    surv = torch.empty((plan.n_packs, NUM_STATES, rs.shape[2]),
+                       dtype=torch.int64, device=rs.device)
+    for p, pack in enumerate(_pack_scan(rs, cfg, plan)):
+        surv[p] = pack
     return surv
 
 
@@ -252,6 +269,58 @@ def traceback_scan(surv: torch.Tensor, cfg: DecoderConfig,
     return torch.stack(packs[::-1], dim=1)
 
 
+def survivor_window_slots(cfg: DecoderConfig) -> int:
+    """Slots W of the windowed survivor ring (core_pallas.py:295-315): a
+    per-pack chase reads slots p .. p - n_disc while the next dump frees
+    the oldest, so W = n_disc + 2, with n_disc = max(n_conv + 1,
+    ceil(WINDOW_MIN_CHASE_STAGES / bpp)) discard packs: 4 slots at bpp 32,
+    6 at bpp 16."""
+    bpp = cfg.bits_per_pack
+    n_conv = -(-(cfg.extra_r - bpp) // bpp)
+    return max(n_conv + 1, -(-WINDOW_MIN_CHASE_STAGES // bpp)) + 2
+
+
+def _chase(ring: torch.Tensor, slots, b: int, bpp: int) -> torch.Tensor:
+    """Fresh traceback from state 0 through ring[slots[0]],
+    ring[slots[1]], ...; returns the (B,) pack read from the last slot."""
+    state = torch.zeros((1, b), dtype=torch.int64, device=ring.device)
+    for slot in slots:
+        pack = ring[slot].gather(0, state)
+        state = (pack >> (bpp - 6)) & 63
+    return pack[0]
+
+
+def window_scan(rs: torch.Tensor, cfg: DecoderConfig,
+                plan: BlockPlan) -> torch.Tensor:
+    """The windowed survivor (core_pallas.py:440-486, the reference's
+    one-pointer circular buffer): survivor pack p goes to ring slot p mod W
+    and, once p - n_disc >= emit_lo, a fresh chase from state 0 through
+    n_disc discard packs emits pack p - n_disc.  After the loop the top
+    packs q, which have less history by framing, are chased at their full
+    available depth n_packs - 1 - q.  Returns (B, n_emit) int64 packs.
+
+    Equal to the full store on coded input; on random words the two
+    legitimately differ (tests/test_survivor_window.py)."""
+    b, bpp, n_packs = rs.shape[2], plan.bits_per_pack, plan.n_packs
+    n_conv, n_emit = traceback_shape(cfg, plan)
+    w = survivor_window_slots(cfg)
+    n_disc = w - 2
+    emit_lo = n_packs - n_conv - n_emit
+    ring = torch.empty((w, NUM_STATES, b), dtype=torch.int64,
+                       device=rs.device)
+    out = torch.empty((b, n_emit), dtype=torch.int64, device=rs.device)
+    for p, pack in enumerate(_pack_scan(rs, cfg, plan)):
+        ring[p % w] = pack
+        if p - n_disc >= emit_lo:
+            out[:, p - n_disc - emit_lo] = _chase(
+                ring, [(p - t) % w for t in range(n_disc + 1)], b, bpp)
+    for q in range(max(emit_lo, n_packs - n_disc), n_packs - n_conv):
+        out[:, q - emit_lo] = _chase(
+            ring, [(n_packs - 1 - t) % w for t in range(n_packs - q)], b,
+            bpp)
+    return out
+
+
 def assemble_output(out_packs: torch.Tensor, cfg: DecoderConfig,
                     plan: BlockPlan) -> torch.Tensor:
     """(B, n_emit) per-block packs -> flat packed output words.
@@ -270,19 +339,27 @@ def assemble_output(out_packs: torch.Tensor, cfg: DecoderConfig,
 
 
 def decode_blocks_torch(packed: torch.Tensor, cfg: DecoderConfig,
-                        plan: BlockPlan) -> torch.Tensor:
+                        plan: BlockPlan, window: bool = False
+                        ) -> torch.Tensor:
     """Packed channel words -> (B, n_emit) int32 output packs: the plain
-    version of K1 (core_cuda.K1), same inputs, same outputs."""
+    version of the kernels (core_cuda), same inputs, same outputs — K1
+    (integer channels) and K2 (FP32) with the full survivor store, K3 with
+    ``window=True``."""
     is_float = cfg.channel_in == ChannelIn.FP32
     packed = packed.to(torch.float32 if is_float else torch.int32)
     rs = stage_values(packed, cfg, plan)
+    if window:
+        return to_int32_bits(window_scan(rs, cfg, plan))
     surv = forward_scan(rs, cfg, plan)
     return to_int32_bits(traceback_scan(surv, cfg, plan))
 
 
 def decode_packed_torch(packed: torch.Tensor, cfg: DecoderConfig,
-                        plan: BlockPlan) -> torch.Tensor:
+                        plan: BlockPlan, window: bool = False
+                        ) -> torch.Tensor:
     """Full decode straight from packed channel words (the
     ViterbiCUDA::run input format, viterbi.cu:211-238) -> flat int32
-    packed output words.  Counterpart of ``decode_packed_xla``."""
-    return assemble_output(decode_blocks_torch(packed, cfg, plan), cfg, plan)
+    packed output words.  Counterpart of ``decode_packed_xla`` (and of
+    ``decode_packed_pallas(..., window=True)`` with ``window=True``)."""
+    return assemble_output(decode_blocks_torch(packed, cfg, plan, window),
+                           cfg, plan)
