@@ -1,9 +1,11 @@
-"""Smoke run of the PyTorch/CUDA port on one GPU: builds kernels K1, K2 and
-K3 from the checkout (one nvcc run, one library), holds each bit-exact
-against its plain PyTorch version, drives the simulation chain and the
-file-serving paths (one-shot, windowed, streamed, FP32, several files)
-through the port's CLI at the reference's default size, and times each
-kernel against its plain version.
+"""Smoke run of the PyTorch/CUDA port on one GPU: builds kernels K1, K2, K3
+(decode) and K7, K8 (workload generator) from the checkout into one library
+(one nvcc per source, started together, one link), holds each against its
+plain PyTorch version, drives the simulation chain, the file-serving paths
+(one-shot, windowed, streamed, FP32, several files) and the in-graph
+simulation (--e2e-device: SOFT8, FP32, windowed, and a noisy run) through
+the port's CLI at the reference's default size, and times each kernel
+against its plain version and the in-graph simulation end to end.
 
     python3 chip_smoke.py
 
@@ -20,6 +22,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -41,7 +44,8 @@ import torch  # noqa: E402
 from tpu_viterbi_torch import ViterbiGPU, cli  # noqa: E402
 from tpu_viterbi_torch.chain import (AddNoise, ConvolutionalEncoder,  # noqa: E402
                                      RandBitGen, SoftDecisionPacker,
-                                     snr_to_sigma)
+                                     genkernel, snr_to_sigma,
+                                     unpack_to_soft)
 from tpu_viterbi_torch.chain.decoder_element import ViterbiDecoder  # noqa: E402
 from tpu_viterbi_torch.config import (ChannelIn, DecodeOut,  # noqa: E402
                                       DecoderConfig)
@@ -49,6 +53,8 @@ from tpu_viterbi_torch.decoder import core_cuda  # noqa: E402
 from tpu_viterbi_torch.decoder.core_torch import (  # noqa: E402
     decode_blocks_torch, decode_packed_torch, needs_int32_renorm,
     plan_blocks)
+from tpu_viterbi_torch.sharding.simulate import (  # noqa: E402
+    DEFAULT_SCALES, build_sharded_simulation)
 from tpu_viterbi_torch.utils.bits import (count_bit_errors,  # noqa: E402
                                           pack_msb_first)
 
@@ -58,9 +64,14 @@ FP32 = DecoderConfig(ChannelIn.FP32)
 DEC_LEN = 2048                      # ViterbiGPU.DEFAULT_DEC_LEN
 SEED = 7
 K1, K2, K3 = core_cuda.K1, core_cuda.K2, core_cuda.K3
+K7, K8 = genkernel.K7, genkernel.K8
+KERNELS = core_cuda.KERNELS + genkernel.KERNELS
 REPLACES = {"K1": "tpu_viterbi/decoder/core_pallas.py:638",
             "K2": "tpu_viterbi/decoder/core_pallas.py:683",
-            "K3": "tpu_viterbi/decoder/core_pallas.py:440"}
+            "K3": "tpu_viterbi/decoder/core_pallas.py:440",
+            "K7": "tpu_viterbi/chain/genkernel.py:157",
+            "K8": "tpu_viterbi/chain/genkernel.py:294"}
+CLI_SCALE = 40000.0                 # the CLI's channel scale (main.cpp:137)
 
 
 def say(phase: str, msg: str) -> None:
@@ -83,19 +94,20 @@ def device_phase():
 
 
 def build_phase():
-    """One nvcc run builds the library of all three kernels; each binds its
-    entry point."""
+    """One nvcc per source, all started together, and one link build the
+    library of the five kernels; each binds its entry point."""
     t0 = time.perf_counter()
-    for k in core_cuda.KERNELS:
+    for k in KERNELS:
         k.build()
     secs = time.perf_counter() - t0
     log = core_cuda.build_log or ""
-    regs = sorted(set(re.findall(r"Used (\d+) registers", log)))
+    regs = sorted(set(re.findall(r"Used (\d+) registers", log)), key=int)
     spills = sorted(set(re.findall(r"(\d+) bytes spill stores", log)))
-    say("2 build", f"K1, K2, K3 built from "
-                   f"{core_cuda.SOURCE.relative_to(ROOT)} and bound in "
-                   f"{secs:.2f} s (registers per thread {regs or 'cached'}, "
-                   f"spill stores {spills or '-'})")
+    sources = sorted({str(k.source.relative_to(ROOT)) for k in KERNELS})
+    say("2 build", f"{', '.join(k.name for k in KERNELS)} built from "
+                   f"{' + '.join(sources)} and bound in {secs:.2f} s "
+                   f"(registers per thread {regs or 'cached'}, spill stores "
+                   f"{spills or '-'})")
 
 
 def random_words(cfg, plan, gen):
@@ -163,13 +175,13 @@ def drive(argv):
     """Run the port's CLI in this process with every kernel's launch count
     set to 0 just before, and read the counts just after.  Returns (rc,
     stdout, {kernel name: launches})."""
-    for k in core_cuda.KERNELS:
+    for k in KERNELS:
         k.launches = 0
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = cli.main(argv)
     torch.cuda.synchronize()
-    counts = {k.name: k.launches for k in core_cuda.KERNELS}
+    counts = {k.name: k.launches for k in KERNELS}
     text = buf.getvalue()
     for line in text.splitlines():
         if line.strip():
@@ -424,6 +436,190 @@ def kernel_times_phase(card: str):
     return times
 
 
+GEN_SMALL = 33 * 1024 + 13          # not a multiple of 32: the tail mask
+
+
+def generate(kernel, plain: bool, n: int, channel, sigma: float,
+             scale: float, base: int = 0):
+    """K7/K8, or their plain version, on the card for seed SEED."""
+    k0, k1 = genkernel.key_data(SEED)
+    if not plain:
+        return kernel(k0, k1, n, channel, sigma, scale, base, "cuda")
+    if channel == ChannelIn.FP32:
+        return genkernel.gen_values_torch(k0, k1, n, sigma, scale, base,
+                                          "cuda")
+    return genkernel.gen_words_torch(k0, k1, n, channel, sigma, scale, base,
+                                     "cuda")
+
+
+def generated_diff(channel, scale: float, got, want):
+    """(largest difference, elements out of tolerance) of two noisy streams
+    of a generator: integer channels in quantization steps of a field, out
+    of tolerance if it differs at all (the allowance is 1e-4 of the fields,
+    one step each: an ulp of a libm result moved a value across a rounding
+    boundary); FP32 in value units, out of tolerance beyond 4 ulp of the
+    noise term scale*sigma*|z| plus 4 ulp of the value."""
+    if channel == ChannelIn.FP32:
+        def ulp(x):
+            return torch.nextafter(x, torch.full_like(x, math.inf)) - x
+        noise = (want.abs() - scale).abs()
+        diff = (got - want).abs()
+        bad = diff > 4 * (ulp(noise) + ulp(want.abs()))
+        return float(diff.max()), int(bad.count_nonzero())
+    diff = (unpack_to_soft(got, channel).to(torch.int64)
+            - unpack_to_soft(want, channel)).abs()
+    return int(diff.max()), int(diff.count_nonzero())
+
+
+def check_generated(kernel, channel, scale, sigma, got, want, what):
+    """Bit packs equal; the stream equal at sigma 0, else within tolerance.
+    Returns the largest difference."""
+    (kb, kout), (pb, pout) = got, want
+    if kout.shape != pout.shape or not torch.equal(kb, pb):
+        raise AssertionError(f"{kernel.name} {what}: bit packs or stream "
+                             f"shape differ from the plain version")
+    if not sigma:
+        if not torch.equal(kout, pout):
+            raise AssertionError(f"{kernel.name} {what}: noiseless stream "
+                                 f"differs from the plain version")
+        return 0
+    worst, n_bad = generated_diff(channel, scale, kout, pout)
+    fields = kout.numel() * (1 if channel == ChannelIn.FP32
+                             else 32 // genkernel.word_format(channel)[0])
+    if channel == ChannelIn.FP32 and n_bad:
+        raise AssertionError(f"K8 {what}: {n_bad} values beyond 4 ulp")
+    if channel != ChannelIn.FP32 and (worst > 1 or n_bad > 1e-4 * fields):
+        raise AssertionError(f"K7 {what}: {n_bad} of {fields} fields differ, "
+                             f"by up to {worst} steps")
+    return worst
+
+
+def generator_compare_phase():
+    """K7 (HARD/SOFT4/SOFT8/SOFT16) and K8 (FP32) against their plain
+    version on the same card at the default scales: bit packs equal,
+    noiseless streams equal at a ragged size and at the headline, noisy
+    ones (5.5 and 1.125 dB) within tolerance, and a launch at a non-zero
+    base equal to that slice of the base-0 stream."""
+    worst = {"K7": 0, "K8": 0.0}
+    n_cases = 0
+    for ch in ChannelIn:
+        kernel = K8 if ch == ChannelIn.FP32 else K7
+        scale = DEFAULT_SCALES[ch]
+        for n, snr in ((GEN_SMALL, math.inf), (HEADLINE_BITS, math.inf),
+                       (GEN_SMALL, 5.5), (GEN_SMALL, 1.125),
+                       (4_000_000, 5.5), (4_000_000, 1.125)):
+            sigma = 0.0 if math.isinf(snr) else snr_to_sigma(snr)
+            got = generate(kernel, False, n, ch, sigma, scale)
+            torch.cuda.synchronize()
+            want = generate(kernel, True, n, ch, sigma, scale)
+            worst[kernel.name] = max(worst[kernel.name], check_generated(
+                kernel, ch, scale, sigma, got, want,
+                f"{ch.name} n {n} at {snr} dB"))
+            n_cases += 1
+        quantum = 64 if ch == ChannelIn.FP32 else \
+            genkernel.word_format(ch)[2]
+        sigma = snr_to_sigma(1.125)
+        bits, full = generate(kernel, False, GEN_SMALL, ch, sigma, scale)
+        base = quantum * (full.shape[0] // quantum // 3)
+        bits_b, part = generate(kernel, False, GEN_SMALL, ch, sigma, scale,
+                                base)
+        if not (torch.equal(part, full[base:])
+                and torch.equal(bits_b, bits[base // quantum:])):
+            raise AssertionError(f"{kernel.name} {ch.name}: base {base} is "
+                                 f"not that slice of the base-0 stream")
+    say("9 generator vs plain", f"K7 (HARD/SOFT4/SOFT8/SOFT16) and K8 (FP32)"
+        f" against their plain version on {n_cases} cases: bit packs equal; "
+        f"noiseless streams equal at n {GEN_SMALL} and {HEADLINE_BITS}; noisy"
+        f" (5.5, 1.125 dB at n {GEN_SMALL}, 4000000) within tolerance, "
+        f"largest K7 field step {worst['K7']}, K8 |diff| {worst['K8']:g}; "
+        f"a non-zero base gives that slice")
+    return worst
+
+
+def e2e_phase():
+    """--e2e-device through cli.main at the reference's default size:
+    SOFT8 (K7 + K1), FP32 (K8 + K2), --survivor window (K7 + K3), each BEN 0
+    at 5.5 dB; then a noisy 4M-bit run whose BER must lie in the decoder's
+    band.  Returns ({generator kernel: launches of its first run},
+    {run: (steady-state ms, Gb/s) of the CLI's -v line})."""
+    launches, steady = {}, {}
+    for tag, extra, gk, dk in (("SOFT8", ["-i", "s8"], "K7", "K1"),
+                               ("FP32", ["-i", "f"], "K8", "K2"),
+                               ("SOFT8 window", ["-i", "s8", "--survivor",
+                                                 "window"], "K7", "K3")):
+        rc, text, counts = drive(["-n", str(HEADLINE_BITS), "-s", "5.5",
+                                  "--seed", str(SEED), "-v", "--e2e-device",
+                                  *extra])
+        m = re.search(r"Final results -> BEN: (\d+)\s", text)
+        st = re.search(r"steady-state per call: ([\d.]+) ms \(([\d.e+-]+) "
+                       r"Gb/s e2e\)   \[BEN 0\]", text)
+        if rc != 0 or m is None or int(m.group(1)) != 0 or st is None:
+            raise AssertionError(f"--e2e-device {tag} failed: rc {rc}")
+        if counts[gk] < 1 or counts[dk] < 1:
+            raise AssertionError(f"--e2e-device {tag}: {gk} or {dk} never "
+                                 f"launched ({counts})")
+        launches.setdefault(gk, counts[gk])
+        steady[tag] = (float(st.group(1)), float(st.group(2)))
+        say("10 e2e", f"cli.main -n {HEADLINE_BITS} -s 5.5 --seed {SEED} "
+            f"--e2e-device {' '.join(extra)}: rc 0, BEN 0; launches {counts}")
+    n = 4_000_000
+    rc, text, counts = drive(["-n", str(n), "-s", "1.125", "-i", "s8",
+                              "--seed", str(SEED), "--e2e-device"])
+    m = re.search(r"Final results -> BEN: (\d+)\s", text)
+    if rc != 0 or m is None or counts["K7"] < 1 or counts["K1"] < 1:
+        raise AssertionError(f"noisy --e2e-device failed: rc {rc}, {counts}")
+    ber = int(m.group(1)) / n
+    # the band of phase 4b: scale 40000 saturates SOFT8 to hard decisions;
+    # a generator that forgets the noise gives 0, a broken decode ~0.5
+    if not 5e-4 < ber < 5e-3:
+        raise AssertionError(f"noisy --e2e-device BER {ber:g} out of band")
+    say("10b noisy e2e", f"--e2e-device -n {n} -s 1.125 -i s8: BEN "
+        f"{m.group(1)} BER {ber:g}; launches {counts}")
+    return launches, steady
+
+
+def generator_times_phase(card: str):
+    """K7 (SOFT8) and K8 at the headline (32M bits, 5.5 dB, the CLI's scale)
+    beside their plain version, CUDA events; then the in-graph simulation
+    end to end per call with each generator."""
+    times = {}
+    sigma = snr_to_sigma(5.5)
+    for kernel, cfg in ((K7, HEADLINE), (K8, FP32)):
+        ch = cfg.channel_in
+        generate(kernel, False, HEADLINE_BITS, ch, sigma, CLI_SCALE)
+        k_ms, k_all, got = cuda_ms(lambda: generate(
+            kernel, False, HEADLINE_BITS, ch, sigma, CLI_SCALE), 5)
+        generate(kernel, True, HEADLINE_BITS, ch, sigma, CLI_SCALE)
+        p_ms, p_all, want = cuda_ms(lambda: generate(
+            kernel, True, HEADLINE_BITS, ch, sigma, CLI_SCALE), 3)
+        err = check_generated(kernel, ch, CLI_SCALE, sigma, got, want,
+                              "headline")
+        times[kernel.name] = (k_ms, p_ms, err)
+        n_out = got[1].numel()
+        say("11 times", f"{card}: {kernel.name} at {HEADLINE_BITS} bits "
+            f"{ch.name} 5.5 dB ({n_out} {'values' if cfg is FP32 else 'words'}"
+            f", {got[0].numel()} bit packs): median {k_ms:.4f} ms of "
+            f"{[round(t, 4) for t in k_all]} = "
+            f"{HEADLINE_BITS / k_ms / 1e6:.2f} Gb/s generated; plain median "
+            f"{p_ms:.1f} ms of {[round(t, 1) for t in p_all]} "
+            f"({p_ms / k_ms:.0f}x)")
+    e2e = {}
+    for generator in ("cuda", "torch"):
+        fn, m = build_sharded_simulation(HEADLINE, HEADLINE_BITS, snr_db=5.5,
+                                         scale=CLI_SCALE, generator=generator,
+                                         device="cuda")
+        fn(SEED)
+        ms, all_ms, ben = cuda_ms(lambda: fn(SEED + 1), 5)
+        if int(ben) != 0:
+            raise AssertionError(f"e2e generator {generator}: BEN {int(ben)}")
+        e2e[generator] = ms
+        say("11 e2e", f"{card}: in-graph simulation, generator {generator}, "
+            f"SOFT8 b32 {HEADLINE_BITS} bits 5.5 dB: median {ms:.4f} ms of "
+            f"{[round(t, 4) for t in all_ms]} per call = "
+            f"{m / ms / 1e6:.3f} Gb/s e2e; BEN 0")
+    return times, e2e
+
+
 def main() -> int:
     card = device_phase()
     build_phase()
@@ -431,6 +627,7 @@ def main() -> int:
     gen.manual_seed(1234)
     err = compare_phase(gen)
     worst = window_compare_phase(gen)
+    worst.update(generator_compare_phase())
     launches = {"K1": main_path_phase()}
     err = max(err, noisy_chain_phase())
     k1_ms, plain_ms = timing_phase(card)
@@ -442,15 +639,21 @@ def main() -> int:
         launches.update(serve_phase(Path(tmp), "f", FP32, [([], "K2")],
                                     "fp32"))
         multi_file_phase(Path(tmp), card)
+    gen_launches, steady = e2e_phase()
+    launches.update(gen_launches)
     times = kernel_times_phase(card)
     times["K1"] = (k1_ms, plain_ms, err)
+    gen_times, e2e = generator_times_phase(card)
+    times.update(gen_times)
+    say("12 e2e summary", f"{card}: CLI steady-state lines {steady}; "
+        f"simulate() medians {e2e} ms")
     print(json.dumps({"kernels": [{
         "name": k.name, "route": "cuda",
-        "source": str(core_cuda.SOURCE.relative_to(ROOT)),
+        "source": str(k.source.relative_to(ROOT)),
         "replaces": REPLACES[k.name], "launches": launches[k.name],
         "max_abs_err": max(times[k.name][2], worst.get(k.name, 0)),
         "ms": times[k.name][0], "plain_ms": times[k.name][1]}
-        for k in core_cuda.KERNELS]}))
+        for k in KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

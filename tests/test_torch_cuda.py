@@ -1,19 +1,26 @@
 """Kernels K1, K2 and K3 on the card against their plain PyTorch version,
-and ViterbiGPU's CUDA path (run, run_stream, streaming).  Every test here needs a CUDA GPU and skips without one; the
+and ViterbiGPU's CUDA path (run, run_stream, streaming); the generator
+kernels K7 and K8 against theirs, and the in-graph simulation on the card.
+Every test here needs a CUDA GPU and skips without one; the
 file imports no jax, so it runs on a machine that has only the port's
 dependencies:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
 
 from tpu_viterbi_torch import ConfigResolutionError, ViterbiGPU
+from tpu_viterbi_torch.chain import genkernel
+from tpu_viterbi_torch.chain.quantize import unpack_to_soft
 from tpu_viterbi_torch.config import ChannelIn, DecodeOut, DecoderConfig
 from tpu_viterbi_torch.decoder import core_cuda, core_torch
 from tpu_viterbi_torch.decoder.streaming import StreamingViterbi
+from tpu_viterbi_torch.sharding import simulate
 
 pytestmark = pytest.mark.cuda
 
@@ -148,3 +155,80 @@ def test_streaming_on_gpu_matches_cpu(gpu, rng):
         assert np.array_equal(on_gpu.push(x[a:a + 2048]),
                               on_cpu.push(x[a:a + 2048]))
     assert np.array_equal(on_gpu.flush(), on_cpu.flush())
+
+
+GEN_N = 33 * 1024 + 13      # not a multiple of 32: the tail pack is masked
+
+
+def _assert_generated_close(channel, got, want):
+    """Noisy streams of a generator kernel and its plain version: at most
+    1e-4 of the fields differ, each by one quantization step (an ulp of a
+    libm result moved a value across a rounding boundary); FP32 values
+    within 4 ulp of the noise term plus 4 ulp of the value."""
+    got, want = got.cpu(), want.cpu()
+    if channel == ChannelIn.FP32:
+        scale = simulate.DEFAULT_SCALES[channel]
+        noise = (want.abs() - scale).abs().numpy()
+        tol = 4 * (np.spacing(noise) + np.spacing(want.abs().numpy()))
+        assert np.all((got - want).abs().numpy() <= tol)
+        return
+    diff = (unpack_to_soft(got, channel).to(torch.int64)
+            - unpack_to_soft(want, channel)).abs()
+    assert int(diff.max()) <= 1
+    assert int(diff.count_nonzero()) <= 1e-4 * diff.numel()
+
+
+@pytest.mark.parametrize("channel", list(ChannelIn), ids=lambda c: c.name)
+@pytest.mark.parametrize("snr_db", [math.inf, 3.0])
+def test_generator_kernel_matches_plain(gpu, channel, snr_db):
+    """K7 (integer channels) / K8 (FP32) against their plain version on the
+    same device: bit packs equal, noiseless streams equal, noisy ones within
+    the stated tolerance; a launch at a non-zero base writes that slice."""
+    kernel = genkernel.K8 if channel == ChannelIn.FP32 else genkernel.K7
+    scale = simulate.DEFAULT_SCALES[channel]
+    before = kernel.launches
+    bits, got = genkernel.packed_workload_cuda(9, GEN_N, channel, snr_db,
+                                               scale, device=gpu)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    sigma = 0.0 if math.isinf(snr_db) else 10.0 ** (-snr_db / 5.0)
+    plain = (genkernel.gen_values_torch(0, 9, GEN_N, sigma, scale,
+                                        device=gpu)
+             if channel == ChannelIn.FP32 else
+             genkernel.gen_words_torch(0, 9, GEN_N, channel, sigma, scale,
+                                       device=gpu))
+    assert got.dtype == plain[1].dtype and got.shape == plain[1].shape
+    assert torch.equal(bits, plain[0])
+    if math.isinf(snr_db):
+        assert torch.equal(got, plain[1])
+    else:
+        _assert_generated_close(channel, got, plain[1])
+    quantum = 64 if channel == ChannelIn.FP32 else \
+        genkernel.word_format(channel)[2]
+    base = quantum * (got.shape[0] // quantum // 3)
+    bits_b, got_b = genkernel.packed_workload_cuda(
+        9, GEN_N, channel, snr_db, scale, device=gpu, base=base)
+    assert torch.equal(got_b, got[base:])
+    assert torch.equal(bits_b, bits[base // quantum:])
+
+
+@pytest.mark.parametrize("generator", ["cuda", "torch"])
+@pytest.mark.parametrize("cfg,survivor", [
+    (DecoderConfig(ChannelIn.SOFT8), "auto"),
+    (DecoderConfig(ChannelIn.FP32, decode_out=DecodeOut.O_B16), "auto"),
+    (DecoderConfig(ChannelIn.HARD), "window")], ids=["SOFT8", "FP32-b16",
+                                                     "HARD-window"])
+def test_simulation_on_gpu_ben0(gpu, generator, cfg, survivor):
+    """The in-graph simulation on the card: BEN 0 without noise, launching
+    K7/K8 for generator 'cuda' (none for 'torch') and the decode kernel."""
+    gen_kernel = genkernel.K8 if cfg.channel_in == ChannelIn.FP32 \
+        else genkernel.K7
+    dec_kernel = core_cuda.kernel_for(cfg, survivor == "window")
+    fn, m = simulate.build_sharded_simulation(
+        cfg, 50_000, snr_db=math.inf, generator=generator,
+        survivor=survivor, device=gpu)
+    before = (gen_kernel.launches, dec_kernel.launches)
+    ben = fn(3)
+    assert ben.device.type == "cuda" and int(ben) == 0
+    assert dec_kernel.launches == before[1] + 1
+    assert gen_kernel.launches == before[0] + (generator == "cuda")

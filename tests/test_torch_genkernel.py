@@ -1,0 +1,190 @@
+"""The port's fused workload generator (tpu_viterbi_torch.chain.genkernel)
+against the JAX package's (tpu_viterbi.chain.genkernel): threefry2x32, the
+Box-Muller pair, and the plain version of kernels K7/K8 against the Pallas
+kernel run in interpret mode on the CPU, for every channel.
+
+Both draw the same counter-mode streams, so the message-bit packs and the
+noiseless channel streams must be equal bit for bit.  Under noise the two
+stacks' f32 log/sin/cos may differ by an ulp, which can move a value across
+a rounding boundary: tolerances are stated per test.  The CUDA kernels
+themselves are held against this plain version on the card
+(tests/test_torch_cuda.py, chip_smoke.py)."""
+
+import functools
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpu_viterbi.chain import genkernel as jgen
+from tpu_viterbi.config import ChannelIn as JChannelIn
+from tpu_viterbi_torch.chain import genkernel as gen
+from tpu_viterbi_torch.chain.quantize import unpack_to_soft
+from tpu_viterbi_torch.config import ChannelIn
+from tpu_viterbi_torch.sharding.simulate import DEFAULT_SCALES
+
+torch.set_num_threads(1)
+
+N = 33 * 1024 + 13        # not a multiple of 32: the tail pack is masked
+CHANNELS = list(ChannelIn)
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas(channel: ChannelIn, snr_db: float, seed: int = 3):
+    """packed_workload_pallas in interpret mode, as numpy (cached: one
+    interpret-mode run per channel and SNR in this file)."""
+    bits, stream = jgen.packed_workload_pallas(
+        jax.random.PRNGKey(seed), N, JChannelIn(int(channel)), snr_db,
+        DEFAULT_SCALES[channel], interpret=True)
+    return np.array(bits), np.array(stream)
+
+
+def _port(channel: ChannelIn, snr_db: float, seed: int = 3, base: int = 0):
+    bits, stream = gen.packed_workload_cuda(
+        seed, N, channel, snr_db, DEFAULT_SCALES[channel], device="cpu",
+        base=base)
+    return bits.numpy(), stream.numpy()
+
+
+def _counters(rng, n):
+    return (rng.integers(0, 2 ** 32, size=n, dtype=np.uint32),
+            rng.integers(0, 2 ** 32, size=n, dtype=np.uint32))
+
+
+def test_threefry_matches_jax_prng(rng):
+    from jax._src.prng import threefry_2x32
+    c0, c1 = _counters(rng, 1000)
+    k = rng.integers(0, 2 ** 32, size=2, dtype=np.uint32)
+    want = threefry_2x32(jnp.asarray(k), jnp.stack([jnp.asarray(c0),
+                                                    jnp.asarray(c1)]))
+    got = gen.threefry2x32(int(k[0]), int(k[1]),
+                           torch.from_numpy(c0.view(np.int32)),
+                           torch.from_numpy(c1.view(np.int32)))
+    for g, w in zip(got, want):
+        assert np.array_equal(g.numpy().astype(np.uint32), np.asarray(w))
+
+
+@pytest.mark.parametrize("rounds", [5, 13, 20])
+def test_threefry_matches_jax_kernel(rng, rounds):
+    """The Pallas kernel's threefry at its 13 rounds and at group
+    boundaries on either side (key injection after a short last group)."""
+    c0, c1 = _counters(rng, 1000)
+    k0, k1 = (int(x) for x in rng.integers(0, 2 ** 32, size=2))
+    want = jgen.threefry2x32(
+        jnp.uint32(k0).view(jnp.int32), jnp.uint32(k1).view(jnp.int32),
+        jnp.asarray(c0).view(jnp.int32), jnp.asarray(c1).view(jnp.int32),
+        rounds=rounds)
+    got = gen.threefry2x32(k0, k1, torch.from_numpy(c0.astype(np.int64)),
+                           torch.from_numpy(c1.astype(np.int64)), rounds)
+    for g, w in zip(got, want):
+        assert np.array_equal(g.numpy().astype(np.uint32),
+                              np.asarray(w).view(np.uint32))
+
+
+def test_normal_pair_matches_jax(rng):
+    """atol 2e-4, the JAX package's own bound against the closed form
+    (tests/test_genkernel.py:62): f32 log/cos/sin differ by ulps."""
+    x0, x1 = _counters(rng, 1 << 16)
+    want = jgen.normal_pair(jnp.asarray(x0).view(jnp.int32),
+                            jnp.asarray(x1).view(jnp.int32))
+    got = gen.normal_pair(torch.from_numpy(x0.astype(np.int64)),
+                          torch.from_numpy(x1.astype(np.int64)))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                   atol=2e-4)
+
+
+@pytest.mark.parametrize("channel", CHANNELS, ids=lambda c: c.name)
+def test_plain_generator_matches_pallas_noiseless(channel):
+    """sigma = 0: bit packs and channel words (FP32: values) equal."""
+    want_bits, want = _pallas(channel, math.inf)
+    bits, got = _port(channel, math.inf)
+    assert bits.dtype == np.int32 and got.dtype == want.dtype
+    assert bits.shape == want_bits.shape == (-(-N // 32),)
+    assert got.shape == want.shape
+    assert np.array_equal(bits, want_bits)
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("channel", [ChannelIn.SOFT8, ChannelIn.FP32],
+                         ids=lambda c: c.name)
+def test_plain_generator_matches_pallas_noisy(channel):
+    """3 dB: the bit packs are equal.  SOFT8: at most 1e-4 of the fields
+    differ, each by one quantization step (an ulp of z moved a value across
+    a rint boundary).  FP32: each value within 4 ulp of the noise term
+    scale*sigma*|z| plus 4 ulp of the value (the add's own rounding)."""
+    want_bits, want = _pallas(channel, 3.0)
+    bits, got = _port(channel, 3.0)
+    assert np.array_equal(bits, want_bits)
+    if channel == ChannelIn.FP32:
+        noise = np.abs(np.abs(want) - DEFAULT_SCALES[channel])
+        tol = 4 * (np.spacing(noise.astype(np.float32))
+                   + np.spacing(np.abs(want)))
+        assert np.all(np.abs(got - want) <= tol)
+        assert np.std(want) > 0.5            # the noise is there
+        return
+    f_got = unpack_to_soft(torch.from_numpy(got), channel).numpy()
+    f_want = unpack_to_soft(torch.from_numpy(want), channel).numpy()
+    diff = np.abs(f_got.astype(np.int64) - f_want)
+    assert np.count_nonzero(diff) <= 1e-4 * diff.size
+    assert diff.max() <= 1
+    assert np.count_nonzero(np.abs(f_want) != 32) > diff.size // 2
+
+
+def test_ref_words_from_packs_matches_jax(rng):
+    packs = rng.integers(-2 ** 31, 2 ** 31, size=100).astype(np.int32)
+    for extra_l, m in ((26, 32 * 99), (26, 32 * 100), (26, 32 * 130),
+                       (1, 64)):
+        want = jgen.ref_words_from_packs(jnp.asarray(packs), extra_l, m)
+        got = gen.ref_words_from_packs(torch.from_numpy(packs), extra_l, m)
+        assert np.array_equal(got.numpy().astype(np.uint32),
+                              np.asarray(want))
+
+
+@pytest.mark.parametrize("channel", CHANNELS, ids=lambda c: c.name)
+def test_base_generates_the_slice(channel):
+    """Counter mode: the stream from word (value) ``base`` on is that slice
+    of the base = 0 stream, noise included."""
+    full_bits, full = _port(channel, 3.0)
+    quantum = 64 if channel == ChannelIn.FP32 else \
+        gen.word_format(channel)[2]
+    base = quantum * (full.shape[0] // quantum // 3)
+    bits, got = _port(channel, 3.0, base=base)
+    assert np.array_equal(got, full[base:])
+    assert np.array_equal(bits, full_bits[base // quantum:])
+
+
+def test_key_data_matches_prng_key():
+    for seed in (0, 7, 2 ** 31 - 1, -1, -2 ** 31, 2 ** 32 - 1):
+        want = np.asarray(jax.random.PRNGKey(seed)).astype(np.uint32)
+        assert gen.key_data(seed) == tuple(int(x) for x in want)
+
+
+def test_wrappers_reject_bad_arguments():
+    with pytest.raises(ValueError, match="K8 does"):
+        gen.K7(0, 1, 1000, ChannelIn.FP32, 0.0, 4.0)
+    with pytest.raises(ValueError, match="K7 does"):
+        gen.K8(0, 1, 1000, ChannelIn.SOFT8, 0.0, 32.0)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        gen.K7(0, 1, 1000, ChannelIn.SOFT8, 0.0, 32.0, base=8)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        gen.K8(0, 1, 1000, ChannelIn.FP32, 0.0, 4.0, base=2048)
+    with pytest.raises(ValueError, match="int32"):
+        gen.K8(0, 1, 2 ** 30, ChannelIn.FP32, 0.0, 4.0)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        gen.K7(0, 1, 1000, ChannelIn.HARD, 0.0, 1.0, device="meta")
+
+
+def test_cpu_calls_run_the_plain_version_uncounted():
+    before = (gen.K7.launches, gen.K8.launches)
+    bits, words = gen.K7(0, 5, 1000, ChannelIn.SOFT4, 0.5, 4.0)
+    want = gen.gen_words_torch(0, 5, 1000, ChannelIn.SOFT4, 0.5, 4.0)
+    assert torch.equal(bits, want[0]) and torch.equal(words, want[1])
+    bits, vals = gen.K8(0, 5, 1000, ChannelIn.FP32, 0.5, 4.0)
+    want = gen.gen_values_torch(0, 5, 1000, 0.5, 4.0)
+    assert torch.equal(bits, want[0]) and torch.equal(vals, want[1])
+    assert (gen.K7.launches, gen.K8.launches) == before

@@ -5,10 +5,12 @@ drop-in comparable.
 
 Usage:  python -m tpu_viterbi_torch -n 1000000 -s 5.5 -i s8 -m b32 -v
         python -m tpu_viterbi_torch -i s8 --decode-file stream.bin -v
+        python -m tpu_viterbi_torch -n 32000000 -s 5.5 -i s8 --e2e-device -v
 
-The chain and the file decodes run on the GPU when there is one (kernels
-K1, K2 and K3 decode), else on the CPU with the plain torch core.  The
-in-graph e2e mode and profiling are not ported yet.
+The chain, the file decodes and the in-graph simulation (--e2e-device:
+kernels K7/K8 generate, K1, K2 or K3 decode, the error count stays on the
+device) run on the GPU when there is one, else on the CPU with the plain
+torch versions.  Profiling and the multi-device split are not ported yet.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+import time
 
 import numpy as np
 import torch
@@ -105,6 +108,16 @@ def parse_args(argv=None):
                         "fixed host memory for arbitrarily long files, "
                         "bit-identical output to the one-shot decode; N "
                         "must be a multiple of 1024")
+    p.add_argument("--e2e-device", action="store_true",
+                   help="run the whole chain (generate -> decode -> BER) "
+                        "on the device; only the error count leaves it "
+                        "(sharding/simulate.py)")
+    p.add_argument("--generator", choices=["auto", "cuda", "torch"],
+                   default="auto",
+                   help="with --e2e-device: in-graph workload generator — "
+                        "'cuda' = fused counter-mode kernels K7/K8 "
+                        "(chain/genkernel.py), 'torch' = element chain, "
+                        "'auto' = cuda on a GPU")
     return p.parse_args(argv)
 
 
@@ -258,6 +271,49 @@ def run_decode_file(args, cfg: DecoderConfig) -> int:
     return 0
 
 
+def run_e2e_device(args, cfg: DecoderConfig) -> int:
+    """--e2e-device: the in-graph simulation on one device (the GPU when
+    there is one).  Same final output lines as the pipeline path; -v adds
+    the first call's time, the kernel build included, and one steady-state
+    call's, between CUDA events on a GPU."""
+    from .sharding.simulate import build_sharded_simulation
+
+    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    if args.generator == "cuda" and device.type != "cuda":
+        raise ConfigResolutionError(
+            f"generator='cuda' needs a CUDA device "
+            f"(torch.cuda.is_available()={torch.cuda.is_available()})")
+    seed = args.seed if args.seed is not None else \
+        int(np.random.SeedSequence().entropy % (2 ** 31))
+    t0 = time.perf_counter()
+    fn, m = build_sharded_simulation(
+        cfg, args.num, snr_db=args.snr, scale=40000.0,
+        dec_len=args.dec_len or DEFAULT_DEC_LEN, generator=args.generator,
+        survivor=args.survivor, device=device)
+    ben = int(fn(seed))
+    t1 = time.perf_counter()
+    if args.verbose:
+        print(f"\nIn-graph chain over 1 device(s): {m} bits decoded")
+        print(f"  - first call (includes the kernel build): {t1 - t0:.2f} s")
+        if device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            ben2 = fn(seed + 1)
+            end.record()
+            end.synchronize()
+            dt = start.elapsed_time(end) / 1e3
+        else:
+            t0 = time.perf_counter()
+            ben2 = fn(seed + 1)
+            dt = time.perf_counter() - t0
+        print(f"  - steady-state per call: {dt * 1e3:.1f} ms "
+              f"({m / dt / 1e9:.3g} Gb/s e2e)   [BEN {int(ben2)}]\n")
+    print("Pipeline executed.")
+    print(f"Final results -> BEN: {ben}   BER: {ben / args.num:g}")
+    return 0
+
+
 def run_pipeline(message_len: int, snr: float, cfg: DecoderConfig,
                  verbose: bool = False, seed=None, dec_len=None,
                  backend: str = "auto", survivor: str = "auto",
@@ -335,7 +391,9 @@ def main(argv=None) -> int:
         for bad, flag in ((args.num is not None, "-n/--num"),
                           (args.snr is not None, "-s/--snr"),
                           (args.seed is not None, "--seed"),
-                          (args.emit_file is not None, "--emit-file")):
+                          (args.emit_file is not None, "--emit-file"),
+                          (args.e2e_device, "--e2e-device"),
+                          (args.generator != "auto", "--generator")):
             if bad:
                 print(f"Error: {flag} is not applicable with --decode-file "
                       "(the file IS the channel stream).", file=sys.stderr)
@@ -359,6 +417,24 @@ def main(argv=None) -> int:
         print("Error: --out-file requires --decode-file (simulation mode "
               "verifies in memory; use --emit-file to dump its packed "
               "stream).", file=sys.stderr)
+        return -1
+    # the in-graph path has no per-element backend and keeps its channel
+    # stream on the device: reject those flags rather than ignore them;
+    # conversely --generator only exists in-graph
+    if args.e2e_device:
+        if args.backend != "auto":
+            print("Error: --backend is not applicable with --e2e-device "
+                  "(the in-graph simulation selects its decode kernel via "
+                  "--survivor / device-memory fit).", file=sys.stderr)
+            return -1
+        if args.emit_file is not None:
+            print("Error: --emit-file is not applicable with --e2e-device "
+                  "(the in-graph channel stream never leaves the device; "
+                  "emit from the pipeline path instead).", file=sys.stderr)
+            return -1
+    elif args.generator != "auto":
+        print("Error: --generator requires --e2e-device (the pipeline path "
+              "always uses the host element chain).", file=sys.stderr)
         return -1
     if args.num is None:
         args.num = 32_000_000        # reference default (main.cpp:176)
@@ -388,6 +464,8 @@ def main(argv=None) -> int:
     try:
         if args.decode_file:
             return run_decode_file(args, cfg)
+        if args.e2e_device:
+            return run_e2e_device(args, cfg)
         ben, _, _ = run_pipeline(args.num, args.snr, cfg,
                                  verbose=args.verbose, seed=args.seed,
                                  dec_len=args.dec_len, backend=args.backend,
@@ -395,8 +473,8 @@ def main(argv=None) -> int:
                                  emit_file=args.emit_file)
     except ConfigResolutionError as e:
         # flag combinations the resolved backend cannot honor (no GPU for
-        # --backend cuda): reference-style error line; any other error is
-        # a real bug and keeps its traceback
+        # --backend or --generator cuda): reference-style error line; any
+        # other error is a real bug and keeps its traceback
         print(f"Error: {e}", file=sys.stderr)
         return -1
     ber = ben / args.num

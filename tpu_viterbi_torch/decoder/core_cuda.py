@@ -9,11 +9,13 @@
 
 All three instantiate one kernel template in ``csrc/viterbi.cu``, which
 exports one plain C entry point per kernel (``viterbi_k1_launch`` ...).
-The source is compiled once by ``nvcc`` into a shared library, loaded with
-``ctypes`` — a build of seconds, where an extension that includes
+Every ``csrc/*.cu`` (this file's kernels and the generator kernels K7/K8 of
+``csrc/genkernel.cu``) goes into ONE shared library, loaded with
+``ctypes``: ``nvcc`` compiles the sources in parallel, one process each,
+and links them once — a build of seconds, where an extension that includes
 PyTorch's headers takes minutes.  The library is built at first use from
-the package's own source into ``tpu_viterbi_torch/_build/``, keyed by a
-hash of the source and the flags.
+the package's own sources into ``tpu_viterbi_torch/_build/``, keyed by a
+hash of the sources and the flags.
 
 None of the TPU staging is ported (``_body_and_edge``, the lane-roll halo,
 ``padded_input_words``, ``LANE_TILE``, ``fp32_ud_words``): each thread
@@ -43,13 +45,13 @@ from .core_torch import (BlockPlan, assemble_output, decode_blocks_torch,
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-SOURCE = CSRC / "viterbi.cu"
+SOURCE = CSRC / "viterbi.cu"        # K1, K2, K3
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 SURVIVORS = ("auto", "full", "window")
 
-_library = None     # the loaded ctypes.CDLL of SOURCE
+_library = None     # the loaded ctypes.CDLL of every csrc/*.cu
 build_log = None    # nvcc's -Xptxas -v report of this process' build
 
 
@@ -65,27 +67,56 @@ def find_nvcc() -> str:
 
 
 def load_library() -> ctypes.CDLL:
-    """Compile SOURCE (once per hash of the source and the flags) and load
-    it.  Sets ``build_log`` to ptxas's register/spill report when this
-    process compiled it; it stays None when the library was cached."""
+    """Compile every ``csrc/*.cu`` (once per hash of the sources and the
+    flags) into one library and load it: one ``nvcc -c`` per source, all
+    started together, then one ``nvcc -shared`` link.  Sets ``build_log``
+    to ptxas's register/spill report when this process compiled it; it
+    stays None when the library was cached."""
     global _library, build_log
     if _library is not None:
         return _library
-    tag = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"lib{SOURCE.stem}_{tag}.so"
+    sources = sorted(CSRC.glob("*.cu"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        digest.update(src.name.encode() + b"\0" + src.read_bytes())
+    lib_path = BUILD_DIR / f"libtpu_viterbi_{digest.hexdigest()[:16]}.so"
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = find_nvcc()
         tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed building {SOURCE.name} "
-                               f"(rc {res.returncode}):\n{res.stderr}")
-        build_log = res.stderr
+        objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                                   str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for src, obj in zip(sources, objs)]
+        logs = [p.communicate()[1] for p in procs]     # waits for every one
+        try:
+            for src, p, log in zip(sources, procs, logs):
+                if p.returncode != 0:
+                    raise RuntimeError(f"nvcc failed building {src.name} "
+                                       f"(rc {p.returncode}):\n{log}")
+            res = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                                  *map(str, objs)], capture_output=True,
+                                 text=True)
+            if res.returncode != 0:
+                raise RuntimeError(f"nvcc failed linking {lib_path.name} "
+                                   f"(rc {res.returncode}):\n{res.stderr}")
+        finally:
+            for obj in objs:
+                obj.unlink(missing_ok=True)
+        build_log = "".join(logs)
         os.replace(tmp, lib_path)       # atomic: concurrent builds
     _library = ctypes.CDLL(str(lib_path))
     return _library
+
+
+def bind(entry: str, argtypes):
+    """Entry point ``entry`` of the library (built and loaded once a
+    process), with its argument types; it returns the cudaError_t."""
+    fn = getattr(load_library(), entry)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
 
 
 class CudaKernel:
@@ -99,6 +130,7 @@ class CudaKernel:
     def __init__(self, name: str, fp32, window: bool):
         self.name = name
         self.entry = f"viterbi_{name.lower()}_launch"
+        self.source = SOURCE
         self.fp32 = fp32
         self.window = window
         self.launches = 0
@@ -118,12 +150,9 @@ class CudaKernel:
         """Build and load the library (once a process), bind the entry."""
         if self._fn is not None:
             return
-        fn = getattr(load_library(), self.entry)
         vp, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, ctypes.c_longlong, vp, vp, i32, i32, i32, i32,
-                       i32, i32, i32, i32, i32, vp]
-        fn.restype = ctypes.c_int
-        self._fn = fn
+        self._fn = bind(self.entry, [vp, ctypes.c_longlong, vp, vp, i32, i32,
+                                     i32, i32, i32, i32, i32, i32, i32, vp])
 
     def __call__(self, packed: torch.Tensor, cfg: DecoderConfig,
                  plan: BlockPlan) -> torch.Tensor:
