@@ -1,11 +1,14 @@
-"""Smoke run of the PyTorch/CUDA port on one GPU: builds kernels K1, K2, K3
-(decode) and K7, K8 (workload generator) from the checkout into one library
-(one nvcc per source, started together, one link), holds each against its
-plain PyTorch version, drives the simulation chain, the file-serving paths
-(one-shot, windowed, streamed, FP32, several files) and the in-graph
-simulation (--e2e-device: SOFT8, FP32, windowed, and a noisy run) through
-the port's CLI at the reference's default size, and times each kernel
-against its plain version and the in-graph simulation end to end.
+"""Smoke run of the PyTorch/CUDA port on one GPU: builds kernels K1-K6
+(decode and staging) and K7, K8 (workload generator) from the checkout into
+one library (one nvcc per source, started together, one link), holds each
+against its plain PyTorch version, drives the simulation chain, the
+file-serving paths (one-shot, windowed, streamed, FP32, several files) and
+the in-graph simulation (--e2e-device: SOFT8, FP32, windowed, and a noisy
+run) through the port's CLI at the reference's default size, drives the
+staged-input decode paths (decode_packed_cuda with fused=False and
+fp32_words=False, the values-in entry decode_blocks_cuda) at that size, and
+times each kernel against its plain version and the in-graph simulation end
+to end.
 
     python3 chip_smoke.py
 
@@ -51,8 +54,9 @@ from tpu_viterbi_torch.config import (ChannelIn, DecodeOut,  # noqa: E402
                                       DecoderConfig)
 from tpu_viterbi_torch.decoder import core_cuda  # noqa: E402
 from tpu_viterbi_torch.decoder.core_torch import (  # noqa: E402
-    decode_blocks_torch, decode_packed_torch, needs_int32_renorm,
-    plan_blocks)
+    clamp_split, decode_blocks_torch, decode_packed_torch,
+    decode_planes_torch, decode_staged_torch, needs_int32_renorm,
+    plan_blocks, stage_transpose, words_per_block)
 from tpu_viterbi_torch.sharding.simulate import (  # noqa: E402
     DEFAULT_SCALES, build_sharded_simulation)
 from tpu_viterbi_torch.utils.bits import (count_bit_errors,  # noqa: E402
@@ -64,18 +68,26 @@ FP32 = DecoderConfig(ChannelIn.FP32)
 DEC_LEN = 2048                      # ViterbiGPU.DEFAULT_DEC_LEN
 SEED = 7
 K1, K2, K3 = core_cuda.K1, core_cuda.K2, core_cuda.K3
+K4, K5, K6 = core_cuda.K4, core_cuda.K5, core_cuda.K6
 K7, K8 = genkernel.K7, genkernel.K8
 KERNELS = core_cuda.KERNELS + genkernel.KERNELS
 REPLACES = {"K1": "tpu_viterbi/decoder/core_pallas.py:638",
             "K2": "tpu_viterbi/decoder/core_pallas.py:683",
             "K3": "tpu_viterbi/decoder/core_pallas.py:440",
+            "K4": "tpu_viterbi/decoder/core_pallas.py:503",
+            "K5": "tpu_viterbi/decoder/core_pallas.py:617",
+            "K6": "tpu_viterbi/decoder/core_pallas.py:1061",
             "K7": "tpu_viterbi/chain/genkernel.py:157",
             "K8": "tpu_viterbi/chain/genkernel.py:294"}
 CLI_SCALE = 40000.0                 # the CLI's channel scale (main.cpp:137)
 
 
+T0 = time.perf_counter()
+
+
 def say(phase: str, msg: str) -> None:
-    print(f"[{phase}] {msg}", flush=True)
+    """One phase line, with the seconds since the script started."""
+    print(f"[{phase} @{time.perf_counter() - T0:.1f} s] {msg}", flush=True)
 
 
 def device_phase():
@@ -95,7 +107,7 @@ def device_phase():
 
 def build_phase():
     """One nvcc per source, all started together, and one link build the
-    library of the five kernels; each binds its entry point."""
+    library of the eight kernels; each binds its entry point."""
     t0 = time.perf_counter()
     for k in KERNELS:
         k.build()
@@ -133,8 +145,10 @@ def max_abs_diff(a, b) -> int:
                .abs().max())
 
 
-def compare_phase(gen) -> int:
-    """K1 against decode_blocks_torch on the same CUDA tensors."""
+def compare_phase(gen, tally) -> int:
+    """K1 against decode_blocks_torch on the same CUDA tensors, and the
+    staged paths of the same words (staged_checks) against the same plain
+    result."""
     cases = []
     for ch in (ChannelIn.HARD, ChannelIn.SOFT4, ChannelIn.SOFT8,
                ChannelIn.SOFT16):
@@ -159,6 +173,7 @@ def compare_phase(gen) -> int:
                 f" b{cfg.bits_per_pack} dec_len {plan.dec_len} blocks "
                 f"{plan.num_blocks}: max |diff| {err}")
         worst = max(worst, err)
+        staged_checks(tally, x, cfg, plan, False, want)
         n_renorm += needs_int32_renorm(cfg, plan)
         n_single += plan.num_blocks == 1
         n_overlap += plan.overlap_bits > 0
@@ -282,11 +297,13 @@ def timing_phase(card: str):
     return k1_ms, plain_ms
 
 
-def window_compare_phase(gen) -> int:
+def window_compare_phase(gen, tally) -> dict:
     """K2 (FP32, full store) and K3 (every channel, window) against
-    decode_blocks_torch on the same CUDA tensors.  Random words: the
-    windowed decode is held against the plain windowed core, not against
-    the full store, from which it legitimately differs on noise."""
+    decode_blocks_torch on the same CUDA tensors, and the staged paths of
+    the same words against the same plain result (staged_checks; K4 on
+    unclamped f32 values against its own).  Random words: the windowed
+    decode is held against the plain windowed core, not against the full
+    store, from which it legitimately differs on noise."""
     cases = []
     for out in (DecodeOut.O_B32, DecodeOut.O_B16):
         cfg = DecoderConfig(ChannelIn.FP32, decode_out=out)
@@ -318,6 +335,9 @@ def window_compare_phase(gen) -> int:
                 f"{plan.dec_len} blocks {plan.num_blocks}: max |diff| {err}")
         worst[k.name] = max(worst[k.name], err)
         n_plans[k.name] += 1
+        staged_checks(tally, x, cfg, plan, window, want)
+        if cfg.channel_in == ChannelIn.FP32:
+            unclamped_checks(tally, cfg, plan, window, gen)
     say("3b kernel vs plain", f"K2 bit-equal to core_torch on "
         f"{n_plans['K2']} FP32 plans (b32/b16 x dec_len 32/96/2048 with "
         f"overlap, and a single block; wire of N(0, 81) values with 5 % NaN "
@@ -326,6 +346,14 @@ def window_compare_phase(gen) -> int:
         f"{n_plans['K3']} plans (HARD/SOFT4/SOFT8/SOFT16/FP32 x b32/b16 x "
         f"dec_len 32/96/224/2048, random words); max |diff| "
         f"{worst['K3']}")
+    say("3d kernel vs plain", f"staged paths bit-equal to the plain "
+        f"decodes of phases 3-3c on the same words, full store (phase 3's "
+        f"plans, renorm included, and the FP32 plans of 3b) and window "
+        f"(3c's plans): K4 words and int32 values (K6 -> K4), K5 (K6 -> "
+        f"clamp and split -> K5), K4 on unclamped f32 values (NaN, +-inf, "
+        f"+-3e9) against its own plain version; checks {tally['n']}; max "
+        f"|diff| {tally['worst']}")
+    worst.update(tally["worst"])
     return worst
 
 
@@ -400,14 +428,18 @@ def multi_file_phase(tmp: Path, card: str):
 
 
 def headline_packed(cfg, seed: int):
-    pipe = (RandBitGen(HEADLINE_BITS, seed=seed, device="cuda")
+    """The 32M-bit transmission at 5.5 dB on the card: (packed channel
+    stream, its plan, the source bits)."""
+    pipe = (RandBitGen(HEADLINE_BITS, seed=seed, device="cuda").probe()
             | ConvolutionalEncoder()
             | AddNoise(snr_to_sigma(5.5), seed=seed + 1, device="cuda")
             | SoftDecisionPacker(cfg.channel_in, scale=40000.0))
-    packed = pipe.run().final_output
+    res = pipe.run()
+    packed = res.final_output
     input_num = packed.shape[0] * cfg.enc_data_per_pack
     return packed, plan_blocks(cfg.get_message_len(input_num),
-                               cfg.bits_per_pack, DEC_LEN)
+                               cfg.bits_per_pack, DEC_LEN), \
+        res.probed_outputs[0]
 
 
 def kernel_times_phase(card: str):
@@ -415,7 +447,7 @@ def kernel_times_phase(card: str):
     events, each beside its plain version on the same stream."""
     times = {}
     for kernel, cfg, window in ((K2, FP32, False), (K3, HEADLINE, True)):
-        packed, plan = headline_packed(cfg, 21)
+        packed, plan, _ = headline_packed(cfg, 21)
         kernel(packed, cfg, plan)                            # warm-up
         k_ms, k_all, k_out = cuda_ms(lambda: kernel(packed, cfg, plan), 5)
         decode_blocks_torch(packed, cfg, plan, window)       # warm-up
@@ -620,13 +652,252 @@ def generator_times_phase(card: str):
     return times, e2e
 
 
+def random_values(cfg, plan, gen):
+    """(S, 2) soft values for the values-in entry, S a little short of the
+    plan's stages (the last block reads zero fill): integer channels within
+    their field range (the contract of decode_blocks_cuda); FP32 values of
+    scale 30, NOT clamped, with 4 % NaN, 2 % each of +-inf and 2 % each of
+    +-3e9 (past the int32 range)."""
+    shape = (plan.message_len + 57, 2)
+    if cfg.channel_in == ChannelIn.FP32:
+        x = torch.randn(shape, generator=gen, device="cuda") * 30
+        for frac, v in ((0.04, float("nan")), (0.02, float("inf")),
+                        (0.02, float("-inf")), (0.02, 3e9), (0.02, -3e9)):
+            x[torch.rand(shape, generator=gen, device="cuda") < frac] = v
+        return x
+    if cfg.channel_in == ChannelIn.HARD:
+        return torch.randint(0, 2, shape, generator=gen, device="cuda",
+                             dtype=torch.int32) * 2 - 1
+    half = 1 << (cfg.enc_data_width - 1)
+    return torch.randint(-half, half, shape, generator=gen, device="cuda",
+                         dtype=torch.int32)
+
+
+def bits_diff(a, b) -> int:
+    """max |diff| of two tensors' 32-bit patterns (f32 read as int32, so a
+    NaN equals the same NaN)."""
+    return max_abs_diff(a.view(torch.int32), b.view(torch.int32))
+
+
+def new_tally():
+    """Worst |diff| per staged kernel and the number of checks per path."""
+    return {"worst": {"K4": 0, "K5": 0, "K6": 0},
+            "n": {"K4 words": 0, "K4 int32 values": 0, "K4 f32 values": 0,
+                  "K5": 0, "K6": 0}}
+
+
+def check_staged(tally, kernel, what, cfg, plan, got, want):
+    """Raise unless a staged kernel's output equals ``want`` bit for bit;
+    count it in ``tally``."""
+    torch.cuda.synchronize()
+    err = bits_diff(got, want)
+    if got.shape != want.shape or err:
+        raise AssertionError(
+            f"{kernel.name} ({what}) disagrees with its plain version: "
+            f"{cfg.channel_in.name} b{cfg.bits_per_pack} dec_len "
+            f"{plan.dec_len} blocks {plan.num_blocks}: max |diff| {err}")
+    tally["worst"][kernel.name] = max(tally["worst"][kernel.name], err)
+    tally["n"][what] += 1
+
+
+def staged_checks(tally, x, cfg, plan, window: bool, want):
+    """The staged paths on the words (FP32 wire) ``x`` that K1/K2/K3 were
+    just held against: ``want`` is their plain decode, and decode_staged_
+    torch / decode_planes_torch on the staged forms equal it by
+    construction (tests/test_torch_staged.py), so the staged kernels are
+    held against the same plain result.  K6 stages the words, K4 decodes
+    them (word mode), and K6 -> K4 decodes the words' int32 soft values
+    (value mode; the stream padded with zero words first, as K1 reads it);
+    for FP32, K6 -> clamp and split -> K5.  Each K6 output is held against
+    stage_transpose."""
+    b = plan.num_blocks
+
+    def staged(v, stride, win):
+        st = K6(v, stride, win, b)
+        check_staged(tally, K6, "K6", cfg, plan, st,
+                     stage_transpose(v, stride, win, b))
+        return st
+
+    wpb, wph = words_per_block(cfg, plan)
+    wt = staged(x, wpb, wpb + wph)
+    if cfg.channel_in == ChannelIn.FP32:
+        check_staged(tally, K5, "K5", cfg, plan,
+                     K5(*clamp_split(wt, plan), cfg, plan, window), want)
+        return
+    check_staged(tally, K4, "K4 words", cfg, plan,
+                 K4(wt, cfg, plan, window), want)
+    need = (b - 1) * wpb + wpb + wph
+    padded = torch.cat([x, x.new_zeros(max(0, need - x.numel()))])[:need]
+    st = staged(unpack_to_soft(padded, cfg.channel_in), 2 * plan.dec_len,
+                2 * plan.block_len)
+    check_staged(tally, K4, "K4 int32 values", cfg, plan,
+                 K4(st, cfg, plan, window), want)
+
+
+def unclamped_checks(tally, cfg, plan, window: bool, gen):
+    """K4 in value mode on unclamped f32 (S, 2) values (NaN, +-inf, +-3e9)
+    against its plain version, and K6 on them against its."""
+    r = random_values(cfg, plan, gen).reshape(-1)
+    args = (2 * plan.dec_len, 2 * plan.block_len, plan.num_blocks)
+    st = K6(r, *args)
+    check_staged(tally, K6, "K6", cfg, plan, st, stage_transpose(r, *args))
+    check_staged(tally, K4, "K4 f32 values", cfg, plan,
+                 K4(st, cfg, plan, window),
+                 decode_staged_torch(st, cfg, plan, window))
+
+
+def counted(fn):
+    """fn() with every kernel's launch count set to 0 just before it and
+    read just after: (result, {kernel name: launches})."""
+    for k in KERNELS:
+        k.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k.name: k.launches for k in KERNELS}
+
+
+def staged_path_phase():
+    """The staged-input paths at full width on the 32M-bit transmission at
+    5.5 dB: decode_packed_cuda(fused=False) (K6 -> K4) equal to the K1
+    decode word for word, the values-in entry decode_blocks_cuda (K6 -> K4)
+    on the transmission's (S, 2) soft values equal to it too, and on the
+    FP32 wire fp32_words=False (K6 -> K5) equal to K2; BEN 0 for each.
+    Returns {kernel: launches in these runs}."""
+    launches = {"K4": 0, "K5": 0, "K6": 0}
+    for cfg, tag in ((HEADLINE, "SOFT8"), (FP32, "FP32")):
+        packed, plan, bits = headline_packed(cfg, SEED)
+        ref, ref_counts = counted(lambda: core_cuda.decode_packed_cuda(
+            packed, cfg, plan))
+        ref_kernel = "K2" if cfg is FP32 else "K1"
+        runs = [("fp32_words=False", "K5", lambda: core_cuda.decode_packed_cuda(
+            packed, cfg, plan, fp32_words=False))] if cfg is FP32 else [
+            ("fused=False", "K4", lambda: core_cuda.decode_packed_cuda(
+                packed, cfg, plan, fused=False)),
+            ("decode_blocks_cuda", "K4", lambda: core_cuda.decode_blocks_cuda(
+                unpack_to_soft(packed, cfg.channel_in).reshape(-1, 2), cfg,
+                plan))]
+        ben = count_bit_errors(ref, 32, bits, cfg.extra_l)
+        if ref_counts[ref_kernel] != 1 or ben:
+            raise AssertionError(f"{tag}: the {ref_kernel} decode failed "
+                                 f"(BEN {ben}, {ref_counts})")
+        for what, kernel, fn in runs:
+            got, counts = counted(fn)
+            ben = count_bit_errors(got, 32, bits, cfg.extra_l)
+            want = {"K6": 1, kernel: 1}
+            if not torch.equal(got, ref) or ben or any(
+                    counts[k] != want.get(k, 0) for k in counts):
+                raise AssertionError(
+                    f"{tag} {what}: {'equal' if torch.equal(got, ref) else 'differs from'}"
+                    f" the {ref_kernel} decode, BEN {ben}, launches {counts}")
+            for k in want:
+                launches[k] += counts[k]
+            say("13 staged path", f"{tag} {HEADLINE_BITS} bits 5.5 dB "
+                f"{what}: {got.shape[0]} words equal to the {ref_kernel} "
+                f"decode, BEN 0; launches {want}")
+    return launches
+
+
+def ab_ms(fa, fb, runs: int):
+    """CUDA-event times of fa and fb, launched in turns (a, b, b, a, ...):
+    (median a, median b, all a, all b, out a, out b)."""
+    ta, tb = [], []
+    for i in range(runs):
+        order = ((fa, ta), (fb, tb)) if i % 2 == 0 else ((fb, tb), (fa, ta))
+        for fn, ts in order:
+            ms, _, out = cuda_ms(fn, 1)
+            ts.append(ms)
+            if fn is fa:
+                out_a = out
+            else:
+                out_b = out
+    return (statistics.median(ta), statistics.median(tb), ta, tb, out_a,
+            out_b)
+
+
+def staged_times_phase(card: str):
+    """K6 on words and on values, K4 in word mode beside K1 (the
+    coalescing A/B), K4 in value mode (int32 values; f32 values, the
+    staged FP32 wire unclamped), K5 beside K2: CUDA-event medians of 5 at
+    the headline (launched in turns where two are compared), each plain
+    version's median of 3; outputs checked equal."""
+    times = {}
+    packed, plan, _ = headline_packed(HEADLINE, 21)
+    b = plan.num_blocks
+    wpb, wph = words_per_block(HEADLINE, plan)
+    vals = unpack_to_soft(packed, HEADLINE.channel_in)
+    stagings = (("words", packed, wpb, wpb + wph),
+                ("values", vals, 2 * plan.dec_len, 2 * plan.block_len))
+    staged = {}
+    for what, x, stride, win in stagings:
+        K6(x, stride, win, b)                                # warm-up
+        k_ms, k_all, got = cuda_ms(lambda: K6(x, stride, win, b), 5)
+        p_ms, p_all, want = cuda_ms(
+            lambda: stage_transpose(x, stride, win, b), 3)
+        err = bits_diff(got, want)
+        if err:
+            raise AssertionError(f"K6 on {what} differs from its plain "
+                                 f"version (max |diff| {err})")
+        staged[what] = got
+        mb = (x.numel() + got.numel()) * 4 / 1e6
+        times[f"K6 {what}"] = (k_ms, p_ms, err)
+        say("14 times", f"{card}: K6 on the headline's {what} "
+            f"({x.numel()} words -> {tuple(got.shape)}): median {k_ms:.4f} "
+            f"ms of {[round(t, 4) for t in k_all]} = "
+            f"{mb / k_ms / 1e3:.3f} TB/s of {mb:.1f} MB moved; plain median "
+            f"{p_ms:.3f} ms of {[round(t, 3) for t in p_all]}")
+    wire, fplan, _ = headline_packed(FP32, 21)
+    fw, fh = words_per_block(FP32, fplan)
+    wire_staged = K6(wire, fw, fw + fh, fplan.num_blocks)
+    cases = (("K4 words", K4, staged["words"], K1, packed, HEADLINE, plan),
+             ("K4 values", K4, staged["values"], None, None, HEADLINE,
+              plan),
+             ("K4 f32 values", K4, wire_staged, None, None, FP32, fplan),
+             ("K5", K5, clamp_split(wire_staged, fplan), K2, wire, FP32,
+              fplan))
+    for name, kernel, arg, other, oarg, cfg, pl in cases:
+        args = arg if kernel is K5 else (arg,)
+        fn = lambda: kernel(*args, cfg, pl)                  # noqa: E731
+        fn()
+        if other is None:
+            k_ms, k_all, got = cuda_ms(fn, 5)
+            line = ""
+        else:
+            other(oarg, cfg, pl)
+            k_ms, o_ms, k_all, o_all, got, o_out = ab_ms(
+                fn, lambda: other(oarg, cfg, pl), 5)
+            if not torch.equal(got, o_out):
+                raise AssertionError(f"{name} and {other.name} differ at "
+                                     f"the headline")
+            times[f"{other.name} beside {name}"] = (o_ms, o_all)
+            line = (f"; {other.name} in turns with it: median {o_ms:.4f} ms "
+                    f"of {[round(t, 4) for t in o_all]} ({name} / "
+                    f"{other.name} = {k_ms / o_ms:.3f})")
+        plain = (lambda: decode_planes_torch(*args, cfg, pl)) \
+            if kernel is K5 else (lambda: decode_staged_torch(arg, cfg, pl))
+        plain()                                              # warm-up
+        p_ms, p_all, want = cuda_ms(plain, 3)
+        err = max_abs_diff(got, want)
+        if err:
+            raise AssertionError(f"{name} differs from its plain version at "
+                                 f"the headline (max |diff| {err})")
+        times[name] = (k_ms, p_ms, err)
+        say("14 times", f"{card}: {name} at {pl.message_len} bits "
+            f"{cfg.channel_in.name} b32 dec_len {pl.dec_len}: median "
+            f"{k_ms:.4f} ms of {[round(t, 4) for t in k_all]} = "
+            f"{pl.message_len / k_ms / 1e6:.2f} Gb/s decoded{line}; plain "
+            f"median {p_ms:.1f} ms of {[round(t, 1) for t in p_all]} "
+            f"({p_ms / k_ms:.0f}x); outputs bit-equal")
+    return times
+
+
 def main() -> int:
     card = device_phase()
     build_phase()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1234)
-    err = compare_phase(gen)
-    worst = window_compare_phase(gen)
+    tally = new_tally()
+    err = compare_phase(gen, tally)
+    worst = window_compare_phase(gen, tally)
     worst.update(generator_compare_phase())
     launches = {"K1": main_path_phase()}
     err = max(err, noisy_chain_phase())
@@ -641,12 +912,16 @@ def main() -> int:
         multi_file_phase(Path(tmp), card)
     gen_launches, steady = e2e_phase()
     launches.update(gen_launches)
+    launches.update(staged_path_phase())
     times = kernel_times_phase(card)
     times["K1"] = (k1_ms, plain_ms, err)
     gen_times, e2e = generator_times_phase(card)
     times.update(gen_times)
     say("12 e2e summary", f"{card}: CLI steady-state lines {steady}; "
         f"simulate() medians {e2e} ms")
+    staged_times = staged_times_phase(card)
+    times.update({k: staged_times[f"{k} words" if k != "K5" else k]
+                  for k in ("K4", "K5", "K6")})
     print(json.dumps({"kernels": [{
         "name": k.name, "route": "cuda",
         "source": str(k.source.relative_to(ROOT)),

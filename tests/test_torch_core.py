@@ -166,7 +166,7 @@ def test_survivors_and_traceback_match_xla(rng):
                                         jplan.num_blocks)
     surv_j = core_xla.forward_scan_staged(rs_j, jcfg, jplan)
     rs_t = core_torch.stage_values(torch.from_numpy(x), cfg, plan)
-    surv_t = core_torch.forward_scan(rs_t, cfg, plan)
+    surv_t = core_torch.forward_scan_staged(rs_t, cfg, plan)
     assert np.array_equal(surv_t.numpy(), np.asarray(surv_j).astype(np.int64))
     tb_j = np.asarray(core_xla.traceback_scan(surv_j, jcfg, jplan))
     tb_t = core_torch.traceback_scan(surv_t, cfg, plan)

@@ -1,5 +1,7 @@
-"""Kernels K1, K2 and K3 on the card against their plain PyTorch version,
-and ViterbiGPU's CUDA path (run, run_stream, streaming); the generator
+"""Kernels K1-K6 on the card against their plain PyTorch versions, the
+staged-input paths (``decode_packed_cuda(fused=False)``,
+``fp32_words=False``, ``decode_blocks_cuda``) and their launch counts, and
+ViterbiGPU's CUDA path (run, run_stream, streaming); the generator
 kernels K7 and K8 against theirs, and the in-graph simulation on the card.
 Every test here needs a CUDA GPU and skips without one; the
 file imports no jax, so it runs on a machine that has only the port's
@@ -127,6 +129,167 @@ def test_k3_matches_plain_window(gpu, rng, channel, out, dec_len):
     assert core_cuda.K3.launches == before + 1
     assert torch.equal(got, core_torch.decode_blocks_torch(x, cfg, plan,
                                                            window=True))
+
+
+def _soft_values(rng, cfg, n_stages):
+    """(n_stages, 2) soft values for the values-in entry: integer channels
+    within their field range; FP32 unclamped, with NaN, +-inf and values
+    past the int32 range."""
+    if cfg.channel_in == ChannelIn.FP32:
+        r = (rng.standard_normal((n_stages, 2)) * 30).astype(np.float32)
+        for frac, v in ((0.04, np.nan), (0.02, np.inf), (0.02, -np.inf),
+                        (0.02, 3e9), (0.02, -5e9)):
+            r[rng.random(r.shape) < frac] = v
+        return r
+    if cfg.channel_in == ChannelIn.HARD:
+        return rng.choice(np.array([-1, 1], np.int32), size=(n_stages, 2))
+    half = 1 << (cfg.enc_data_width - 1)
+    return rng.integers(-half, half, size=(n_stages, 2)).astype(np.int32)
+
+
+def _launched(kernels, fn):
+    """fn()'s result and the launches it added to each kernel."""
+    before = [k.launches for k in kernels]
+    out = fn()
+    torch.cuda.synchronize()
+    return out, [k.launches - b for k, b in zip(kernels, before)]
+
+
+@pytest.mark.parametrize("channel", [ChannelIn.HARD, ChannelIn.SOFT4,
+                                     ChannelIn.SOFT8, ChannelIn.SOFT16],
+                         ids=lambda c: c.name)
+@pytest.mark.parametrize("out", [DecodeOut.O_B32, DecodeOut.O_B16],
+                         ids=lambda o: o.name)
+@pytest.mark.parametrize("dec_len", [32, 96])
+@pytest.mark.parametrize("window", [False, True], ids=["full", "window"])
+def test_k6_k4_word_mode_match_plain(gpu, rng, channel, out, dec_len,
+                                     window):
+    """K6 stages the packed words word-major, K4 decodes them (word mode),
+    each equal to its plain version; fused=False launches both once."""
+    cfg = DecoderConfig(channel, decode_out=out)
+    plan = core_torch.plan_blocks(dec_len * 9 - cfg.bits_per_pack,
+                                  cfg.bits_per_pack, dec_len)
+    x = torch.from_numpy(_words(rng, cfg, plan)).to(gpu)
+    wt, n = _launched([core_cuda.K6], lambda: core_cuda.stage_words_cuda(
+        x, cfg, plan))
+    assert n == [1] and torch.equal(wt, core_torch.stage_words(x, cfg, plan))
+    got, n = _launched([core_cuda.K4], lambda: core_cuda.K4(wt, cfg, plan,
+                                                            window))
+    assert n == [1]
+    assert torch.equal(got, core_torch.decode_staged_torch(wt, cfg, plan,
+                                                           window))
+    flat, n = _launched([core_cuda.K6, core_cuda.K4, core_cuda.K1],
+                        lambda: core_cuda.decode_packed_cuda(
+                            x, cfg, plan, fused=False, window=window))
+    assert n == [1, 1, 0]
+    assert torch.equal(flat, core_torch.decode_packed_torch(x, cfg, plan,
+                                                            window))
+
+
+@pytest.mark.parametrize("channel", list(ChannelIn), ids=lambda c: c.name)
+@pytest.mark.parametrize("out", [DecodeOut.O_B32, DecodeOut.O_B16],
+                         ids=lambda o: o.name)
+@pytest.mark.parametrize("window", [False, True], ids=["full", "window"])
+def test_k4_value_mode_matches_plain(gpu, rng, channel, out, window):
+    """K6 stages (S, 2) soft values as 2S words, K4 decodes them in value
+    mode (int32, or f32 unclamped), each equal to its plain version;
+    decode_blocks_cuda launches both once and equals decode_blocks."""
+    cfg = DecoderConfig(channel, decode_out=out)
+    plan = core_torch.plan_blocks(96 * 9 - cfg.bits_per_pack,
+                                  cfg.bits_per_pack, 96)
+    r = torch.from_numpy(_soft_values(rng, cfg, plan.message_len + 57)) \
+        .to(gpu)
+    args = (2 * plan.dec_len, 2 * plan.block_len, plan.num_blocks)
+    st = core_cuda.K6(r.reshape(-1), *args)
+    assert torch.equal(st.view(torch.int32), core_torch.stage_transpose(
+        r.reshape(-1), *args).view(torch.int32))
+    got, n = _launched([core_cuda.K4], lambda: core_cuda.K4(st, cfg, plan,
+                                                            window))
+    assert n == [1]
+    assert torch.equal(got, core_torch.decode_staged_torch(st, cfg, plan,
+                                                           window))
+    if not window:
+        flat, n = _launched([core_cuda.K6, core_cuda.K4], lambda:
+                            core_cuda.decode_blocks_cuda(r, cfg, plan))
+        assert n == [1, 1]
+        assert torch.equal(flat, core_torch.decode_blocks(
+            core_torch.gather_blocks(r, plan), cfg, plan))
+
+
+@pytest.mark.parametrize("out", [DecodeOut.O_B32, DecodeOut.O_B16],
+                         ids=lambda o: o.name)
+@pytest.mark.parametrize("dec_len", [32, 96, 2048])
+@pytest.mark.parametrize("window", [False, True], ids=["full", "window"])
+def test_k5_matches_plain_and_k2(gpu, rng, out, dec_len, window):
+    """K5 on the clamped planes of the staged f32 wire equals its plain
+    version, and (fp32_words=False) the raw-wire decode K2 / K3."""
+    cfg = DecoderConfig(ChannelIn.FP32, decode_out=out)
+    plan = core_torch.plan_blocks(dec_len * 9 - cfg.bits_per_pack,
+                                  cfg.bits_per_pack, dec_len)
+    x = torch.from_numpy(_words(rng, cfg, plan)).to(gpu)
+    r0, r1 = core_torch.clamp_split(core_cuda.stage_words_cuda(x, cfg, plan),
+                                    plan)
+    got, n = _launched([core_cuda.K5], lambda: core_cuda.K5(r0, r1, cfg, plan,
+                                                            window))
+    assert n == [1]
+    assert torch.equal(got, core_torch.decode_planes_torch(r0, r1, cfg, plan,
+                                                           window))
+    flat, n = _launched([core_cuda.K6, core_cuda.K5],
+                        lambda: core_cuda.decode_packed_cuda(
+                            x, cfg, plan, fp32_words=False, window=window))
+    assert n == [1, 1]
+    assert torch.equal(flat, core_cuda.decode_packed_cuda(x, cfg, plan,
+                                                          window=window))
+    planes = [r.contiguous() for r in (r0, r1)]     # two contiguous planes
+    assert torch.equal(core_cuda.K5(*planes, cfg, plan, window), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32],
+                         ids=["int32", "float32"])
+@pytest.mark.parametrize("stride,win,num,n", [
+    (64, 160, 33, 64 * 33 + 10), (1024, 1056, 100, 1024 * 100),
+    (8, 40, 1000, 5000), (100, 100, 1, 20)])
+def test_k6_matches_plain(gpu, dtype, stride, win, num, n):
+    """K6 on ragged shapes: windows past the stream zero-filled, halos over
+    several strides, one block, a stream shorter than one window."""
+    x = torch.arange(1, n + 1, device=gpu, dtype=dtype)
+    got, launches = _launched([core_cuda.K6], lambda: core_cuda.K6(
+        x, stride, win, num))
+    assert launches == [1] and got.dtype == dtype and got.is_contiguous()
+    assert torch.equal(got, core_torch.stage_transpose(x, stride, win, num))
+
+
+def test_staged_wrappers_reject_bad_input(gpu):
+    soft8 = DecoderConfig(ChannelIn.SOFT8)
+    fp32 = DecoderConfig(ChannelIn.FP32)
+    plan = core_torch.plan_blocks(2048 * 3, 32)
+    wpb, wph = core_torch.words_per_block(soft8, plan)
+    words = torch.zeros((wpb + wph, 3), dtype=torch.int32, device=gpu)
+    with pytest.raises(ValueError, match="int32"):
+        core_cuda.K4(words.float(), soft8, plan)
+    with pytest.raises(ValueError, match="contiguous"):
+        core_cuda.K4(torch.zeros((3, wpb + wph), dtype=torch.int32,
+                                 device=gpu).t(), soft8, plan)
+    with pytest.raises(ValueError, match="staged words"):
+        core_cuda.K4(words[:-1], soft8, plan)
+    with pytest.raises(ValueError, match="one device"):
+        core_cuda.K5(torch.zeros(plan.block_len, 3),
+                     torch.zeros(plan.block_len, 3, device=gpu), fp32, plan)
+    plane = torch.zeros((plan.block_len, 3), device=gpu)
+    with pytest.raises(ValueError, match="row stride"):
+        core_cuda.K5(plane, torch.zeros((plan.block_len, 6), device=gpu
+                                        )[:, ::2], fp32, plan)
+    with pytest.raises(ValueError, match="float32"):
+        core_cuda.K5(plane.double(), plane, fp32, plan)
+    with pytest.raises(ConfigResolutionError, match="FP32"):
+        core_cuda.K5(plane, plane, soft8, plan)
+    with pytest.raises(ValueError, match="int32 or float32"):
+        core_cuda.K6(torch.zeros(100, dtype=torch.int64, device=gpu), 8, 8, 4)
+    with pytest.raises(ValueError, match="1-D"):
+        core_cuda.K6(torch.zeros((10, 10), device=gpu), 8, 8, 4)
+    with pytest.raises(ValueError, match="unknown s16 layout"):
+        core_cuda.decode_packed_cuda(words.reshape(-1), soft8, plan,
+                                     s16="rows")
 
 
 @pytest.mark.parametrize("survivor", ["full", "window"])

@@ -225,6 +225,7 @@ def test_port_imports_no_jax():
             "import tpu_viterbi_torch, tpu_viterbi_torch.cli\n"
             "import tpu_viterbi_torch.__main__\n"
             "import tpu_viterbi_torch.decoder.core_cuda\n"
+            "import tpu_viterbi_torch.decoder.golden\n"
             "import tpu_viterbi_torch.chain.genkernel\n"
             "import tpu_viterbi_torch.chain.workload\n"
             "import tpu_viterbi_torch.sharding.simulate\n"

@@ -1,38 +1,56 @@
-// Kernels K1, K2 and K3: fused Viterbi decode (K=7, rate 1/2, polynomials
-// 0o171/0o133).  One thread per overlap-save time-block reads its block's
-// channel stream, runs branch metrics and the even/odd add-compare-select
-// (ACS) with register exchange, dumps a survivor pack every bpp stages and
-// traces back from state 0.
+// Kernels K1-K5: fused Viterbi decode (K=7, rate 1/2, polynomials
+// 0o171/0o133), and K6: the staging transpose that feeds K4 and K5.  In
+// the decode kernels one thread per overlap-save time-block reads its
+// block's channel input, runs branch metrics and the even/odd
+// add-compare-select (ACS) with register exchange, dumps a survivor pack
+// every bpp stages and traces back from state 0.
 //
-// One kernel template over the stage reader (the channel format), the pack
+// One kernel template over the stage reader (the input format), the pack
 // width and the survivor mode, with one plain C entry point per kernel:
 //   - K1, viterbi_k1_launch: IntReader<WIDTH> (HARD/SOFT4/SOFT8/SOFT16 packed
-//     int32 words), full store.  Replaces the TPU kernel
-//     tpu_viterbi/decoder/core_pallas.py:_viterbi_kernel_fused (the word-mode
-//     unpack of _viterbi_kernel and the full-store branch of _decode_core).
+//     int32 words, read from the flat stream), full store.  Replaces the TPU
+//     kernel tpu_viterbi/decoder/core_pallas.py:_viterbi_kernel_fused (the
+//     word-mode unpack of _viterbi_kernel and the full-store branch of
+//     _decode_core).
 //   - K2, viterbi_k2_launch: FloatReader (the FP32 channel's raw interleaved
 //     f32 wire), full store.  Replaces _viterbi_kernel_fused_f32v; none of its
-//     TPU staging is ported (_body_and_edge's roll halo, fp32_ud_words,
-//     stage_floats_2streams).
-//   - K3, viterbi_k3_launch: every reader with the windowed survivor ring in
-//     shared memory.  Replaces the window=True branch of _decode_core
-//     (:440-486) with its slot count survivor_window_slots (:295-315), the
-//     reference's one-pointer circular buffer (viterbi.cu:99-100).
-// The full store (K1, K2) lies in device memory as (n_packs, 64, B) 32-bit
-// words, so the 32 threads of a warp write 32 neighbouring words.
-// Its plain PyTorch version is tpu_viterbi_torch/decoder/core_torch.py
-// (decode_blocks_torch); the two must agree bit for bit.
+//     TPU staging is ported (_body_and_edge's roll halo, fp32_ud_words).
+//   - K3, viterbi_k3_launch: K1's and K2's readers with the windowed
+//     survivor ring in shared memory.  Replaces the window=True branch of
+//     _decode_core (:440-486) with its slot count survivor_window_slots
+//     (:295-315), the reference's one-pointer circular buffer
+//     (viterbi.cu:99-100).
+//   - K4, viterbi_k4_launch: the decode from STAGED input, full store or
+//     window: IntReader<WIDTH, true> on the (Lw, B) word-major words of K6
+//     (word mode), PlaneReader<int> / UnclampedReader on the (2 *
+//     block_len, B) staged values (value mode; f32 NOT clamped, exact on any
+//     value).  Replaces _viterbi_kernel called by _run_kernel
+//     (core_pallas.py:951-997).
+//   - K5, viterbi_k5_launch: PlaneReader<float> on the two f32 planes of
+//     stage_floats_2streams, clamped to [-8, 7] by the staging (values
+//     outside it are outside K5's contract), full store or window.  Replaces
+//     _viterbi_kernel_f32_2s (:617) called by _run_kernel_f32_2s (:1000).
+//   - K6, viterbi_k6_launch: out[i, k] = in[k * stride + i], the
+//     overlapped-window transpose into the word-major layout.  Replaces
+//     _stage_tr_kernel (:1061) called by stage_words_pallas (:1067).
+// The full store lies in device memory as (n_packs, 64, B) 32-bit words,
+// so the 32 threads of a warp write 32 neighbouring words; a staged input
+// row is read the same way, one coalesced load per warp.
+// The plain PyTorch versions are in tpu_viterbi_torch/decoder/core_torch.py
+// (decode_blocks_torch: K1-K3, decode_staged_torch: K4,
+// decode_planes_torch: K5, stage_transpose: K6); each kernel must agree
+// with its plain version bit for bit.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libviterbi.so viterbi.cu
 // (no --use_fast_math: K2's clamp must keep NaN and its adds must round
 // once; tpu_viterbi_torch/decoder/core_cuda.py builds it at first use and
-// binds the three entry points with ctypes).
+// binds the entry points with ctypes).
 //
-// What bounds it on an H100: ALU work in the ACS.  Each stage of each block
-// runs 32 butterflies of 4 adds, 2 compares and 4 selects plus the survivor
-// shifts, ~400 integer instructions, against 2..64 bits of channel input a
-// stage and 64 x 4 bytes of survivors per bpp stages.
+// What bounds the decode on an H100: ALU work in the ACS.  Each stage of
+// each block runs 32 butterflies of 4 adds, 2 compares and 4 selects plus
+// the survivor shifts, ~400 integer instructions, against 2..64 bits of
+// channel input a stage and 64 x 4 bytes of survivors per bpp stages.
 //
 // What the design does about it: one thread per time-block (the JAX
 // kernel's blocks-on-lanes layout).  The 64 path metrics and 64 survivor
@@ -48,10 +66,29 @@
 // at the 32M-bit headline: far under the card's bandwidth in the ACS' time.
 // K3's per-pack chase adds W - 1 shared loads a pack, and the survivor
 // traffic to device memory (K1's 264 MB at the 32M-bit headline) is gone.
+// K4/K5 read the same bytes as K1/K2 but coalesced (K1's flat reader loads
+// each block's words at a stride of wpb words); K6 is a copy, bound by
+// device-memory bandwidth: 32x33 tiles in shared memory make both its
+// reads (along a block's words) and its writes (along the blocks)
+// coalesced.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
+
+// Build parts: core_cuda.load_library compiles this file once per part, all
+// started together, with -DBUILD_PART=<i> for each i below the count on the
+// next line; a part holds the entry points of its group (K1 K2 K6 | K3 |
+// K4's word mode | K4's value mode and K5), so the ptxas work of the ~50
+// decode instances runs on four cores.  Built by hand without the macro,
+// one object holds every entry point.
+// nvcc parts: 4
+#ifdef BUILD_PART
+#define IN_PART(i) (BUILD_PART == (i))
+#else
+#define IN_PART(i) 1
+#endif
 
 namespace viterbi {
 
@@ -72,26 +109,56 @@ __host__ __device__ constexpr int sign1(int q) {
   return 2 * parity6((2 * q) & (0155 & 63)) - 1;
 }
 
+// The four branch metrics a stage can have: u = r0 + r1, d = r0 - r1 and
+// their negations nu, nd.  An integer reader sets nu = -u, nd = -d; the
+// unclamped f32 reader converts -u and -d on their own, because a
+// saturated conversion is not odd (-INT32_MAX != INT32_MIN): the plain
+// version, as the JAX core, converts each state's correlation
+// trunc(s0*r0 + s1*r1) itself.
+struct Bm {
+  int u, nu, d, nd;
+};
+
+// a + b and a - b, wrapping in two's complement when WRAP (the plain
+// version's int32 adds wrap; signed overflow in C++ does not).
+template <bool WRAP>
+__device__ __forceinline__ int add(int a, int b) {
+  if constexpr (WRAP)
+    return static_cast<int>(static_cast<uint32_t>(a) +
+                            static_cast<uint32_t>(b));
+  return a + b;
+}
+template <bool WRAP>
+__device__ __forceinline__ int sub(int a, int b) {
+  if constexpr (WRAP)
+    return static_cast<int>(static_cast<uint32_t>(a) -
+                            static_cast<uint32_t>(b));
+  return a - b;
+}
+
 // One ACS stage from (pm, pp) into (pm_out, pp_out).  Children 2q and 2q+1
 // share the predecessors q and q+32 and see negated branch metrics:
-//   E = max(pm[q] + bm, pm[q+32] - bm),  O = max(pm[q] - bm, pm[q+32] + bm),
-// with a strict '>' so the j=0 branch wins ties; the survivor register
-// becomes 2*pp[q] or 2*pp[q+32]+1 (core_pallas.py:396-435).  u and d are
-// the stage's r0 + r1 and r0 - r1; bm is +-u where the two coded bits have
-// the same sign, else +-d.
+//   E = max(pm[q] + bm, pm[q+32] - bm),  O = max(pm[q] + bmo, pm[q+32] - bmo)
+// with bmo the negation of bm, and a strict '>' so the j=0 branch wins
+// ties; the survivor register becomes 2*pp[q] or 2*pp[q+32]+1
+// (core_pallas.py:396-435).  bm is +-u where the two coded bits have the
+// same sign, else +-d.
+template <bool WRAP>
 __device__ __forceinline__ void acs_stage(const int (&pm)[kStates],
                                           const uint32_t (&pp)[kStates],
                                           int (&pm_out)[kStates],
                                           uint32_t (&pp_out)[kStates],
-                                          int u, int d) {
+                                          const Bm& m) {
 #pragma unroll
   for (int q = 0; q < kStates / 2; ++q) {
-    const int mag = sign0(q) == sign1(q) ? u : d;
-    const int bm = sign0(q) > 0 ? mag : -mag;
+    const bool same = sign0(q) == sign1(q);
+    const bool pos = sign0(q) > 0;
+    const int bm = same ? (pos ? m.u : m.nu) : (pos ? m.d : m.nd);
+    const int bmo = same ? (pos ? m.nu : m.u) : (pos ? m.nd : m.d);
     const int lo = pm[q];
     const int hi = pm[q + 32];
-    const int c0e = lo + bm, c1e = hi - bm;
-    const int c0o = lo - bm, c1o = hi + bm;
+    const int c0e = add<WRAP>(lo, bm), c1e = sub<WRAP>(hi, bm);
+    const int c0o = add<WRAP>(lo, bmo), c1o = sub<WRAP>(hi, bmo);
     const bool de = c1e > c0e;
     const bool dodd = c1o > c0o;
     pm_out[2 * q] = de ? c1e : c0e;
@@ -103,32 +170,69 @@ __device__ __forceinline__ void acs_stage(const int (&pm)[kStates],
   }
 }
 
+__device__ __forceinline__ void int_bm(int a0, int a1, Bm& m) {
+  m.u = a0 + a1;
+  m.d = a0 - a1;
+  m.nu = -m.u;
+  m.nd = -m.d;
+}
+
+// Truncation toward zero into the integer ACS.  cvt.rzi saturates out of
+// range values, as XLA's conversion does; a NaN becomes 0, as XLA makes
+// it.
+__device__ __forceinline__ int trunc_int(float x) {
+  return x != x ? 0 : __float2int_rz(x);
+}
+
+// Where a reader finds its block's input.  Flat stream (K1-K3): p0 holds n
+// words (f32 values), block k starts at word k * stride (stride = wpb) and
+// reads its halo past its body.  Staged (K4, K5): p0 (and p1) are planes
+// of n rows, row i of block k at element i * stride + k.
+struct Source {
+  const void* p0;
+  const void* p1;
+  long long n;
+  long long stride;
+};
+
 // Word reader of one block: each word holds 16 / WIDTH stage pairs, MSB
-// first (viterbiDF.h:157-163).  Words past the stream read as zero.  Block
-// k starts at word `first` = k * wpb and reads its halo past its body.
-template <int WIDTH>
+// first (viterbiDF.h:157-163).  STAGED = false (K1, K3): the block's words
+// k*wpb ... k*wpb + wpb + wph - 1 of the flat stream, halo included (it may
+// span several following bodies when dec_len < 64); words past the stream
+// read as zero.  STAGED = true (K4 word mode): row i of column k of K6's
+// (Lw, B) output, so a warp's 32 loads are one coalesced row segment.
+template <int WIDTH, bool STAGED = false>
 struct IntReader {
   static constexpr int kPairsPerWord = 16 / WIDTH;
+  static constexpr bool kWrap = false;
 
   const int* words;
   long long n_words;
+  long long step;
   long long next_idx;
   uint32_t cur;
   uint32_t nxt;
 
   __device__ __forceinline__ uint32_t load(long long idx) const {
-    return idx < n_words ? static_cast<uint32_t>(__ldg(words + idx)) : 0u;
+    return idx < n_words
+               ? static_cast<uint32_t>(__ldg(words + (STAGED ? idx * step
+                                                             : idx)))
+               : 0u;
   }
 
-  __device__ __forceinline__ IntReader(const void* w, long long n,
-                                       long long first)
-      : words(static_cast<const int*>(w)), n_words(n), next_idx(first + 1),
-        cur(0u), nxt(load(first)) {}
+  __device__ __forceinline__ IntReader(const Source& src, int blk)
+      : words(static_cast<const int*>(src.p0) + (STAGED ? blk : 0)),
+        n_words(src.n), step(src.stride),
+        next_idx(STAGED ? 0 : static_cast<long long>(blk) * src.stride),
+        cur(0u), nxt(0u) {
+    nxt = load(next_idx++);
+  }
 
-  // (u, d) of global stage s of the block; stages must be read in order.
-  // HARD bits map to +-1 as bit*2-1; soft fields are two's complement,
-  // sign-extended by an arithmetic shift (core_pallas.py:594-599).
-  __device__ __forceinline__ void next(int s, int& u, int& d) {
+  // The branch metrics of global stage s of the block; stages must be read
+  // in order.  HARD bits map to +-1 as bit*2-1; soft fields are two's
+  // complement, sign-extended by an arithmetic shift (core_pallas.py:594-
+  // 599).
+  __device__ __forceinline__ void next(int s, Bm& m) {
     if (s % kPairsPerWord == 0) {  // fetch the word after the new one
       cur = nxt;
       nxt = load(next_idx++);
@@ -142,8 +246,7 @@ struct IntReader {
       a1 = static_cast<int>(cur << WIDTH) >> (32 - WIDTH);
     }
     if constexpr (2 * WIDTH < 32) cur <<= 2 * WIDTH;
-    u = a0 + a1;
-    d = a0 - a1;
+    int_bm(a0, a1, m);
   }
 };
 
@@ -162,9 +265,11 @@ struct IntReader {
 // d = r0 - r1 as single f32 adds, then truncation toward zero into the
 // integer ACS.  trunc is odd and the branch signs are +-1, so
 // +-trunc(u or d) equals the plain core's trunc(s0*r0 + s1*r1)
-// (core_xla.py:259-264).  A NaN becomes 0, as XLA's conversion makes it.
-// Built without --use_fast_math so none of this is reassociated.
+// (core_xla.py:259-264); the clamp keeps it far from saturation.  Built
+// without --use_fast_math so none of this is reassociated.
 struct FloatReader {
+  static constexpr bool kWrap = false;
+
   const float* vals;
   long long n_vals;
   long long next_quad;
@@ -181,21 +286,20 @@ struct FloatReader {
     return r;
   }
 
-  __device__ __forceinline__ FloatReader(const void* w, long long n,
-                                         long long first)
-      : vals(static_cast<const float*>(w)), n_vals(n),
-        next_quad(first / 4 + 2), cur(make_float4(0.0f, 0.0f, 0.0f, 0.0f)),
-        q1(load(first / 4)), q2(load(first / 4 + 1)) {}
+  __device__ __forceinline__ FloatReader(const Source& src, int blk)
+      : vals(static_cast<const float*>(src.p0)), n_vals(src.n),
+        next_quad(0), cur(make_float4(0.0f, 0.0f, 0.0f, 0.0f)) {
+    const long long first_quad = static_cast<long long>(blk) * src.stride / 4;
+    q1 = load(first_quad);
+    q2 = load(first_quad + 1);
+    next_quad = first_quad + 2;
+  }
 
   static __device__ __forceinline__ float clamp(float x) {
     return x < -8.0f ? -8.0f : (x > 7.0f ? 7.0f : x);
   }
 
-  static __device__ __forceinline__ int trunc_int(float x) {
-    return x != x ? 0 : __float2int_rz(x);
-  }
-
-  __device__ __forceinline__ void next(int s, int& u, int& d) {
+  __device__ __forceinline__ void next(int s, Bm& m) {
     float a, b;
     if (s % 2 == 0) {  // a new float4: shift the prefetch queue
       cur = q1;
@@ -209,10 +313,92 @@ struct FloatReader {
     }
     const float r0 = clamp(a);
     const float r1 = clamp(b);
-    u = trunc_int(__fadd_rn(r0, r1));
-    d = trunc_int(__fsub_rn(r0, r1));
+    m.u = trunc_int(__fadd_rn(r0, r1));
+    m.d = trunc_int(__fsub_rn(r0, r1));
+    m.nu = -m.u;
+    m.nd = -m.d;
   }
 };
+
+// Reader of staged values (K4 value mode, K5): r0 of stage t at row t of
+// plane p0, r1 at row t of plane p1, column k.  K4 value mode passes K6's
+// (2 * block_len, B) output with p1 = p0 + B and a row step of 2B (rows 2t
+// and 2t + 1); K5 the two planes of stage_floats_2streams.  Loads run kLead
+// stages ahead of use, as K2's float4 queue does.
+//
+// int (K4): u = r0 + r1, d = r0 - r1 (values within the channel's field
+// range, the contract of decode_blocks_cuda).  float: u and d are single
+// f32 adds, truncated into the integer ACS.
+//   - SATURATING = false (K5): the planes are clamped to [-8, 7] by the
+//     staging, so |u|, |d| <= 15 and -trunc(u) is exact: nu = -u, nd = -d.
+//   - SATURATING = true (K4 value mode): the values are NOT clamped (the
+//     JAX entry decodes them as given, core_pallas.py:1050), so each of u,
+//     -u, d, -d is converted on its own, saturating, as the plain version's
+//     per-state conversion does, and the ACS wraps as its int32 adds do.
+//     Exact on any input, NaN, +-inf and values past the int32 range
+//     included, at a cost: at the 32M-bit FP32 headline this form measured
+//     1.09 ms against 0.74 ms for the SATURATING = false form, with equal
+//     static SASS counts (NVIDIA H100 80GB HBM3, 700 W).
+template <typename T, bool SATURATING = false>
+struct PlaneReader {
+  static constexpr int kLead = 4;
+  static constexpr bool kWrap = SATURATING;
+
+  const T* r0;
+  const T* r1;
+  long long step;
+  long long n_stages;
+  long long next_t;
+  T a[kLead], b[kLead];
+
+  __device__ __forceinline__ T load(const T* p, long long t) const {
+    return t < n_stages ? __ldg(p + t * step) : T(0);
+  }
+
+  __device__ __forceinline__ PlaneReader(const Source& src, int blk)
+      : r0(static_cast<const T*>(src.p0) + blk),
+        r1(static_cast<const T*>(src.p1) + blk), step(src.stride),
+        n_stages(src.n), next_t(kLead) {
+#pragma unroll
+    for (int i = 0; i < kLead; ++i) {
+      a[i] = load(r0, i);
+      b[i] = load(r1, i);
+    }
+  }
+
+  __device__ __forceinline__ void next(int s, Bm& m) {
+    (void)s;
+    const T x = a[0], y = b[0];
+#pragma unroll
+    for (int i = 0; i + 1 < kLead; ++i) {
+      a[i] = a[i + 1];
+      b[i] = b[i + 1];
+    }
+    a[kLead - 1] = load(r0, next_t);
+    b[kLead - 1] = load(r1, next_t);
+    ++next_t;
+    if constexpr (SATURATING) {
+      const float uf = __fadd_rn(x, y), df = __fsub_rn(x, y);
+      m.u = trunc_int(uf);
+      m.nu = trunc_int(-uf);
+      m.d = trunc_int(df);
+      m.nd = trunc_int(-df);
+    } else if constexpr (std::is_floating_point<T>::value) {
+      m.u = trunc_int(__fadd_rn(x, y));
+      m.d = trunc_int(__fsub_rn(x, y));
+      m.nu = -m.u;
+      m.nd = -m.d;
+    } else {
+      int_bm(x, y, m);
+    }
+  }
+};
+
+// K4's word-mode reader: K1's unpack on the staged (Lw, B) words; and its
+// f32 value-mode reader.
+template <int WIDTH>
+using StagedIntReader = IntReader<WIDTH, true>;
+using UnclampedReader = PlaneReader<float, true>;
 
 // Survivor pack of `state` in ring slot `slot`, laid out [slot][state]
 // [thread] so that a chase whose state differs per thread still reads 32
@@ -223,20 +409,19 @@ __device__ __forceinline__ uint32_t ring_at(const uint32_t* ring, int slot,
   return ring[(slot * kStates + state) * kThreads + threadIdx.x];
 }
 
-// Kernel arguments: words, the flat channel stream of n_words int32 words
-// (or n_words f32 values); surv, the (n_packs, 64, num_blocks) device
-// store of the full-store kernels (unused by the window); out, the
-// (num_blocks, n_emit) int32 packs, read as uint32.  wpb: words (values) a
-// block's body spans; n_conv: packs discarded by the traceback; n_slots:
-// the window ring's W slots, in dynamic shared memory of W * 64 * kThreads
+// Kernel arguments: src, where the reader finds the input; surv, the
+// (n_packs, 64, num_blocks) device store of the full-store instances
+// (unused by the window); out, the (num_blocks, n_emit) int32 packs, read
+// as uint32.  n_conv: packs discarded by the traceback; n_slots: the
+// window ring's W slots, in dynamic shared memory of W * 64 * kThreads
 // words.
 template <class Reader, int BPP, bool WINDOW>
 __global__ void __launch_bounds__(kThreads)
-viterbi_kernel(const void* __restrict__ words, long long n_words,
-               uint32_t* __restrict__ surv, int* __restrict__ out,
-               int num_blocks, int n_packs, int wpb, int n_conv, int n_emit,
-               int renorm, int n_slots) {
+viterbi_kernel(const Source src, uint32_t* __restrict__ surv,
+               int* __restrict__ out, int num_blocks, int n_packs,
+               int n_conv, int n_emit, int renorm, int n_slots) {
   constexpr uint32_t kMask = BPP == 32 ? 0xFFFFFFFFu : 0xFFFFu;
+  constexpr bool kWrap = Reader::kWrap;
   extern __shared__ uint32_t ring[];
   const int blk = blockIdx.x * blockDim.x + threadIdx.x;
   if (blk >= num_blocks) return;
@@ -253,18 +438,16 @@ viterbi_kernel(const void* __restrict__ words, long long n_words,
     pp_a[s] = 0u;
   }
 
-  // block k reads its words k*wpb ... k*wpb + wpb + wph - 1 directly, halo
-  // included (it may span several following bodies when dec_len < 64)
-  Reader reader(words, n_words, static_cast<long long>(blk) * wpb);
+  Reader reader(src, blk);
   int stage = 0;
   for (int p = 0; p < n_packs; ++p) {
 #pragma unroll 1
     for (int t = 0; t < BPP; t += 2) {
-      int u, d;
-      reader.next(stage++, u, d);
-      acs_stage(pm_a, pp_a, pm_b, pp_b, u, d);
-      reader.next(stage++, u, d);
-      acs_stage(pm_b, pp_b, pm_a, pp_a, u, d);
+      Bm m;
+      reader.next(stage++, m);
+      acs_stage<kWrap>(pm_a, pp_a, pm_b, pp_b, m);
+      reader.next(stage++, m);
+      acs_stage<kWrap>(pm_b, pp_b, pm_a, pp_a, m);
     }
     if constexpr (WINDOW) {
       // one-pointer circular buffer (core_pallas.py:440-486): dump pack p
@@ -288,11 +471,11 @@ viterbi_kernel(const void* __restrict__ words, long long n_words,
       for (int s = 0; s < kStates; ++s) dst[s * plane] = pp_a[s] & kMask;
     }
     if (renorm) {  // decision-invariant min-subtract (core_pallas.py:457-466)
-      int m = pm_a[0];
+      int mn = pm_a[0];
 #pragma unroll
-      for (int s = 1; s < kStates; ++s) m = min(m, pm_a[s]);
+      for (int s = 1; s < kStates; ++s) mn = min(mn, pm_a[s]);
 #pragma unroll
-      for (int s = 0; s < kStates; ++s) pm_a[s] -= m;
+      for (int s = 0; s < kStates; ++s) pm_a[s] = sub<kWrap>(pm_a[s], mn);
     }
   }
 
@@ -330,9 +513,9 @@ viterbi_kernel(const void* __restrict__ words, long long n_words,
 // dynamic shared memory first.  At those sizes an SM holds 3 (W = 4) or
 // 2 (W = 6) CUDA blocks; the 32M-bit headline plan needs 2.
 template <class Reader, int BPP, bool WINDOW>
-cudaError_t launch(const void* words, long long n_words, uint32_t* surv,
-                   int* out, int num_blocks, int n_packs, int wpb, int n_conv,
-                   int n_emit, int renorm, int n_slots, cudaStream_t stream) {
+cudaError_t launch(const Source& src, uint32_t* surv, int* out,
+                   int num_blocks, int n_packs, int n_conv, int n_emit,
+                   int renorm, int n_slots, cudaStream_t stream) {
   size_t smem = 0;
   if constexpr (WINDOW) {
     smem = static_cast<size_t>(n_slots) * kStates * kThreads *
@@ -344,36 +527,91 @@ cudaError_t launch(const void* words, long long n_words, uint32_t* surv,
   }
   const int grid = (num_blocks + kThreads - 1) / kThreads;
   viterbi_kernel<Reader, BPP, WINDOW><<<grid, kThreads, smem, stream>>>(
-      words, n_words, surv, out, num_blocks, n_packs, wpb, n_conv, n_emit,
-      renorm, n_slots);
+      src, surv, out, num_blocks, n_packs, n_conv, n_emit, renorm, n_slots);
   return cudaGetLastError();
 }
+
+// K6: out[i, k] = in[k * stride + i] for i < win, k < num, zero where
+// k * stride + i >= n; 32-bit words of either dtype.  A CUDA block moves
+// one 32 x 32 tile (blocks k0.. on grid.x, which allows 2^31 - 1 tiles;
+// words i0.. on grid.y): it reads 32 rows of 32 consecutive words of the
+// stream and writes 32 rows of 32 consecutive blocks of the output, through
+// a 32 x 33 shared tile whose padding column keeps both the column-wise
+// store and the column-wise read free of bank conflicts.
+constexpr int kTile = 32;
+constexpr int kTileRows = 8;
+
+#if IN_PART(0)
+__global__ void __launch_bounds__(kTile * kTileRows)
+stage_transpose_kernel(const uint32_t* __restrict__ in, long long n,
+                       uint32_t* __restrict__ out, long long stride, int win,
+                       int num) {
+  __shared__ uint32_t tile[kTile][kTile + 1];
+  const int k0 = blockIdx.x * kTile;
+  const int i0 = blockIdx.y * kTile;
+  const int i_in = i0 + threadIdx.x;
+#pragma unroll
+  for (int r = 0; r < kTile; r += kTileRows) {
+    const int j = r + threadIdx.y;
+    const int k = k0 + j;
+    uint32_t v = 0u;
+    if (k < num && i_in < win) {
+      const long long idx = static_cast<long long>(k) * stride + i_in;
+      if (idx < n) v = __ldg(in + idx);
+    }
+    tile[j][threadIdx.x] = v;
+  }
+  __syncthreads();
+  const int k_out = k0 + threadIdx.x;
+#pragma unroll
+  for (int r = 0; r < kTile; r += kTileRows) {
+    const int j = r + threadIdx.y;
+    const int i = i0 + j;
+    if (i < win && k_out < num)
+      out[static_cast<long long>(i) * num + k_out] = tile[threadIdx.x][j];
+  }
+}
+#endif  // IN_PART(0)
 
 }  // namespace viterbi
 
 using namespace viterbi;
 
-// Plain C entry points (bound with ctypes), one per kernel, all with one
-// signature; the arguments are viterbi_kernel's.  width: the channel's field
-// width (1, 4, 8, 16), or 0 for the FP32 wire (then words holds n_words f32
-// values); surv: the full store (K1, K2; unused by K3); n_slots: the ring's
-// W >= 3 (K3; unused by K1, K2).  Each returns the cudaError_t of the launch
-// (0 = launched).
+// Plain C entry points (bound with ctypes), one per decode kernel, all with
+// one signature: p0, p1, n, stride make the reader's Source; surv: the full
+// store, or null for the window (K4, K5; K1 and K2 need it, K3 ignores it);
+// width: the channel's field width (1, 4, 8, 16) for words, 0 for f32
+// values, 32 for int32 values (K4); n_slots: the ring's W >= 3 for the
+// window.  Each returns the cudaError_t of the launch (0 = launched).
 #define VITERBI_CASE(W, R, B, WINDOW)                                      \
   if (width == W && bpp == B)                                              \
     return static_cast<int>(launch<R, B, WINDOW>(                          \
-        words, n_words, sv, o, num_blocks, n_packs, wpb, n_conv, n_emit,   \
-        renorm, n_slots, static_cast<cudaStream_t>(stream)));
+        src, sv, o, num_blocks, n_packs, n_conv, n_emit, renorm, n_slots,  \
+        static_cast<cudaStream_t>(stream)));
+// the four instances of a reader: bpp 32 and 16, window when surv is null
+#define VITERBI_STAGED(W, R)       \
+  if (sv == nullptr) {             \
+    VITERBI_CASE(W, R, 32, true)   \
+    VITERBI_CASE(W, R, 16, true)   \
+  } else {                         \
+    VITERBI_CASE(W, R, 32, false)  \
+    VITERBI_CASE(W, R, 16, false)  \
+  }
 #define VITERBI_ARGS                                                       \
-  const void *words, long long n_words, void *surv, void *out,             \
-      int num_blocks, int n_packs, int wpb, int n_conv, int n_emit,        \
-      int width, int bpp, int renorm, int n_slots, void *stream
-
-extern "C" int viterbi_k1_launch(VITERBI_ARGS) {
-  uint32_t* sv = static_cast<uint32_t*>(surv);
-  int* o = static_cast<int*>(out);
-  if (num_blocks <= 0 || sv == nullptr)
+  const void *p0, const void *p1, long long n, long long stride,           \
+      void *surv, void *out, int num_blocks, int n_packs, int n_conv,      \
+      int n_emit, int width, int bpp, int renorm, int n_slots, void *stream
+#define VITERBI_PROLOGUE                                                   \
+  const Source src{p0, p1, n, stride};                                     \
+  uint32_t* sv = static_cast<uint32_t*>(surv);                             \
+  int* o = static_cast<int*>(out);                                         \
+  if (num_blocks <= 0 || (sv == nullptr && n_slots < 3))                   \
     return static_cast<int>(cudaErrorInvalidValue);
+
+#if IN_PART(0)
+extern "C" int viterbi_k1_launch(VITERBI_ARGS) {
+  VITERBI_PROLOGUE
+  if (sv == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   VITERBI_CASE(1, IntReader<1>, 32, false)
   VITERBI_CASE(1, IntReader<1>, 16, false)
   VITERBI_CASE(4, IntReader<4>, 32, false)
@@ -386,21 +624,18 @@ extern "C" int viterbi_k1_launch(VITERBI_ARGS) {
 }
 
 extern "C" int viterbi_k2_launch(VITERBI_ARGS) {
-  uint32_t* sv = static_cast<uint32_t*>(surv);
-  int* o = static_cast<int*>(out);
-  if (num_blocks <= 0 || sv == nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
+  VITERBI_PROLOGUE
+  if (sv == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   VITERBI_CASE(0, FloatReader, 32, false)
   VITERBI_CASE(0, FloatReader, 16, false)
   return static_cast<int>(cudaErrorInvalidValue);
 }
+#endif
 
+#if IN_PART(1)
 extern "C" int viterbi_k3_launch(VITERBI_ARGS) {
-  uint32_t* sv = nullptr;
-  int* o = static_cast<int*>(out);
-  (void)surv;
-  if (num_blocks <= 0 || n_slots < 3)
-    return static_cast<int>(cudaErrorInvalidValue);
+  surv = nullptr;
+  VITERBI_PROLOGUE
   VITERBI_CASE(0, FloatReader, 32, true)
   VITERBI_CASE(0, FloatReader, 16, true)
   VITERBI_CASE(1, IntReader<1>, 32, true)
@@ -413,6 +648,57 @@ extern "C" int viterbi_k3_launch(VITERBI_ARGS) {
   VITERBI_CASE(16, IntReader<16>, 16, true)
   return static_cast<int>(cudaErrorInvalidValue);
 }
+#endif
+
+// K4 is one entry point over two parts: word mode here, value mode in part
+// 3 (k4_values, declared before it).
+int k4_values(VITERBI_ARGS);
+
+#if IN_PART(2)
+extern "C" int viterbi_k4_launch(VITERBI_ARGS) {
+  VITERBI_PROLOGUE
+  VITERBI_STAGED(1, StagedIntReader<1>)
+  VITERBI_STAGED(4, StagedIntReader<4>)
+  VITERBI_STAGED(8, StagedIntReader<8>)
+  VITERBI_STAGED(16, StagedIntReader<16>)
+  return k4_values(p0, p1, n, stride, surv, out, num_blocks, n_packs, n_conv,
+                   n_emit, width, bpp, renorm, n_slots, stream);
+}
+#endif
+
+#if IN_PART(3)
+int k4_values(VITERBI_ARGS) {
+  VITERBI_PROLOGUE
+  VITERBI_STAGED(32, PlaneReader<int>)
+  VITERBI_STAGED(0, UnclampedReader)
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int viterbi_k5_launch(VITERBI_ARGS) {
+  VITERBI_PROLOGUE
+  VITERBI_STAGED(0, PlaneReader<float>)
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+#endif
+
+#if IN_PART(0)
+// K6: in holds n 32-bit words; out the (win, num) word-major layout.
+extern "C" int viterbi_k6_launch(const void* in, long long n, void* out,
+                                 long long stride, int win, int num,
+                                 void* stream) {
+  if (num <= 0 || win <= 0 || stride <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((num + kTile - 1) / kTile, (win + kTile - 1) / kTile);
+  if (grid.y > 65535u) return static_cast<int>(cudaErrorInvalidValue);
+  stage_transpose_kernel<<<grid, dim3(kTile, kTileRows), 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(in), n, static_cast<uint32_t*>(out),
+      stride, win, num);
+  return static_cast<int>(cudaGetLastError());
+}
+#endif
 
 #undef VITERBI_CASE
+#undef VITERBI_STAGED
 #undef VITERBI_ARGS
+#undef VITERBI_PROLOGUE

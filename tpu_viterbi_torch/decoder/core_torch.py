@@ -12,10 +12,15 @@ reference's fused persistent kernel, src/viterbi/viterbi.cu:144-207):
   - register exchange: survivor packs dumped every bits_per_pack stages to
     an (n_packs, 64, B) store, then a pack-granular traceback from state 0.
 
-This is the plain version beside kernel K1 (core_cuda.py), computing the
-same function: the CPU tests hold it bit-exact against
-``decode_packed_xla``, and ``chip_smoke.py`` holds K1 against it on the
-card.  It runs on the CPU or on CUDA tensors.
+It holds the plain version of every decode kernel (core_cuda.py), each
+computing its kernel's function: ``decode_blocks_torch`` (K1, K2, K3 on
+packed words), ``decode_staged_torch`` (K4 on staged words or values),
+``decode_planes_torch`` (K5 on two f32 planes) and ``stage_transpose``
+(K6); and the values-in entry ``decode_blocks`` with ``gather_blocks``,
+``forward_scan`` and ``traceback_scan``, as the JAX package exports them.
+The CPU tests hold it bit-exact against ``decode_packed_xla`` and
+``core_xla.decode_blocks``, and ``chip_smoke.py`` holds the kernels
+against it on the card.  It runs on the CPU or on CUDA tensors.
 
 All metric modes run on int32 path metrics, as the TPU kernel and K1 do
 (core_pallas.py:140-148): the reference sizes renorm strides so b16/fp16
@@ -135,44 +140,102 @@ def traceback_shape(cfg: DecoderConfig, plan: BlockPlan):
     return -(-(cfg.extra_r - bpp) // bpp), plan.dec_len // bpp
 
 
+_FP_LO = -(1 << (FP_PRECISION - 1))       # the FP32 window [-8, 7]
+_FP_HI = (1 << (FP_PRECISION - 1)) - 1
+
+
+def overlapped_windows(x: torch.Tensor, stride: int, win: int,
+                       num: int) -> torch.Tensor:
+    """(N, ...) stream -> (num, ..., win) strided view of the overlapping
+    windows x[k*stride : k*stride + win] (core_xla.overlapped_windows; the
+    window axis last, as ``unfold`` gives it).  The stream is zero-filled
+    past its end, so a window may span several following strides."""
+    need = (num - 1) * stride + win
+    if x.shape[0] < need:
+        x = torch.cat([x, x.new_zeros((need - x.shape[0],) + x.shape[1:])])
+    return x[:need].unfold(0, win, stride)
+
+
+def block_words(packed: torch.Tensor, cfg: DecoderConfig,
+                plan: BlockPlan) -> torch.Tensor:
+    """Packed channel words -> (B, Lw) block-major per-block word windows
+    (a strided view), Lw = wpb + wph: block k's words [k*wpb, k*wpb + Lw)."""
+    wpb, wph = words_per_block(cfg, plan)
+    return overlapped_windows(packed, wpb, wpb + wph, plan.num_blocks)
+
+
+def stage_transpose(x: torch.Tensor, stride: int, win: int,
+                    num: int) -> torch.Tensor:
+    """The plain version of kernel K6: a flat stream of 32-bit words (int32
+    or float32) -> the contiguous (win, num) word-major layout
+    out[i, k] = x[k*stride + i], zero past the stream's end."""
+    return overlapped_windows(x, stride, win, num).t().clone(
+        memory_format=torch.contiguous_format)
+
+
 def stage_words(packed: torch.Tensor, cfg: DecoderConfig,
                 plan: BlockPlan) -> torch.Tensor:
-    """Packed channel words -> (B, Lw) overlapping per-block word windows
-    (a strided view; the stream is zero-filled past its end).  A block's
-    halo may span several following bodies when dec_len < 64."""
+    """Packed channel words -> (Lw, B) word-major block layout, equal to
+    ``core_xla.stage_words(packed, cfg, plan, b_pad=B)``: column k holds
+    block k's Lw = wpb + wph words.  FP32 values count as one-value words.
+    K6's plain version at (stride, win) = (wpb, Lw)."""
     wpb, wph = words_per_block(cfg, plan)
-    lw = wpb + wph
-    need = (plan.num_blocks - 1) * wpb + lw
-    if packed.shape[0] < need:
-        packed = torch.cat([packed,
-                            packed.new_zeros(need - packed.shape[0])])
-    return packed[:need].unfold(0, lw, wpb)
+    return stage_transpose(packed, wpb, wpb + wph, plan.num_blocks)
+
+
+def unpack_words(wt: torch.Tensor, cfg: DecoderConfig) -> torch.Tensor:
+    """(Lw, B) word-major integer channel words -> (Lw * dpp / 2, 2, B)
+    int32 stage pairs.  Fields are MSB-first; HARD bits map to +-1, soft
+    fields are sign-extended (core_xla.stage_layout_packed, :230-243)."""
+    dpp, width = cfg.enc_data_per_pack, cfg.enc_data_width
+    u = wt.to(torch.int64) & 0xFFFFFFFF
+    shifts = torch.arange(dpp - 1, -1, -1, device=wt.device) * width
+    vals = (u[:, None, :] >> shifts[:, None]) & ((1 << width) - 1)
+    if cfg.channel_in == ChannelIn.HARD:
+        vals = vals * 2 - 1
+    else:
+        half = 1 << (width - 1)
+        vals = ((vals + half) & ((1 << width) - 1)) - half
+    return vals.to(torch.int32).reshape(wt.shape[0] * dpp // 2, 2,
+                                        wt.shape[1])
 
 
 def stage_values(packed: torch.Tensor, cfg: DecoderConfig,
                  plan: BlockPlan) -> torch.Tensor:
     """Packed channel words -> (block_len, 2, B) per-stage soft pairs
-    (port of core_xla.stage_layout_packed, :212-245).  Fields are MSB-first;
-    HARD bits map to +-1, soft fields are sign-extended, FP32 values are
-    clamped to the FP_PRECISION window (viterbiBM.cuh:139-151)."""
-    wt = stage_words(packed, cfg, plan)                   # (B, Lw)
-    b = plan.num_blocks
+    (port of core_xla.stage_layout_packed, :212-245), unpacked from the
+    block-major windows read column-wise.  FP32 values are clamped to the
+    FP_PRECISION window (viterbiBM.cuh:139-151)."""
+    wt = block_words(packed, cfg, plan).t()               # (Lw, B) view
     if cfg.channel_in == ChannelIn.FP32:
-        lo = -(1 << (FP_PRECISION - 1))
-        hi = (1 << (FP_PRECISION - 1)) - 1
-        vals = wt.clamp(lo, hi)
-    else:
-        dpp, width = cfg.enc_data_per_pack, cfg.enc_data_width
-        u = wt.to(torch.int64) & 0xFFFFFFFF
-        shifts = torch.arange(dpp - 1, -1, -1, device=wt.device) * width
-        vals = (u[..., None] >> shifts) & ((1 << width) - 1)
-        if cfg.channel_in == ChannelIn.HARD:
-            vals = vals * 2 - 1
-        else:
-            half = 1 << (width - 1)
-            vals = ((vals + half) & ((1 << width) - 1)) - half
-        vals = vals.to(torch.int32)
-    return vals.reshape(b, plan.block_len, 2).permute(1, 2, 0)
+        return wt.clamp(_FP_LO, _FP_HI).reshape(plan.block_len, 2, -1)
+    return unpack_words(wt, cfg)
+
+
+def clamp_split(wt: torch.Tensor, plan: BlockPlan):
+    """(2 * block_len, B) word-major f32 wire -> (r0, r1), two (n_packs,
+    bpp, B) views of the even and odd rows of its FP_PRECISION clamp
+    (``torch.clamp`` keeps a NaN a NaN, as ``jnp.clip`` does)."""
+    v = wt.clamp(_FP_LO, _FP_HI)
+    shp = (plan.n_packs, plan.bits_per_pack, wt.shape[1])
+    return v[0::2].reshape(shp), v[1::2].reshape(shp)
+
+
+def stage_floats_2streams(packed: torch.Tensor, cfg: DecoderConfig,
+                          plan: BlockPlan):
+    """FP32 interleaved value stream -> two (n_packs, bpp, B) f32 planes
+    (r0 stream, r1 stream), clamped to the FP_PRECISION window: the port of
+    core_xla.stage_floats_2streams (:298-316) at b_pad = B, the input of
+    kernel K5."""
+    return clamp_split(stage_words(packed.to(torch.float32), cfg, plan),
+                       plan)
+
+
+def gather_blocks(r: torch.Tensor, plan: BlockPlan) -> torch.Tensor:
+    """Global (S, 2) soft stage pairs -> (B, L, 2) per-block windows, the
+    last block's tail zero-filled (core_xla.gather_blocks, :153)."""
+    return overlapped_windows(r, plan.dec_len, plan.block_len,
+                              plan.num_blocks).transpose(1, 2)
 
 
 # BPSK sign of each expected coded bit on the j=0 branch, per state:
@@ -189,12 +252,16 @@ def _branch_metrics(r0, r1, s0, s1, is_float: bool):
     j=1 metric is -bmA (see _acs_stage).
 
     A NaN on the FP32 wire survives the clamp and makes a NaN correlation;
-    it becomes 0, as XLA's float->int32 conversion makes it in the JAX
-    core (core_xla.py:331-337), where torch's gives INT32_MIN."""
+    it becomes 0, and an unclamped value beyond the int32 range (the
+    values-in entry does not clamp) saturates, as XLA's float->int32
+    conversion does in the JAX core (core_xla.py:331-337); torch's gives
+    INT32_MIN for both on the CPU, so the conversion clamps through
+    int64."""
     bm = s0 * r0[None, :] + s1 * r1[None, :]
     if not is_float:
         return bm
-    return torch.trunc(bm).nan_to_num(nan=0.0).to(torch.int32)
+    return (torch.trunc(bm).nan_to_num(nan=0.0).clamp(-2.0 ** 31, 2.0 ** 31)
+            .to(torch.int64).clamp(-2 ** 31, 2 ** 31 - 1).to(torch.int32))
 
 
 def _repeat2(x):
@@ -219,14 +286,16 @@ def _acs_stage(pm, pp, bm_a):
 
 
 def _pack_scan(rs: torch.Tensor, cfg: DecoderConfig, plan: BlockPlan):
-    """ACS over all stages of all blocks from the (block_len, 2, B) stage
-    pairs.  Yields each survivor pack (64, B) int64, masked to
-    bits_per_pack bits, as its last stage completes."""
-    b = rs.shape[2]
+    """ACS over all stages of all blocks from the stage pairs, (n_packs,
+    bpp, 2, B) or its (block_len, 2, B) view, as f32 (FP32) or int32.
+    Yields each survivor pack (64, B) int64, masked to bits_per_pack bits,
+    as its last stage completes."""
+    b = rs.shape[-1]
     bpp = plan.bits_per_pack
     is_float = cfg.channel_in == ChannelIn.FP32
     renorm = needs_int32_renorm(cfg, plan)
     dt = torch.float32 if is_float else torch.int32
+    rs = rs.reshape(plan.block_len, 2, b).to(dt)
     s0 = torch.as_tensor(_SIGN0_NP, device=rs.device).to(dt)
     s1 = torch.as_tensor(_SIGN1_NP, device=rs.device).to(dt)
     pm = torch.zeros((NUM_STATES, b), dtype=torch.int32, device=rs.device)
@@ -241,14 +310,23 @@ def _pack_scan(rs: torch.Tensor, cfg: DecoderConfig, plan: BlockPlan):
             pm = pm - pm.min(dim=0, keepdim=True).values
 
 
-def forward_scan(rs: torch.Tensor, cfg: DecoderConfig,
-                 plan: BlockPlan) -> torch.Tensor:
-    """The full survivor store: all packs (n_packs, 64, B) int64."""
-    surv = torch.empty((plan.n_packs, NUM_STATES, rs.shape[2]),
+def forward_scan_staged(rs: torch.Tensor, cfg: DecoderConfig,
+                        plan: BlockPlan) -> torch.Tensor:
+    """ACS from the scan-major (n_packs, bpp, 2, B) stage layout (or its
+    (block_len, 2, B) view), as core_xla.forward_scan_staged (:394).
+    Returns the full survivor store, all packs (n_packs, 64, B) int64."""
+    surv = torch.empty((plan.n_packs, NUM_STATES, rs.shape[-1]),
                        dtype=torch.int64, device=rs.device)
     for p, pack in enumerate(_pack_scan(rs, cfg, plan)):
         surv[p] = pack
     return surv
+
+
+def forward_scan(r_blocks: torch.Tensor, cfg: DecoderConfig,
+                 plan: BlockPlan) -> torch.Tensor:
+    """ACS over all stages for all blocks from (B, L, 2) soft values, as
+    core_xla.forward_scan (:382).  Returns (n_packs, 64, B) int64."""
+    return forward_scan_staged(r_blocks.permute(1, 2, 0), cfg, plan)
 
 
 def traceback_scan(surv: torch.Tensor, cfg: DecoderConfig,
@@ -301,7 +379,7 @@ def window_scan(rs: torch.Tensor, cfg: DecoderConfig,
 
     Equal to the full store on coded input; on random words the two
     legitimately differ (tests/test_survivor_window.py)."""
-    b, bpp, n_packs = rs.shape[2], plan.bits_per_pack, plan.n_packs
+    b, bpp, n_packs = rs.shape[-1], plan.bits_per_pack, plan.n_packs
     n_conv, n_emit = traceback_shape(cfg, plan)
     w = survivor_window_slots(cfg)
     n_disc = w - 2
@@ -338,6 +416,16 @@ def assemble_output(out_packs: torch.Tensor, cfg: DecoderConfig,
                       out_packs[-1, : n_emit - ov_words]])
 
 
+def _decode_stages(rs: torch.Tensor, cfg: DecoderConfig, plan: BlockPlan,
+                   window: bool) -> torch.Tensor:
+    """Stage pairs -> (B, n_emit) int32 output packs, full store or
+    window."""
+    if window:
+        return to_int32_bits(window_scan(rs, cfg, plan))
+    surv = forward_scan_staged(rs, cfg, plan)
+    return to_int32_bits(traceback_scan(surv, cfg, plan))
+
+
 def decode_blocks_torch(packed: torch.Tensor, cfg: DecoderConfig,
                         plan: BlockPlan, window: bool = False
                         ) -> torch.Tensor:
@@ -347,11 +435,62 @@ def decode_blocks_torch(packed: torch.Tensor, cfg: DecoderConfig,
     ``window=True``."""
     is_float = cfg.channel_in == ChannelIn.FP32
     packed = packed.to(torch.float32 if is_float else torch.int32)
-    rs = stage_values(packed, cfg, plan)
-    if window:
-        return to_int32_bits(window_scan(rs, cfg, plan))
-    surv = forward_scan(rs, cfg, plan)
-    return to_int32_bits(traceback_scan(surv, cfg, plan))
+    return _decode_stages(stage_values(packed, cfg, plan), cfg, plan, window)
+
+
+def staged_word_mode(staged: torch.Tensor, cfg: DecoderConfig,
+                     plan: BlockPlan) -> bool:
+    """Which staged input K4 was given: True for (Lw, B) word-major channel
+    words (an integer channel, K6's output at (wpb, Lw)), False for (2 *
+    block_len, B) values, r0 and r1 of stage t in rows 2t and 2t + 1 (K6's
+    output on the (S, 2) values or the f32 wire).  Raises ValueError on any
+    other shape."""
+    wpb, wph = words_per_block(cfg, plan)
+    b = plan.num_blocks
+    if staged.dim() == 2 and staged.shape[1] == b:
+        if staged.shape[0] == 2 * plan.block_len:
+            return False
+        if cfg.channel_in != ChannelIn.FP32 and staged.shape[0] == wpb + wph:
+            return True
+    raise ValueError(
+        f"K4 takes ({wpb + wph}, {b}) staged words or "
+        f"({2 * plan.block_len}, {b}) staged values for this "
+        f"{cfg.channel_in.name} plan, got {tuple(staged.shape)}")
+
+
+def decode_staged_torch(staged: torch.Tensor, cfg: DecoderConfig,
+                        plan: BlockPlan, window: bool = False
+                        ) -> torch.Tensor:
+    """The plain version of kernel K4: staged input (``staged_words``) ->
+    (B, n_emit) int32 output packs.  Words are unpacked as K1 unpacks them;
+    values decode as given (int32, or f32 for FP32: not clamped)."""
+    if staged_word_mode(staged, cfg, plan):
+        rs = unpack_words(staged.to(torch.int32), cfg)
+    else:
+        rs = staged.reshape(plan.block_len, 2, plan.num_blocks)
+    return _decode_stages(rs, cfg, plan, window)
+
+
+def decode_planes_torch(r0: torch.Tensor, r1: torch.Tensor,
+                        cfg: DecoderConfig, plan: BlockPlan,
+                        window: bool = False) -> torch.Tensor:
+    """The plain version of kernel K5: the two f32 planes of
+    ``stage_floats_2streams``, (n_packs, bpp, B) or (block_len, B) each ->
+    (B, n_emit) int32 output packs.  The planes decode as given: the clamp
+    is the staging's."""
+    shp = (plan.block_len, plan.num_blocks)
+    rs = torch.stack([r0.reshape(shp), r1.reshape(shp)], dim=1)
+    return _decode_stages(rs, cfg, plan, window)
+
+
+def decode_blocks(r_blocks: torch.Tensor, cfg: DecoderConfig,
+                  plan: BlockPlan) -> torch.Tensor:
+    """Full block-parallel decode: (B, L, 2) soft values -> flat int32
+    packed output words (core_xla.decode_blocks, :483).  FP32 values are
+    not clamped."""
+    surv = forward_scan(r_blocks, cfg, plan)
+    return assemble_output(to_int32_bits(traceback_scan(surv, cfg, plan)),
+                           cfg, plan)
 
 
 def decode_packed_torch(packed: torch.Tensor, cfg: DecoderConfig,
