@@ -1,14 +1,18 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: builds kernels K1-K6
-(decode and staging) and K7, K8 (workload generator) from the checkout into
-one library (one nvcc per source, started together, one link), holds each
-against its plain PyTorch version, drives the simulation chain, the
+(decode and staging), K7, K8 (workload generator), K9 (the hardware
+model's shared-memory probe) and K11 (the op-cost probe) from the checkout
+into one library (one nvcc per source, started together, one link), holds
+each against its plain PyTorch version, drives the hardware model (the
+probe of `python -m tpu_viterbi_torch.hardware`, K3's shared-memory gate,
+the canary K10 through K4 and the op-cost probe), the simulation chain, the
 file-serving paths (one-shot, windowed, streamed, FP32, several files) and
 the in-graph simulation (--e2e-device: SOFT8, FP32, windowed, and a noisy
 run) through the port's CLI at the reference's default size, drives the
 staged-input decode paths (decode_packed_cuda with fused=False and
 fp32_words=False, the values-in entry decode_blocks_cuda) at that size, and
-times each kernel against its plain version and the in-graph simulation end
-to end.
+times each kernel against its plain version, its bound and, where one
+PyTorch call computes the same function, that call; and the in-graph
+simulation end to end.
 
     python3 chip_smoke.py
 
@@ -26,6 +30,7 @@ import contextlib
 import io
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -44,7 +49,7 @@ sys.path.insert(0, str(ROOT))
 
 import torch  # noqa: E402
 
-from tpu_viterbi_torch import ViterbiGPU, cli  # noqa: E402
+from tpu_viterbi_torch import ViterbiGPU, cli, hardware, library  # noqa: E402
 from tpu_viterbi_torch.chain import (AddNoise, ConvolutionalEncoder,  # noqa: E402
                                      RandBitGen, SoftDecisionPacker,
                                      genkernel, snr_to_sigma,
@@ -56,11 +61,14 @@ from tpu_viterbi_torch.decoder import core_cuda  # noqa: E402
 from tpu_viterbi_torch.decoder.core_torch import (  # noqa: E402
     clamp_split, decode_blocks_torch, decode_packed_torch,
     decode_planes_torch, decode_staged_torch, needs_int32_renorm,
-    plan_blocks, stage_transpose, words_per_block)
+    plan_blocks, stage_transpose, traceback_shape, words_per_block)
+from tpu_viterbi_torch.scripts import op_cost_probe  # noqa: E402
 from tpu_viterbi_torch.sharding.simulate import (  # noqa: E402
     DEFAULT_SCALES, build_sharded_simulation)
+from tpu_viterbi_torch.utils import timing  # noqa: E402
 from tpu_viterbi_torch.utils.bits import (count_bit_errors,  # noqa: E402
                                           pack_msb_first)
+from tpu_viterbi_torch.utils.timing import ab_ms, cuda_ms  # noqa: E402
 
 HEADLINE_BITS = 32_000_000          # the reference's default -n (main.cpp:176)
 HEADLINE = DecoderConfig(ChannelIn.SOFT8)   # SOFT8, int32 metrics, b32 packs
@@ -70,7 +78,8 @@ SEED = 7
 K1, K2, K3 = core_cuda.K1, core_cuda.K2, core_cuda.K3
 K4, K5, K6 = core_cuda.K4, core_cuda.K5, core_cuda.K6
 K7, K8 = genkernel.K7, genkernel.K8
-KERNELS = core_cuda.KERNELS + genkernel.KERNELS
+K9, K11 = hardware.K9, op_cost_probe.K11
+KERNELS = core_cuda.KERNELS + genkernel.KERNELS + (K9, K11)
 REPLACES = {"K1": "tpu_viterbi/decoder/core_pallas.py:638",
             "K2": "tpu_viterbi/decoder/core_pallas.py:683",
             "K3": "tpu_viterbi/decoder/core_pallas.py:440",
@@ -78,11 +87,57 @@ REPLACES = {"K1": "tpu_viterbi/decoder/core_pallas.py:638",
             "K5": "tpu_viterbi/decoder/core_pallas.py:617",
             "K6": "tpu_viterbi/decoder/core_pallas.py:1061",
             "K7": "tpu_viterbi/chain/genkernel.py:157",
-            "K8": "tpu_viterbi/chain/genkernel.py:294"}
+            "K8": "tpu_viterbi/chain/genkernel.py:294",
+            "K9": "tpu_viterbi/hardware.py:123",
+            "K10": "bench.py:78",
+            "K11": "scripts/op_cost_probe.py:129"}
 CLI_SCALE = 40000.0                 # the CLI's channel scale (main.cpp:137)
+
+# Bounds: the least time the card could take for a kernel's work, the
+# larger of its bytes over the memory rate and its operations over the
+# issue rate (132 SMs x 4 schedulers x 32 lanes x the peak SM clock; not the
+# 64 INT32 lanes an SM, which IMAD-class work on the FMA pipe can beat),
+# with the special-function work of Box-Muller (log, sqrt, sin, cos) over
+# the SFU rate, 16 an SM a clock.  Published H100 SXM peaks (NVIDIA's data
+# sheet) at the card's full power limit of 700 W.
+PEAK_BYTES_PER_S = 3.35e12
+SFU_PER_SM_CLOCK = 16
+ACS_OPS = 256           # a block-stage: 64 states x (2 adds, 1 max, 1 select)
+THREEFRY_OPS = 49       # threefry2x32-13: 13 x (add, rotl, xor), 5 x 2 key adds
+BOX_MULLER_SFU = 4      # log, sqrt, sin, cos per normal pair
 
 
 T0 = time.perf_counter()
+
+
+def bound(nbytes: float, ops: float = 0.0, sfu: float = 0.0):
+    """(least ms, "bytes" or "operations") for work that moves ``nbytes``
+    (each input read once, each output written once) and issues ``ops``
+    lane-instructions and ``sfu`` special-function lane-ops on this card."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = hardware.sm_clock_hz()
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = max(ops / (sms * 4 * 32 * clock),
+                sfu / (sms * SFU_PER_SM_CLOCK * clock))
+    return max(t_bytes, t_ops) * 1e3, \
+        ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def decode_bound(in_bytes: int, cfg, plan):
+    """A decode's bound: its input and its (B, n_emit) int32 packs, the
+    ACS of every stage of every block (the full store is an intermediate
+    and not counted)."""
+    n_emit = traceback_shape(cfg, plan)[1]
+    return bound(in_bytes + plan.num_blocks * n_emit * 4,
+                 ACS_OPS * plan.num_blocks * plan.block_len)
+
+
+def gen_bound(n: int, bits, out):
+    """A generator's bound at message length n, noisy: its bit packs and
+    stream written, ceil(n / 64) threefry calls for the message bits and
+    one per stage for the noise, one Box-Muller per stage."""
+    return bound((bits.numel() + out.numel()) * 4,
+                 THREEFRY_OPS * (-(-n // 64) + n), BOX_MULLER_SFU * n)
 
 
 def say(phase: str, msg: str) -> None:
@@ -112,7 +167,7 @@ def build_phase():
     for k in KERNELS:
         k.build()
     secs = time.perf_counter() - t0
-    log = core_cuda.build_log or ""
+    log = library.build_log or ""
     regs = sorted(set(re.findall(r"Used (\d+) registers", log)), key=int)
     spills = sorted(set(re.findall(r"(\d+) bytes spill stores", log)))
     sources = sorted({str(k.source.relative_to(ROOT)) for k in KERNELS})
@@ -186,15 +241,16 @@ def compare_phase(gen, tally) -> int:
     return worst
 
 
-def drive(argv):
-    """Run the port's CLI in this process with every kernel's launch count
-    set to 0 just before, and read the counts just after.  Returns (rc,
-    stdout, {kernel name: launches})."""
+def drive(argv, main=None):
+    """Run the port's CLI (or another entry point ``main``, called with no
+    argument) in this process with every kernel's launch count set to 0
+    just before, and read the counts just after.  Returns (rc, stdout,
+    {kernel name: launches})."""
     for k in KERNELS:
         k.launches = 0
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = cli.main(argv)
+        rc = cli.main(argv) if main is None else main()
     torch.cuda.synchronize()
     counts = {k.name: k.launches for k in KERNELS}
     text = buf.getvalue()
@@ -204,21 +260,45 @@ def drive(argv):
     return rc, text, counts
 
 
-def main_path_phase() -> int:
-    """The port's CLI at the reference's default size, in this process."""
+def record(runs: dict, counts: dict, calls: int, kernels, what: str):
+    """Note in ``runs`` the launches of each of ``kernels`` in one run of a
+    main path that made ``calls`` calls of its entry point (a decode, a
+    generation, a probe), the counts set to 0 just before the run and read
+    just after: each kernel must have launched, a whole number of times a
+    call."""
+    for k in kernels:
+        n = counts[k]
+        if n < calls or n % calls:
+            raise AssertionError(f"{what}: {k} launched {n} times in "
+                                 f"{calls} calls")
+        runs.setdefault(k, []).append((what, n, calls))
+
+
+def launches_per_call(runs: dict, name: str, want=None):
+    """(launches, launches a call) of ``name`` over its recorded runs: the
+    launches summed, and the one quotient every run gave, which must be
+    ``want`` where the design fixes it."""
+    per = {n // calls for _, n, calls in runs[name]}
+    if len(per) != 1 or (want is not None and per != {want}):
+        raise AssertionError(f"{name}: launches a call {sorted(per)} over "
+                             f"{runs[name]}, expected {want}")
+    return sum(n for _, n, _ in runs[name]), per.pop()
+
+
+def main_path_phase(runs: dict):
+    """The port's CLI at the reference's default size, in this process:
+    one decode."""
     rc, text, counts = drive(["-n", str(HEADLINE_BITS), "-s", "5.5", "-i",
                               "s8", "-m", "b32", "--seed", str(SEED), "-v"])
-    launches = counts["K1"]
     m = re.search(r"Final results -> BEN: (\d+)\s+BER: (\S+)", text)
     if rc != 0 or m is None:
         raise AssertionError(f"CLI main path failed: rc {rc}")
     if int(m.group(1)) != 0:
         raise AssertionError(f"BEN {m.group(1)} at 5.5 dB (expected 0)")
-    if launches < 1:
-        raise AssertionError("the main path never launched K1")
+    record(runs, counts, 1, ["K1"], "main path")
     say("4 main path", f"cli.main -n {HEADLINE_BITS} -s 5.5 -i s8 -m b32 "
-        f"--seed {SEED}: rc 0, BEN 0, K1 launches {launches}")
-    return launches
+        f"--seed {SEED}: rc 0, BEN 0, K1 launches {counts['K1']} in one "
+        f"decode")
 
 
 def noisy_chain_phase():
@@ -252,19 +332,6 @@ def noisy_chain_phase():
     return err
 
 
-def cuda_ms(fn, runs: int):
-    ts = []
-    for _ in range(runs):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        out = fn()
-        e.record()
-        e.synchronize()
-        ts.append(s.elapsed_time(e))
-    return statistics.median(ts), ts, out
-
-
 def timing_phase(card: str):
     """K1 and core_torch at the headline shape, CUDA events, on a real
     coded stream from the port's chain."""
@@ -287,14 +354,16 @@ def timing_phase(card: str):
                              f"(max |diff| {err})")
     threads = plan.num_blocks
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    bnd = decode_bound(packed.numel() * 4, HEADLINE, plan)
     say("5 times", f"{card}: headline {plan.message_len} bits SOFT8 b32 "
         f"dec_len {plan.dec_len} ({threads} blocks = threads, "
         f"{-(-threads // 64)} CUDA blocks of 64 on {sms} SMs): K1 median "
         f"{k1_ms:.4f} ms of {[round(t, 4) for t in k1_all]} = "
         f"{plan.message_len / k1_ms / 1e6:.2f} Gb/s decoded; core_torch "
         f"median {plain_ms:.1f} ms of {[round(t, 1) for t in plain_all]} "
-        f"({plain_ms / k1_ms:.0f}x); outputs bit-equal")
-    return k1_ms, plain_ms
+        f"({plain_ms / k1_ms:.0f}x); outputs bit-equal; bound {bnd[0]:.4f} "
+        f"ms by {bnd[1]} ({bnd[0] / k1_ms:.0%} of it)")
+    return k1_ms, plain_ms, bnd
 
 
 def window_compare_phase(gen, tally) -> dict:
@@ -367,10 +436,12 @@ def source_words(cfg, n_bits: int, seed: int) -> np.ndarray:
                           cfg.bits_per_pack)
 
 
-def serve_phase(tmp: Path, flag: str, cfg, runs, tag: str):
+def serve_phase(tmp: Path, flag: str, cfg, decodes, tag: str, runs: dict):
     """Emit the headline stream through cli.main, then decode it back with
-    --decode-file once per ``runs`` entry (extra flags, the kernel that
-    must carry it); every .dec must equal the source's words."""
+    --decode-file once per ``decodes`` entry (extra flags, the kernel that
+    must carry it); every .dec must equal the source's words.  A file is
+    one decode call, a streamed file one a chunk (StreamingViterbi.push;
+    the flush decodes nothing past the last chunk's halo)."""
     emit = tmp / f"{tag}.bin"
     rc, text, counts = drive(["-n", str(HEADLINE_BITS), "-s", "5.5", "-i",
                               flag, "--seed", str(SEED), "--emit-file",
@@ -378,8 +449,7 @@ def serve_phase(tmp: Path, flag: str, cfg, runs, tag: str):
     if rc != 0 or "BEN: 0 " not in text:
         raise AssertionError(f"{tag}: the emitting run failed (rc {rc})")
     want = source_words(cfg, HEADLINE_BITS, SEED)
-    launches = {}
-    for i, (extra, kernel) in enumerate(runs):
+    for i, (extra, kernel) in enumerate(decodes):
         out = tmp / f"{tag}_{i}.dec"
         rc, text, counts = drive(["-i", flag, "--decode-file", str(emit),
                                   "--out-file", str(out), "-v", *extra])
@@ -387,17 +457,16 @@ def serve_phase(tmp: Path, flag: str, cfg, runs, tag: str):
         if rc != 0 or not np.array_equal(got, want):
             raise AssertionError(f"{tag} {extra}: rc {rc}, .dec differs from "
                                  f"the source's words")
-        if counts[kernel] < 1:
-            raise AssertionError(f"{tag} {extra}: {kernel} never launched")
-        launches[kernel] = max(launches.get(kernel, 0), counts[kernel])
+        chunks = re.search(r"in (\d+) chunks of", text)
+        calls = int(chunks.group(1)) if chunks else 1
+        record(runs, counts, calls, [kernel], f"serve {tag} {extra}")
         say(f"6 serve {tag}", f"--decode-file {' '.join(extra) or '(full)'}"
             f": rc 0, {got.size} words byte-equal to the source's, BEN 0; "
-            f"launches {counts}")
+            f"{calls} decode calls; launches {counts}")
     emit.unlink()
-    return launches
 
 
-def multi_file_phase(tmp: Path, card: str):
+def multi_file_phase(tmp: Path, card: str, runs: dict):
     """Four equal 8M-bit files through one run_stream (the CLI's several-
     file path); each output equal to the per-file ViterbiGPU.run."""
     n = 8_000_000
@@ -411,8 +480,9 @@ def multi_file_phase(tmp: Path, card: str):
         paths.append(str(p))
     rc, text, counts = drive(["-i", "s8", "--decode-file", *paths, "-v"])
     m = re.search(r"([\d.]+) ms/file sustained \(([\d.]+) Gb/s\)", text)
-    if rc != 0 or m is None or counts["K1"] != 4:
+    if rc != 0 or m is None:
         raise AssertionError(f"multi-file decode failed: rc {rc}, {counts}")
+    record(runs, counts, len(paths), ["K1"], "multi-file")
     dec = ViterbiGPU(HEADLINE)
     for i, p in enumerate(paths):
         raw = np.fromfile(p, dtype=np.int32)
@@ -457,14 +527,16 @@ def kernel_times_phase(card: str):
         if err:
             raise AssertionError(f"headline shape: {kernel.name} and its "
                                  f"plain version differ (max |diff| {err})")
-        times[kernel.name] = (k_ms, p_ms, err)
+        bnd = decode_bound(packed.numel() * 4, cfg, plan)
+        times[kernel.name] = (k_ms, p_ms, err, bnd)
         say("8 times", f"{card}: {kernel.name} at {plan.message_len} bits "
             f"{cfg.channel_in.name} b32 dec_len {plan.dec_len}"
             f"{' window' if window else ''}: median {k_ms:.4f} ms of "
             f"{[round(t, 4) for t in k_all]} = "
             f"{plan.message_len / k_ms / 1e6:.2f} Gb/s decoded; plain median "
             f"{p_ms:.1f} ms of {[round(t, 1) for t in p_all]} "
-            f"({p_ms / k_ms:.0f}x); outputs bit-equal")
+            f"({p_ms / k_ms:.0f}x); outputs bit-equal; bound {bnd[0]:.4f} "
+            f"ms by {bnd[1]}")
     return times
 
 
@@ -568,13 +640,14 @@ def generator_compare_phase():
     return worst
 
 
-def e2e_phase():
+def e2e_phase(runs: dict):
     """--e2e-device through cli.main at the reference's default size:
     SOFT8 (K7 + K1), FP32 (K8 + K2), --survivor window (K7 + K3), each BEN 0
     at 5.5 dB; then a noisy 4M-bit run whose BER must lie in the decoder's
-    band.  Returns ({generator kernel: launches of its first run},
-    {run: (steady-state ms, Gb/s) of the CLI's -v line})."""
-    launches, steady = {}, {}
+    band.  Each run calls simulate() once, and once more for the -v
+    steady-state line.  Returns {run: (steady-state ms, Gb/s) of the CLI's
+    -v line}."""
+    steady = {}
     for tag, extra, gk, dk in (("SOFT8", ["-i", "s8"], "K7", "K1"),
                                ("FP32", ["-i", "f"], "K8", "K2"),
                                ("SOFT8 window", ["-i", "s8", "--survivor",
@@ -587,10 +660,7 @@ def e2e_phase():
                        r"Gb/s e2e\)   \[BEN 0\]", text)
         if rc != 0 or m is None or int(m.group(1)) != 0 or st is None:
             raise AssertionError(f"--e2e-device {tag} failed: rc {rc}")
-        if counts[gk] < 1 or counts[dk] < 1:
-            raise AssertionError(f"--e2e-device {tag}: {gk} or {dk} never "
-                                 f"launched ({counts})")
-        launches.setdefault(gk, counts[gk])
+        record(runs, counts, 2, [gk, dk], f"--e2e-device {tag}")
         steady[tag] = (float(st.group(1)), float(st.group(2)))
         say("10 e2e", f"cli.main -n {HEADLINE_BITS} -s 5.5 --seed {SEED} "
             f"--e2e-device {' '.join(extra)}: rc 0, BEN 0; launches {counts}")
@@ -598,8 +668,9 @@ def e2e_phase():
     rc, text, counts = drive(["-n", str(n), "-s", "1.125", "-i", "s8",
                               "--seed", str(SEED), "--e2e-device"])
     m = re.search(r"Final results -> BEN: (\d+)\s", text)
-    if rc != 0 or m is None or counts["K7"] < 1 or counts["K1"] < 1:
+    if rc != 0 or m is None:
         raise AssertionError(f"noisy --e2e-device failed: rc {rc}, {counts}")
+    record(runs, counts, 1, ["K7", "K1"], "noisy --e2e-device")
     ber = int(m.group(1)) / n
     # the band of phase 4b: scale 40000 saturates SOFT8 to hard decisions;
     # a generator that forgets the noise gives 0, a broken decode ~0.5
@@ -607,7 +678,7 @@ def e2e_phase():
         raise AssertionError(f"noisy --e2e-device BER {ber:g} out of band")
     say("10b noisy e2e", f"--e2e-device -n {n} -s 1.125 -i s8: BEN "
         f"{m.group(1)} BER {ber:g}; launches {counts}")
-    return launches, steady
+    return steady
 
 
 def generator_times_phase(card: str):
@@ -626,7 +697,8 @@ def generator_times_phase(card: str):
             kernel, True, HEADLINE_BITS, ch, sigma, CLI_SCALE), 3)
         err = check_generated(kernel, ch, CLI_SCALE, sigma, got, want,
                               "headline")
-        times[kernel.name] = (k_ms, p_ms, err)
+        bnd = gen_bound(HEADLINE_BITS, *got)
+        times[kernel.name] = (k_ms, p_ms, err, bnd)
         n_out = got[1].numel()
         say("11 times", f"{card}: {kernel.name} at {HEADLINE_BITS} bits "
             f"{ch.name} 5.5 dB ({n_out} {'values' if cfg is FP32 else 'words'}"
@@ -634,7 +706,7 @@ def generator_times_phase(card: str):
             f"{[round(t, 4) for t in k_all]} = "
             f"{HEADLINE_BITS / k_ms / 1e6:.2f} Gb/s generated; plain median "
             f"{p_ms:.1f} ms of {[round(t, 1) for t in p_all]} "
-            f"({p_ms / k_ms:.0f}x)")
+            f"({p_ms / k_ms:.0f}x); bound {bnd[0]:.4f} ms by {bnd[1]}")
     e2e = {}
     for generator in ("cuda", "torch"):
         fn, m = build_sharded_simulation(HEADLINE, HEADLINE_BITS, snr_db=5.5,
@@ -756,21 +828,22 @@ def counted(fn):
     return out, {k.name: k.launches for k in KERNELS}
 
 
-def staged_path_phase():
+def staged_path_phase(runs: dict):
     """The staged-input paths at full width on the 32M-bit transmission at
     5.5 dB: decode_packed_cuda(fused=False) (K6 -> K4) equal to the K1
     decode word for word, the values-in entry decode_blocks_cuda (K6 -> K4)
     on the transmission's (S, 2) soft values equal to it too, and on the
-    FP32 wire fp32_words=False (K6 -> K5) equal to K2; BEN 0 for each.
-    Returns {kernel: launches in these runs}."""
-    launches = {"K4": 0, "K5": 0, "K6": 0}
+    FP32 wire fp32_words=False (K6 -> K5) equal to K2; BEN 0 for each;
+    each run one call."""
     for cfg, tag in ((HEADLINE, "SOFT8"), (FP32, "FP32")):
         packed, plan, bits = headline_packed(cfg, SEED)
         ref, ref_counts = counted(lambda: core_cuda.decode_packed_cuda(
             packed, cfg, plan))
         ref_kernel = "K2" if cfg is FP32 else "K1"
-        runs = [("fp32_words=False", "K5", lambda: core_cuda.decode_packed_cuda(
-            packed, cfg, plan, fp32_words=False))] if cfg is FP32 else [
+        staged = [("fp32_words=False", "K5",
+                   lambda: core_cuda.decode_packed_cuda(
+                       packed, cfg, plan, fp32_words=False))] \
+            if cfg is FP32 else [
             ("fused=False", "K4", lambda: core_cuda.decode_packed_cuda(
                 packed, cfg, plan, fused=False)),
             ("decode_blocks_cuda", "K4", lambda: core_cuda.decode_blocks_cuda(
@@ -780,7 +853,9 @@ def staged_path_phase():
         if ref_counts[ref_kernel] != 1 or ben:
             raise AssertionError(f"{tag}: the {ref_kernel} decode failed "
                                  f"(BEN {ben}, {ref_counts})")
-        for what, kernel, fn in runs:
+        record(runs, ref_counts, 1, [ref_kernel],
+               f"{tag} decode_packed_cuda")
+        for what, kernel, fn in staged:
             got, counts = counted(fn)
             ben = count_bit_errors(got, 32, bits, cfg.extra_l)
             want = {"K6": 1, kernel: 1}
@@ -789,29 +864,10 @@ def staged_path_phase():
                 raise AssertionError(
                     f"{tag} {what}: {'equal' if torch.equal(got, ref) else 'differs from'}"
                     f" the {ref_kernel} decode, BEN {ben}, launches {counts}")
-            for k in want:
-                launches[k] += counts[k]
+            record(runs, counts, 1, list(want), f"{tag} {what}")
             say("13 staged path", f"{tag} {HEADLINE_BITS} bits 5.5 dB "
                 f"{what}: {got.shape[0]} words equal to the {ref_kernel} "
                 f"decode, BEN 0; launches {want}")
-    return launches
-
-
-def ab_ms(fa, fb, runs: int):
-    """CUDA-event times of fa and fb, launched in turns (a, b, b, a, ...):
-    (median a, median b, all a, all b, out a, out b)."""
-    ta, tb = [], []
-    for i in range(runs):
-        order = ((fa, ta), (fb, tb)) if i % 2 == 0 else ((fb, tb), (fa, ta))
-        for fn, ts in order:
-            ms, _, out = cuda_ms(fn, 1)
-            ts.append(ms)
-            if fn is fa:
-                out_a = out
-            else:
-                out_b = out
-    return (statistics.median(ta), statistics.median(tb), ta, tb, out_a,
-            out_b)
 
 
 def staged_times_phase(card: str):
@@ -839,12 +895,21 @@ def staged_times_phase(card: str):
                                  f"version (max |diff| {err})")
         staged[what] = got
         mb = (x.numel() + got.numel()) * 4 / 1e6
-        times[f"K6 {what}"] = (k_ms, p_ms, err)
+        need = (b - 1) * stride + win          # the pad is not timed
+        padded = torch.cat([x, x.new_zeros(max(0, need - x.numel()))])
+        lib_ms, _, lib = cuda_ms(lambda: torch.as_strided(
+            padded, (win, b), (1, stride)).contiguous(), 5)
+        if bits_diff(lib, want):
+            raise AssertionError(f"as_strided on {what} differs from K6")
+        bnd = bound(mb * 1e6)
+        times[f"K6 {what}"] = (k_ms, p_ms, err, bnd, lib_ms)
         say("14 times", f"{card}: K6 on the headline's {what} "
             f"({x.numel()} words -> {tuple(got.shape)}): median {k_ms:.4f} "
             f"ms of {[round(t, 4) for t in k_all]} = "
             f"{mb / k_ms / 1e3:.3f} TB/s of {mb:.1f} MB moved; plain median "
-            f"{p_ms:.3f} ms of {[round(t, 3) for t in p_all]}")
+            f"{p_ms:.3f} ms of {[round(t, 3) for t in p_all]}; as_strided"
+            f"(...).contiguous() median {lib_ms:.4f} ms; bound "
+            f"{bnd[0]:.4f} ms by {bnd[1]}")
     wire, fplan, _ = headline_packed(FP32, 21)
     fw, fh = words_per_block(FP32, fplan)
     wire_staged = K6(wire, fw, fw + fh, fplan.num_blocks)
@@ -880,14 +945,183 @@ def staged_times_phase(card: str):
         if err:
             raise AssertionError(f"{name} differs from its plain version at "
                                  f"the headline (max |diff| {err})")
-        times[name] = (k_ms, p_ms, err)
+        bnd = decode_bound(arg.numel() * 4 if kernel is K4 else
+                           sum(a.numel() for a in args) * 4, cfg, pl)
+        times[name] = (k_ms, p_ms, err, bnd)
         say("14 times", f"{card}: {name} at {pl.message_len} bits "
             f"{cfg.channel_in.name} b32 dec_len {pl.dec_len}: median "
             f"{k_ms:.4f} ms of {[round(t, 4) for t in k_all]} = "
             f"{pl.message_len / k_ms / 1e6:.2f} Gb/s decoded{line}; plain "
             f"median {p_ms:.1f} ms of {[round(t, 1) for t in p_all]} "
-            f"({p_ms / k_ms:.0f}x); outputs bit-equal")
+            f"({p_ms / k_ms:.0f}x); outputs bit-equal; bound {bnd[0]:.4f} "
+            f"ms by {bnd[1]}")
     return times
+
+
+def hardware_phase(card: str, gen, runs: dict):
+    """The hardware model on the card.  Its path, `python -m
+    tpu_viterbi_torch.hardware`, driven with the counts set to 0: K9's
+    binary search must find the CUDA opt-in attribute, which the per-kind
+    table must hold.  K9's output against its plain version; K3's gate
+    refusing a ring one byte over the budget before any launch; 'auto'
+    keeping the full store at the headline.  Returns K9's row; its
+    launches in the path's run (one probe) go into ``runs``."""
+    hardware.optin_smem_bytes()                  # binds the entry
+    t0 = time.perf_counter()
+    optin = hardware.optin_smem_bytes()
+    attr_ms = (time.perf_counter() - t0) * 1e3
+    rc, text, counts = drive([], hardware.main)
+    m = re.search(r"probed budget: (\d+) bytes", text)
+    if rc != 0 or m is None:
+        raise AssertionError(f"python -m tpu_viterbi_torch.hardware failed "
+                             f"(rc {rc})")
+    probed = int(m.group(1))
+    if probed != optin or hardware.smem_budget_bytes() != probed:
+        raise AssertionError(f"K9 probed {probed} bytes, the opt-in "
+                             f"attribute is {optin}, the table "
+                             f"{hardware.smem_budget_bytes()}")
+    if counts["K9"] < 3:
+        raise AssertionError(f"the probe launched K9 {counts['K9']} times")
+    record(runs, counts, 1, ["K9"], "python -m tpu_viterbi_torch.hardware")
+    out = torch.full((8, 128), -1, dtype=torch.int32, device="cuda")
+    k_ms, k_all, err = cuda_ms(lambda: K9(48 * 1024, out), 20)
+    if err != 0 or bool(out.any()):
+        raise AssertionError(f"K9 at 48 KB: cudaError_t {err}, output not "
+                             f"its plain version's zeros")
+    over = K9(optin + 1, out)
+    if over != hardware.CUDA_ERROR_INVALID_VALUE:
+        raise AssertionError(f"K9 one byte over the limit: cudaError_t "
+                             f"{over}, expected cudaErrorInvalidValue")
+
+    # K3's gate: the ring one byte over the budget is refused before a launch
+    plan = plan_blocks(2048 * 40, 32, 2048)
+    x = random_words(HEADLINE, plan, gen)
+    ring = core_cuda.ring_bytes(HEADLINE)
+    before = K3.launches
+    os.environ["TPU_VITERBI_SMEM_BUDGET"] = str(ring - 1)
+    try:
+        with contextlib.suppress(ValueError):
+            K3(x, HEADLINE, plan)
+            raise AssertionError("K3 launched a ring over the budget")
+        refused = K3.launches == before
+        os.environ["TPU_VITERBI_SMEM_BUDGET"] = str(ring)
+        got = K3(x, HEADLINE, plan)
+    finally:
+        del os.environ["TPU_VITERBI_SMEM_BUDGET"]
+    torch.cuda.synchronize()
+    if not refused or K3.launches != before + 1 or not torch.equal(
+            got, decode_blocks_torch(x, HEADLINE, plan, True)):
+        raise AssertionError("K3's shared-memory gate: a refused ring "
+                             "launched, or the ring at the budget failed")
+    hplan = plan_blocks(HEADLINE.get_message_len(2 * HEADLINE_BITS), 32,
+                        DEC_LEN)
+    store = hplan.n_packs * 64 * hplan.num_blocks * 4
+    if core_cuda.resolve_window("auto", HEADLINE, hplan, "cuda") or \
+            ViterbiGPU(HEADLINE).window(2 * HEADLINE_BITS):
+        raise AssertionError("'auto' does not keep the full store at the "
+                             "headline")
+    bnd = bound(out.numel() * 4)
+    say("15 hardware", f"{card}; kind {hardware.device_kind()!r}: K9 probed "
+        f"{probed} bytes in {counts['K9']} launches = the opt-in attribute "
+        f"(read in {attr_ms:.4f} ms) = the table's budget; K9 at 48 KB "
+        f"median {k_ms:.4f} ms of 20, output equal to its plain version, "
+        f"one byte over refused; K3's ring of {ring} bytes refused with "
+        f"ValueError and no launch under a budget of {ring - 1}, launched "
+        f"and bit-equal at {ring}; 'auto' keeps the full store at the "
+        f"headline ({store} bytes against "
+        f"{hardware.survivor_store_budget_bytes('cuda')}); bound "
+        f"{bnd[0]:.6f} ms by {bnd[1]}")
+    return k_ms, attr_ms, 0, bnd
+
+
+OP_COST_CHECK_STEPS = 256
+
+
+def op_cost_phase(card: str, runs: dict):
+    """K11's op-cost kernels against their plain version after the same
+    steps (every tile of the grid), and the probe's path (`python -m
+    tpu_viterbi_torch.scripts.op_cost_probe`, all variants: one probe
+    call) with the counts set to 0.  Returns K11's row: add4 at
+    OP_COST_CHECK_STEPS, its bound counted in the SASS instructions of
+    add4's step loop that the probe read (ptxas fuses add4's 32 adds a
+    step into fewer instructions)."""
+    x = op_cost_probe.probe_input("cuda")
+    tiles = op_cost_probe.grid_tiles()
+    steps = OP_COST_CHECK_STEPS
+    for v in op_cost_probe.VARIANTS:
+        got = K11(v, x, steps, tiles)
+        torch.cuda.synchronize()
+        want = op_cost_probe.op_cost_torch(v, x, steps)
+        if not torch.equal(got, want.expand_as(got)):
+            raise AssertionError(f"K11 {v} differs from its plain version "
+                                 f"after {steps} steps")
+    k_ms, _, _ = cuda_ms(lambda: K11("add4", x, steps, tiles), 5)
+    p_ms, _, _ = cuda_ms(
+        lambda: op_cost_probe.op_cost_torch("add4", x, steps), 1)
+    say("16 op cost", f"K11 bit-equal to its plain version on all "
+        f"{len(op_cost_probe.VARIANTS)} variants after {steps} steps, "
+        f"{tiles} tiles; add4 at {steps} steps: median {k_ms:.4f} ms, plain "
+        f"{p_ms:.1f} ms")
+    results = []
+
+    def probe_path() -> int:
+        results.extend(op_cost_probe.probe())
+        return 0
+
+    _, _, counts = drive([], probe_path)
+    record(runs, counts, 1, ["K11"], "op-cost probe")
+    add4 = next(r for r in results if r["variant"] == "add4")
+    lanes = tiles * x.numel()
+    bnd = bound(x.numel() * 4 + lanes * 4, lanes * steps * add4["sass_loop"])
+    rate = add4["sass_per_ns"]
+    say("16 op cost", f"{card}: the probe's {counts['K11']} launches; add4 "
+        f"at {steps} steps: bound {bnd[0]:.4f} ms by {bnd[1]} ({lanes} lanes"
+        f" x {steps} steps x {add4['sass_loop']} SASS instructions; "
+        f"{k_ms:.4f} ms is {bnd[0] / k_ms:.0%} of it); ALU model of this "
+        f"card in issued instructions: ({ACS_OPS / rate:.6f} ns a "
+        f"block-stage, {ACS_OPS} instructions, {rate:.1f} lane-instructions"
+        f"/ns; semantic add4 {add4['lane_ops_per_ns']:.1f} lane-ops/ns); "
+        f"table: {hardware.alu_model()}")
+    return k_ms, p_ms, 0, bnd
+
+
+CANARY_CALLS = 3
+CANARY_REPS = 5
+
+
+def canary_phase(card: str, runs: dict):
+    """K10: K4's packs at the canary shape bit-equal to the plain
+    decode_staged_torch on the same words, then `utils.timing.canary_ns`
+    CANARY_CALLS times with the counts set to 0 (each call stages fresh
+    words and times K4 between CUDA events, one untimed launch and
+    CANARY_REPS timed).  Returns K10's row; K4's launches in those calls
+    go into ``runs`` as K10's."""
+    cfg, plan = timing.canary_plan()
+    words = timing.canary_words(cfg, plan)
+    K4(words, cfg, plan)                                     # warm-up
+    k_ms, _, got = cuda_ms(lambda: K4(words, cfg, plan), 3)
+    p_ms, _, want = cuda_ms(lambda: decode_staged_torch(words, cfg, plan), 1)
+    err = max_abs_diff(got, want)
+    if got.shape != want.shape or err:
+        raise AssertionError(f"K4 at the canary shape differs from "
+                             f"decode_staged_torch (max |diff| {err})")
+    for k in KERNELS:
+        k.launches = 0
+    ns = [timing.canary_ns(reps=CANARY_REPS) for _ in range(CANARY_CALLS)]
+    torch.cuda.synchronize()
+    launches = K4.launches
+    record(runs, {"K10": launches}, CANARY_CALLS, ["K10"], "canary_ns")
+    bnd = decode_bound(words.numel() * 4, cfg, plan)
+    say("17 canary", f"{card}: K10 (K4 word mode, {plan.num_blocks} blocks "
+        f"= {-(-plan.num_blocks // core_cuda.K_THREADS)} CUDA blocks of "
+        f"{core_cuda.K_THREADS}, dec_len {plan.dec_len}, {plan.n_packs} "
+        f"packs): packs bit-equal to decode_staged_torch (plain {p_ms:.1f} "
+        f"ms); canary_ns x {CANARY_CALLS}: median "
+        f"{statistics.median(ns):.4f} ns/stage/tile of "
+        f"{[round(v, 4) for v in ns]} (spread {max(ns) - min(ns):.4f}); "
+        f"K4 median {k_ms:.4f} ms; launches {launches}; bound "
+        f"{bnd[0]:.4f} ms by {bnd[1]}")
+    return k_ms, p_ms, err, bnd
 
 
 def main() -> int:
@@ -895,26 +1129,24 @@ def main() -> int:
     build_phase()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1234)
+    times, runs = {}, {}
     tally = new_tally()
     err = compare_phase(gen, tally)
     worst = window_compare_phase(gen, tally)
     worst.update(generator_compare_phase())
-    launches = {"K1": main_path_phase()}
+    main_path_phase(runs)
     err = max(err, noisy_chain_phase())
-    k1_ms, plain_ms = timing_phase(card)
+    k1_ms, plain_ms, k1_bound = timing_phase(card)
     with tempfile.TemporaryDirectory() as tmp:
-        launches.update(serve_phase(
-            Path(tmp), "s8", HEADLINE,
-            [([], "K1"), (["--survivor", "window"], "K3"),
-             (["--stream-words", "1048576"], "K1")], "soft8"))
-        launches.update(serve_phase(Path(tmp), "f", FP32, [([], "K2")],
-                                    "fp32"))
-        multi_file_phase(Path(tmp), card)
-    gen_launches, steady = e2e_phase()
-    launches.update(gen_launches)
-    launches.update(staged_path_phase())
-    times = kernel_times_phase(card)
-    times["K1"] = (k1_ms, plain_ms, err)
+        serve_phase(Path(tmp), "s8", HEADLINE,
+                    [([], "K1"), (["--survivor", "window"], "K3"),
+                     (["--stream-words", "1048576"], "K1")], "soft8", runs)
+        serve_phase(Path(tmp), "f", FP32, [([], "K2")], "fp32", runs)
+        multi_file_phase(Path(tmp), card, runs)
+    steady = e2e_phase(runs)
+    staged_path_phase(runs)
+    times.update(kernel_times_phase(card))
+    times["K1"] = (k1_ms, plain_ms, err, k1_bound)
     gen_times, e2e = generator_times_phase(card)
     times.update(gen_times)
     say("12 e2e summary", f"{card}: CLI steady-state lines {steady}; "
@@ -922,13 +1154,30 @@ def main() -> int:
     staged_times = staged_times_phase(card)
     times.update({k: staged_times[f"{k} words" if k != "K5" else k]
                   for k in ("K4", "K5", "K6")})
+    times["K9"] = hardware_phase(card, gen, runs)
+    times["K11"] = op_cost_phase(card, runs)
+    times["K10"] = canary_phase(card, runs)
+    # launches a call, measured in the main-path runs: where the design
+    # fixes it, it must be so (one a decode or a generation; the probe's
+    # two step counts of one warm-up and REPS timed launches a variant;
+    # time_in_graph's one untimed and CANARY_REPS timed); K9's is the
+    # search's, which depends on the card
+    want = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8"), 1)
+    want["K10"] = CANARY_REPS + 1
+    want["K11"] = 2 * len(op_cost_probe.VARIANTS) * (op_cost_probe.REPS + 1)
+    rows = [(k.name, str(k.source.relative_to(ROOT))) for k in KERNELS]
+    rows.insert(-1, ("K10", str(K4.source.relative_to(ROOT))))
+    per_call = {name: launches_per_call(runs, name, want.get(name))
+                for name, _ in rows}
     print(json.dumps({"kernels": [{
-        "name": k.name, "route": "cuda",
-        "source": str(k.source.relative_to(ROOT)),
-        "replaces": REPLACES[k.name], "launches": launches[k.name],
-        "max_abs_err": max(times[k.name][2], worst.get(k.name, 0)),
-        "ms": times[k.name][0], "plain_ms": times[k.name][1]}
-        for k in KERNELS]}))
+        "name": name, "route": "cuda", "source": source,
+        "replaces": REPLACES[name], "launches": per_call[name][0],
+        "launches_per_call": per_call[name][1],
+        "max_abs_err": max(times[name][2], worst.get(name, 0)),
+        "ms": times[name][0], "plain_ms": times[name][1],
+        "bound_ms": times[name][3][0], "bound_by": times[name][3][1],
+        "library_ms": times[name][4] if len(times[name]) > 4 else None}
+        for name, source in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -140,8 +140,8 @@ def test_awgn_statistics():
 
 
 def test_rand_bit_gen_seeded_and_fresh():
-    a = chain.RandBitGen(10_000, seed=5)
-    b = chain.RandBitGen(10_000, seed=5)
+    a = chain.RandBitGen(10_000, seed=5, device="cpu")
+    b = chain.RandBitGen(10_000, seed=5, device="cpu")
     x1, x2 = a.process(None), a.process(None)
     assert torch.equal(x1, b.process(None))        # same seed, same bits
     assert not torch.equal(x1, x2)                 # each call draws anew
@@ -150,7 +150,7 @@ def test_rand_bit_gen_seeded_and_fresh():
 
 
 def test_pipeline_probe_and_timing():
-    src = chain.RandBitGen(256, seed=1).probe()
+    src = chain.RandBitGen(256, seed=1, device="cpu").probe()
     enc = chain.ConvolutionalEncoder()
     pipe = src | enc
     res = pipe.run()

@@ -2,7 +2,9 @@
 staged-input paths (``decode_packed_cuda(fused=False)``,
 ``fp32_words=False``, ``decode_blocks_cuda``) and their launch counts, and
 ViterbiGPU's CUDA path (run, run_stream, streaming); the generator
-kernels K7 and K8 against theirs, and the in-graph simulation on the card.
+kernels K7 and K8 against theirs, and the in-graph simulation on the card;
+the hardware model (K9's probe, K3's shared-memory gate), the op-cost
+kernels K11 and the canary K10.
 Every test here needs a CUDA GPU and skips without one; the
 file imports no jax, so it runs on a machine that has only the port's
 dependencies:
@@ -16,13 +18,15 @@ import numpy as np
 import pytest
 import torch
 
-from tpu_viterbi_torch import ConfigResolutionError, ViterbiGPU
+from tpu_viterbi_torch import ConfigResolutionError, ViterbiGPU, hardware
 from tpu_viterbi_torch.chain import genkernel
 from tpu_viterbi_torch.chain.quantize import unpack_to_soft
 from tpu_viterbi_torch.config import ChannelIn, DecodeOut, DecoderConfig
 from tpu_viterbi_torch.decoder import core_cuda, core_torch
 from tpu_viterbi_torch.decoder.streaming import StreamingViterbi
+from tpu_viterbi_torch.scripts import op_cost_probe
 from tpu_viterbi_torch.sharding import simulate
+from tpu_viterbi_torch.utils import timing
 
 pytestmark = pytest.mark.cuda
 
@@ -395,3 +399,104 @@ def test_simulation_on_gpu_ben0(gpu, generator, cfg, survivor):
     assert ben.device.type == "cuda" and int(ben) == 0
     assert dec_kernel.launches == before[1] + 1
     assert gen_kernel.launches == before[0] + (generator == "cuda")
+
+
+def test_k9_probe_finds_the_opt_in_limit(gpu):
+    """K9's binary search ends at the CUDA opt-in attribute, which the
+    per-kind table holds for this card; every accepted probe counts."""
+    optin = hardware.optin_smem_bytes()
+    before = hardware.K9.launches
+    assert hardware.probe_smem_budget() == optin
+    assert hardware.K9.launches - before >= 3
+    assert hardware.smem_budget_bytes() == optin
+
+
+def test_k9_output_and_refusal(gpu):
+    """K9 writes its plain version's zeros; a request one byte over the
+    limit is refused as cudaErrorInvalidValue, not counted, and leaves no
+    stale error for the next launch."""
+    optin = hardware.optin_smem_bytes()
+    out = torch.full((8, 128), -1, dtype=torch.int32, device=gpu)
+    before = hardware.K9.launches
+    assert hardware.K9(optin + 1, out) == hardware.CUDA_ERROR_INVALID_VALUE
+    assert hardware.K9.launches == before
+    assert hardware.K9(optin, out) == 0
+    torch.cuda.synchronize()
+    assert hardware.K9.launches == before + 1 and not out.any()
+    assert hardware.sm_clock_hz() > 1e8
+
+
+@pytest.mark.parametrize("out", [DecodeOut.O_B32, DecodeOut.O_B16],
+                         ids=lambda o: o.name)
+def test_window_gate_refuses_before_launch(gpu, rng, monkeypatch, out):
+    """K3, and K4/K5 with window, refuse a ring one byte over the budget
+    with a ValueError naming shared memory, before any launch; at the
+    budget they launch."""
+    cfg = DecoderConfig(ChannelIn.SOFT8, decode_out=out)
+    fp32 = DecoderConfig(ChannelIn.FP32, decode_out=out)
+    plan = core_torch.plan_blocks(96 * 9 - cfg.bits_per_pack,
+                                  cfg.bits_per_pack, 96)
+    x = torch.from_numpy(_words(rng, cfg, plan)).to(gpu)
+    xf = torch.from_numpy(_words(rng, fp32, plan)).to(gpu)
+    wt = core_cuda.stage_words_cuda(x, cfg, plan)
+    planes = core_torch.clamp_split(core_cuda.stage_words_cuda(xf, fp32,
+                                                               plan), plan)
+    ring = core_cuda.ring_bytes(cfg)
+    calls = ((core_cuda.K3, lambda: core_cuda.K3(x, cfg, plan)),
+             (core_cuda.K4, lambda: core_cuda.K4(wt, cfg, plan, True)),
+             (core_cuda.K5, lambda: core_cuda.K5(*planes, fp32, plan, True)))
+    for kernel, call in calls:
+        monkeypatch.setenv("TPU_VITERBI_SMEM_BUDGET", str(ring - 1))
+        before = kernel.launches
+        with pytest.raises(ValueError, match="shared memory"):
+            call()
+        assert kernel.launches == before
+        monkeypatch.setenv("TPU_VITERBI_SMEM_BUDGET", str(ring))
+        call()
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+
+
+def test_auto_keeps_full_store_at_headline(gpu):
+    cfg = DecoderConfig(ChannelIn.SOFT8)
+    plan = core_torch.plan_blocks(cfg.get_message_len(64_000_000), 32, 2048)
+    assert core_cuda.resolve_window("auto", cfg, plan, gpu) is False
+    assert ViterbiGPU(cfg).window(64_000_000) is False
+
+
+@pytest.mark.parametrize("variant", op_cost_probe.VARIANTS)
+def test_op_cost_kernel_matches_plain(gpu, variant):
+    """K11 on a grid that fills every SM: every tile equals the plain
+    version after the same steps; one launch."""
+    x = op_cost_probe.probe_input(gpu)
+    tiles = op_cost_probe.grid_tiles()
+    before = op_cost_probe.K11.launches
+    got = op_cost_probe.K11(variant, x, 20, tiles)
+    torch.cuda.synchronize()
+    assert op_cost_probe.K11.launches == before + 1
+    want = op_cost_probe.op_cost_torch(variant, x, 20)
+    assert torch.equal(got, want.expand_as(got))
+    sms = torch.cuda.get_device_properties(gpu).multi_processor_count
+    assert (tiles * op_cost_probe.TILE_BLOCKS) % sms == 0
+
+
+def test_op_cost_sass_loops(gpu):
+    """Each variant's step loop is found in the library's SASS, with at
+    least one instruction a construct pair and the loop's own three."""
+    counts = op_cost_probe.sass_loop_counts()
+    assert set(counts) == set(op_cost_probe.VARIANTS)
+    assert all(n >= op_cost_probe.UNROLL // 2 + 3 for n in counts.values())
+
+
+def test_canary_and_timing(gpu):
+    """K10 at a small shape: K4's packs equal decode_staged_torch on the
+    canary's words; canary_ns launches K4 (warm-up and reps) and gives a
+    positive time; time_in_graph gives seconds per call."""
+    cfg, plan = timing.canary_plan(1, 16)
+    words = timing.canary_words(cfg, plan)
+    assert torch.equal(core_cuda.K4(words, cfg, plan),
+                       core_torch.decode_staged_torch(words, cfg, plan))
+    before = core_cuda.K4.launches
+    ns = timing.canary_ns(tiles=1, n_packs=16, reps=3)
+    assert ns > 0 and core_cuda.K4.launches == before + 4
+    assert timing.time_in_graph(lambda t: t * 2, words, runs=3) > 0

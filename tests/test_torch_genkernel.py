@@ -181,10 +181,11 @@ def test_wrappers_reject_bad_arguments():
 
 def test_cpu_calls_run_the_plain_version_uncounted():
     before = (gen.K7.launches, gen.K8.launches)
-    bits, words = gen.K7(0, 5, 1000, ChannelIn.SOFT4, 0.5, 4.0)
+    bits, words = gen.K7(0, 5, 1000, ChannelIn.SOFT4, 0.5, 4.0,
+                         device="cpu")
     want = gen.gen_words_torch(0, 5, 1000, ChannelIn.SOFT4, 0.5, 4.0)
     assert torch.equal(bits, want[0]) and torch.equal(words, want[1])
-    bits, vals = gen.K8(0, 5, 1000, ChannelIn.FP32, 0.5, 4.0)
+    bits, vals = gen.K8(0, 5, 1000, ChannelIn.FP32, 0.5, 4.0, device="cpu")
     want = gen.gen_values_torch(0, 5, 1000, 0.5, 4.0)
     assert torch.equal(bits, want[0]) and torch.equal(vals, want[1])
     assert (gen.K7.launches, gen.K8.launches) == before

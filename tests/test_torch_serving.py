@@ -68,7 +68,8 @@ def _bytes(path):
 def test_cli_decode_file_matches_jax(emitted, tmp_path, case, capsys):
     src, jdec, _, flags = emitted[case]
     out = str(tmp_path / "port.dec")
-    assert cli.main([*flags, "--decode-file", src, "--out-file", out]) == 0
+    assert cli.main([*flags, "--decode-file", src, "--out-file", out,
+                     "--device", "cpu"]) == 0
     assert _bytes(out) == _bytes(jdec)
     text = capsys.readouterr().out.splitlines()
     assert text[0] == "Decode executed."
@@ -80,7 +81,7 @@ def test_cli_stream_words_matches_jax(emitted, tmp_path, case):
     src, _, jstream, flags = emitted[case]
     out = str(tmp_path / "port.dec")
     assert cli.main([*flags, "--decode-file", src, "--stream-words", "2048",
-                     "--out-file", out]) == 0
+                     "--out-file", out, "--device", "cpu"]) == 0
     assert _bytes(out) == _bytes(jstream)
 
 
@@ -100,13 +101,15 @@ def test_cli_several_files_match_jax(emitted, tmp_path, case, capsys):
     assert jcli.main([*flags, "--decode-file", paths[2], "--backend", "xla",
                       "--out-file", paths[2] + ".jax"]) == 0
     capsys.readouterr()
-    assert cli.main([*flags, "--decode-file", *paths[:2], "-v"]) == 0
+    assert cli.main([*flags, "--decode-file", *paths[:2], "-v",
+                     "--device", "cpu"]) == 0
     text = capsys.readouterr().out
     assert "2 files queued back to back:" in text
     assert "credibility" not in text
     assert _bytes(paths[0] + ".dec") == _bytes(paths[1] + ".dec") \
         == _bytes(jdec)
-    assert cli.main([*flags, "--decode-file", *paths, "-v"]) == 0
+    assert cli.main([*flags, "--decode-file", *paths, "-v",
+                     "--device", "cpu"]) == 0
     assert "3 files, " in capsys.readouterr().out
     assert _bytes(paths[2] + ".dec") == _bytes(paths[2] + ".jax")
 
@@ -188,14 +191,16 @@ def test_file_mode_flag_errors_match_jax(capsys, args):
 def test_too_short_file_errors_match_jax(tmp_path, capsys, stream):
     p = str(tmp_path / "short.bin")
     np.zeros(20, np.int32).tofile(p)
-    assert cli.main(["-i", "s8", "--decode-file", p, *stream]) == 1
+    assert cli.main(["-i", "s8", "--decode-file", p, *stream,
+                     "--device", "cpu"]) == 1
     got = capsys.readouterr().err
     assert jcli.main(["-i", "s8", "--decode-file", p, "--backend", "xla",
                       *stream]) == 1
     want = capsys.readouterr().err
     assert got == want and "no decodable bits" in got
     missing = str(tmp_path / "missing.bin")
-    assert cli.main(["-i", "s8", "--decode-file", missing, *stream]) == 1
+    assert cli.main(["-i", "s8", "--decode-file", missing, *stream,
+                     "--device", "cpu"]) == 1
     assert capsys.readouterr().err.startswith(f"Error: cannot read {missing}")
 
 
@@ -205,7 +210,7 @@ def test_too_short_stream_leaves_no_output(tmp_path, capsys):
     p = str(tmp_path / "short.bin")
     np.zeros(20, np.int32).tofile(p)
     assert cli.main(["-i", "s8", "--decode-file", p,
-                     "--stream-words", "1024"]) == 1
+                     "--stream-words", "1024", "--device", "cpu"]) == 1
     assert "no decodable bits" in capsys.readouterr().err
     assert not os.path.exists(p + ".dec")
 
@@ -223,7 +228,8 @@ def test_ragged_file_is_refused(emitted, tmp_path, capsys, stream):
     for p, data in ((good, raw), (ragged, raw[:-1])):
         with open(p, "wb") as f:
             f.write(data)
-    assert cli.main([*flags, "--decode-file", good, ragged, *stream]) == 1
+    assert cli.main([*flags, "--decode-file", good, ragged, *stream,
+                     "--device", "cpu"]) == 1
     err = capsys.readouterr().err
     assert err == (f"Error: {ragged} holds {len(raw) - 1} bytes, not a "
                    f"whole number of 4-byte int32 words (truncated or "
@@ -253,7 +259,7 @@ def test_one_decoder_serves_every_streamed_file(emitted, tmp_path,
             f.write(_bytes(src))
         paths.append(p)
     assert cli.main([*flags, "--decode-file", *paths,
-                     "--stream-words", "2048"]) == 0
+                     "--stream-words", "2048", "--device", "cpu"]) == 0
     assert len(built) == 1
     for p in paths:
         assert _bytes(p + ".dec") == _bytes(jstream)
@@ -268,13 +274,14 @@ def test_emit_file_matches_jax_format(tmp_path):
     for flag, dtype in (("s16", np.int32), ("f", np.float32)):
         emit = str(tmp_path / f"{flag}.bin")
         assert cli.main(["-n", str(N), "-s", "15", "-i", flag, "--seed", "3",
-                         "--emit-file", emit]) == 0
+                         "--emit-file", emit, "--device", "cpu"]) == 0
         cfg = from_reference(JDecoderConfig(jcli._CHANNEL_NAMES[flag]))
         assert os.path.getsize(emit) == cfg.get_input_size(2 * N)
         assert np.fromfile(emit, dtype=dtype).shape[0] == \
             cfg.get_input_words(2 * N)
-        assert cli.main(["-i", flag, "--decode-file", emit]) == 0
-        bits = RandBitGen(N, seed=3).process(None).numpy()
+        assert cli.main(["-i", flag, "--decode-file", emit,
+                         "--device", "cpu"]) == 0
+        bits = RandBitGen(N, seed=3, device="cpu").process(None).numpy()
         m = cfg.get_message_len(2 * N)
         assert np.array_equal(np.fromfile(emit + ".dec", np.uint32),
                               pack_msb_first(bits[26:26 + m], 32))

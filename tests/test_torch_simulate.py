@@ -113,7 +113,7 @@ E2E_ARGS = ["-n", "20000", "-s", "15", "-i", "s8", "--seed", "3",
 
 
 def test_cli_e2e_output_lines_match_jax(capsys):
-    assert cli.main(E2E_ARGS) == 0
+    assert cli.main(E2E_ARGS + ["--device", "cpu"]) == 0
     got = capsys.readouterr().out.splitlines()
     assert jcli.main(E2E_ARGS) == 0
     want = capsys.readouterr().out.splitlines()
@@ -140,7 +140,7 @@ def test_cli_e2e_output_lines_match_jax(capsys):
                                    ["-i", "h", "--dec-len", "auto"]])
 def test_cli_e2e_paths_decode_without_error(capsys, flags):
     assert cli.main(["-n", "6000", "-s", "15", "--seed", "4",
-                     "--e2e-device"] + flags) == 0
+                     "--e2e-device", "--device", "cpu"] + flags) == 0
     assert capsys.readouterr().out.splitlines()[-2:] == [
         "Pipeline executed.", "Final results -> BEN: 0   BER: 0"]
 
@@ -201,10 +201,8 @@ def test_cli_e2e_refusals_follow_jax_pattern(tmp_path, capsys, port):
 
 
 def test_cli_generator_cuda_without_gpu_refused(capsys):
-    """--generator cuda with no GPU is refused like --backend cuda."""
-    if torch.cuda.is_available():
-        pytest.skip("a GPU is present: generator='cuda' resolves")
-    base = ["-n", "40000", "-s", "15", "--seed", "5"]
+    """--generator cuda on --device cpu is refused like --backend cuda."""
+    base = ["-n", "40000", "-s", "15", "--seed", "5", "--device", "cpu"]
     assert cli.main(base + ["--e2e-device", "--generator", "cuda"]) == -1
     got = capsys.readouterr().err
     assert cli.main(base + ["--backend", "cuda"]) == -1

@@ -95,7 +95,7 @@ def test_backend_cuda_without_gpu_raises():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: backend='cuda' resolves")
     cfg = from_reference(SLICE_CONFIGS[0])
-    with pytest.raises(ConfigResolutionError, match="CUDA device"):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         ViterbiGPU(cfg, backend="cuda")
     with pytest.raises(ConfigResolutionError, match="CUDA device"):
         ViterbiGPU(cfg, backend="cuda", device="cpu")
@@ -176,7 +176,8 @@ def test_whole_slice_matches_jax_chain(rng, jcfg):
 
 
 def test_cli_noiseless_run_prints_ben_zero(capsys):
-    rc = cli.main(["-n", "20000", "-s", "15", "-i", "s8", "--seed", "3"])
+    rc = cli.main(["-n", "20000", "-s", "15", "-i", "s8", "--seed", "3",
+                   "--device", "cpu"])
     out = capsys.readouterr().out.splitlines()
     assert rc == 0
     assert out[-2] == "Pipeline executed."
@@ -186,7 +187,7 @@ def test_cli_noiseless_run_prints_ben_zero(capsys):
 def test_cli_verbose_header_matches_jax(capsys):
     args = ["-n", "2000", "-s", "15", "-i", "s4", "-o", "b16", "--seed", "3",
             "-v"]
-    assert cli.main(args + ["--backend", "torch"]) == 0
+    assert cli.main(args + ["--backend", "torch", "--device", "cpu"]) == 0
     got = capsys.readouterr().out.splitlines()
     assert jcli.main(args + ["--backend", "xla"]) == 0
     want = capsys.readouterr().out.splitlines()
@@ -212,10 +213,10 @@ def test_cli_validity_errors_match_jax(capsys, flags):
 def test_cli_short_message_and_unported_kernel(capsys):
     """A too-short message is refused; --survivor window decodes (the
     plain windowed core on the CPU)."""
-    assert cli.main(["-n", "40"]) == 1
+    assert cli.main(["-n", "40", "--device", "cpu"]) == 1
     assert "too short" in capsys.readouterr().err
     assert cli.main(["-n", "1000", "--survivor", "window", "--seed",
-                     "3"]) == 0
+                     "3", "--device", "cpu"]) == 0
     assert capsys.readouterr().out.splitlines()[-1] == \
         "Final results -> BEN: 0   BER: 0"
 
@@ -229,6 +230,10 @@ def test_port_imports_no_jax():
             "import tpu_viterbi_torch.chain.genkernel\n"
             "import tpu_viterbi_torch.chain.workload\n"
             "import tpu_viterbi_torch.sharding.simulate\n"
+            "import tpu_viterbi_torch.hardware\n"
+            "import tpu_viterbi_torch.library\n"
+            "import tpu_viterbi_torch.utils.timing\n"
+            "import tpu_viterbi_torch.scripts.op_cost_probe\n"
             "bad = [m for m in sys.modules\n"
             "       if m == 'jax' or m.startswith(('jax.', 'tpu_viterbi.'))\n"
             "       or m == 'tpu_viterbi']\n"

@@ -135,7 +135,9 @@ def test_resolve_window_auto_uses_total_memory(monkeypatch, total_bytes,
                                                want):
     """'auto' windows exactly when the full store (n_packs * 64 * B * 4
     bytes) exceeds half of the card's total memory, a fixed quantity: the
-    live free memory is never read.  The card is stubbed."""
+    live free memory is never read (the ring fits the budget).  The card
+    is stubbed."""
+    cfg = from_reference(JDecoderConfig(JChannelIn.SOFT8))
     plan = core_torch.plan_blocks(32 * 2000, 32, 2048)
     store = plan.n_packs * 64 * plan.num_blocks * 4
     assert (1 << 20) // 2 < store < (1 << 40) // 2
@@ -144,14 +146,16 @@ def test_resolve_window_auto_uses_total_memory(monkeypatch, total_bytes,
         raise AssertionError("resolve_window read the live free memory")
 
     monkeypatch.setattr(torch.cuda, "mem_get_info", no_free_memory)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "get_device_properties",
                         lambda device: type("Props", (), {
                             "total_memory": total_bytes})())
-    assert core_cuda.resolve_window("auto", plan, "cuda") is want
-    assert core_cuda.resolve_window("auto", plan, "cpu") is False
-    assert core_cuda.resolve_window("full", plan, "cuda") is False
-    assert core_cuda.resolve_window("window", plan, "cuda") is True
-    cfg = from_reference(JDecoderConfig(JChannelIn.SOFT8))
+    monkeypatch.setenv("TPU_VITERBI_SMEM_BUDGET",
+                       str(core_cuda.ring_bytes(cfg)))
+    assert core_cuda.resolve_window("auto", cfg, plan, "cuda") is want
+    assert core_cuda.resolve_window("auto", cfg, plan, "cpu") is False
+    assert core_cuda.resolve_window("full", cfg, plan, "cuda") is False
+    assert core_cuda.resolve_window("window", cfg, plan, "cuda") is True
     dec = ViterbiGPU(cfg, device="cuda")
     input_num = 2 * (plan.message_len + cfg.extra_l + cfg.extra_r)
     assert dec.plan(input_num) == plan

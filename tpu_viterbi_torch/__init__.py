@@ -6,7 +6,9 @@ block-parallel decoder's fused unpack + branch metric + add-compare-select
 + traceback written by hand in CUDA C++ for Hopper (kernels K1-K5, with the
 staging transpose K6, ``csrc/``), a streaming decoder, file serving, the
 values-in entry, and the in-graph simulation whose workload generators
-K7/K8 are CUDA C++ too.  Module names mirror the
+K7/K8 are CUDA C++ too; a hardware model with its shared-memory probe K9,
+the canary K10 and the op-cost probe K11.  Every entry point runs on the
+GPU unless the caller asks for the CPU (``device="cpu"``).  Module names mirror the
 JAX package's, so each
 counterpart sits at the same relative path.  Imports torch and numpy,
 never jax.

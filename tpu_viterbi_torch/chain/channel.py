@@ -14,6 +14,7 @@ import math
 
 import torch
 
+from ..hardware import resolve_device
 from .pipeline import ComputeElement
 
 
@@ -40,10 +41,10 @@ def add_awgn(generator: torch.Generator, coded_bits: torch.Tensor,
 
 class AddNoise(ComputeElement):
     def __init__(self, sigma: float = math.inf, seed: int = 0,
-                 device="cpu"):
+                 device="cuda"):
         super().__init__()
         self.sigma = float(sigma)
-        self.generator = torch.Generator(device=device)
+        self.generator = torch.Generator(device=resolve_device(device))
         self.generator.manual_seed(seed)
 
     def process(self, coded_bits):

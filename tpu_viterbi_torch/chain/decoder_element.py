@@ -11,7 +11,7 @@ from .pipeline import ComputeElement
 class ViterbiDecoder(ComputeElement):
     def __init__(self, config: DecoderConfig = DecoderConfig(),
                  dec_len: int = DEFAULT_DEC_LEN, backend: str = "auto",
-                 survivor: str = "auto", device=None):
+                 survivor: str = "auto", device="cuda"):
         super().__init__()
         self.viterbi = ViterbiGPU(config, dec_len=dec_len, backend=backend,
                                   survivor=survivor, device=device)

@@ -4,7 +4,7 @@
 
 Kernels K7 (the four integer channels) and K8 (the FP32 wire) are CUDA C++
 in ``csrc/genkernel.cu``, built into the package's one library
-(``decoder/core_cuda.load_library``).  Beside them, their plain PyTorch
+(``library.load_library``).  Beside them, their plain PyTorch
 version over flat index tensors: ``gen_words_torch`` (the body of the TPU
 kernel's ``_gen_kernel``, naive window branch) and ``gen_values_torch``
 (``_gen_kernel_f32``).  A wrapper runs the plain version for a CPU device
@@ -32,8 +32,9 @@ import math
 import numpy as np
 import torch
 
+from .. import library
 from ..config import CONST_LEN, POLY1, POLY2, ChannelIn
-from ..decoder import core_cuda
+from ..hardware import resolve_device
 from ..utils.bits import to_int32_bits
 from .channel import snr_to_sigma
 from .quantize import _QUANT_PARAMS
@@ -44,7 +45,7 @@ _ROTS = (13, 15, 26, 6, 17, 29, 16, 24)
 _BITS_TAG = 1            # threefry c1 of the message-bit draws
 _NOISE_TAG = 2           # threefry c1 base of the noise draws
 _TWO_PI_F32 = float(np.float32(2.0 * math.pi))
-SOURCE = core_cuda.CSRC / "genkernel.cu"
+SOURCE = library.CSRC / "genkernel.cu"
 
 
 def _u32(x):
@@ -226,17 +227,21 @@ class GenKernel:
             return
         vp, i32, u32, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                              ctypes.c_float)
-        self._fn = core_cuda.bind(
+        self._fn = library.bind(
             self.entry,
             [vp, vp, i32, i32, i32, u32, u32, f32, f32, i32, vp] if self.fp32
             else [vp, vp, i32, i32, i32, i32, u32, u32, i32, f32, f32, i32,
                   vp])
 
     def __call__(self, k0: int, k1: int, n: int, channel_in: ChannelIn,
-                 sigma: float, scale: float, base: int = 0, device="cpu"):
+                 sigma: float, scale: float, base: int = 0,
+                 device="cuda"):
         """-> (bit packs, channel words or f32 values) from word ``base``
         on (a multiple of the words per bit pack; FP32: of 64 values), for
-        message length ``n`` and noise sigma (0: noiseless)."""
+        message length ``n`` and noise sigma (0: noiseless).  On ``device``
+        (``hardware.resolve_device``: the card, which must be present,
+        unless the caller asks for the CPU, where the plain version
+        runs)."""
         if (channel_in == ChannelIn.FP32) != self.fp32:
             other = "K7" if self.fp32 else "K8"
             raise ValueError(f"kernel {self.name} does not generate the "
@@ -252,7 +257,7 @@ class GenKernel:
         if base % quantum or not 0 <= base < n_out:
             raise ValueError(f"base {base} must be a multiple of {quantum} "
                              f"in [0, {n_out})")
-        device = torch.device(device)
+        device = resolve_device(device)
         if device.type == "cpu":
             if self.fp32:
                 return gen_values_torch(k0, k1, n, sigma, scale, base, device)
@@ -299,19 +304,18 @@ def key_data(seed: int):
 
 
 def packed_workload_cuda(seed: int, n: int, channel_in: ChannelIn,
-                         snr_db: float, scale: float, device=None,
+                         snr_db: float, scale: float, device="cuda",
                          base: int = 0):
     """Fused generation of the in-graph simulation's workload (the
     counterpart of ``packed_workload_pallas``): K7 for the integer channels,
-    K8 for FP32, on ``device`` (default: the GPU when there is one; a CPU
-    device runs their plain version).  snr_db = inf is the noiseless
+    K8 for FP32, on ``device`` (the GPU unless the caller passes 'cpu',
+    where their plain version runs).  snr_db = inf is the noiseless
     channel.
 
     -> (bit packs, ceil(n/32) int32 [message bits, MSB = earliest];
         channel stream: ceil(2n/vpw) int32 words, or for FP32 the 2n
         interleaved scaled f32 values), both from word ``base`` on."""
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+    device = resolve_device(device)
     k0, k1 = key_data(seed)
     sigma = 0.0 if math.isinf(snr_db) else snr_to_sigma(snr_db)
     kernel = K8 if channel_in == ChannelIn.FP32 else K7

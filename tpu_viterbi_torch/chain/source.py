@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from ..hardware import resolve_device
 from .pipeline import ComputeElement
 
 
@@ -20,10 +21,10 @@ def random_bits(generator: torch.Generator, n: int) -> torch.Tensor:
 
 
 class RandBitGen(ComputeElement):
-    def __init__(self, n: int, seed: int = 0, device="cpu"):
+    def __init__(self, n: int, seed: int = 0, device="cuda"):
         super().__init__()
         self.n = int(n)
-        self.generator = torch.Generator(device=device)
+        self.generator = torch.Generator(device=resolve_device(device))
         self.generator.manual_seed(seed)
 
     def process(self, data):

@@ -9,8 +9,9 @@ Usage:  python -m tpu_viterbi_torch -n 1000000 -s 5.5 -i s8 -m b32 -v
 
 The chain, the file decodes and the in-graph simulation (--e2e-device:
 kernels K7/K8 generate, K1, K2 or K3 decode, the error count stays on the
-device) run on the GPU when there is one, else on the CPU with the plain
-torch versions.  Profiling and the multi-device split are not ported yet.
+device) run on the GPU; with --device cpu they run the plain torch
+versions on the CPU.  Without a GPU and without --device cpu the CLI
+refuses to run.  Profiling and the multi-device split are not ported yet.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from .config import (ChannelIn, CompMode, ConfigResolutionError, DecodeOut,
                      DecoderConfig, Metric)
 from .decoder.api import DEFAULT_DEC_LEN, ViterbiGPU
 from .decoder.streaming import StreamingViterbi
+from .hardware import resolve_device
 from .utils.bits import count_bit_errors
 
 _CHANNEL_NAMES = {"HARD": ChannelIn.HARD, "h": ChannelIn.HARD,
@@ -75,9 +77,14 @@ def parse_args(argv=None):
                         "for the JAX package's message-size-aware choice)")
     p.add_argument("--backend", choices=["auto", "cuda", "torch"],
                    default="auto",
-                   help="'cuda' = the CUDA kernels K1/K2/K3 (needs a GPU); "
-                        "'torch' = the plain torch core; 'auto' = the "
-                        "kernels on a GPU, else the torch core on the CPU")
+                   help="'cuda' = the CUDA kernels K1/K2/K3 (needs "
+                        "--device cuda); 'torch' = the plain torch core; "
+                        "'auto' = the kernels on --device cuda, the torch "
+                        "core on --device cpu")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="where everything runs: 'cuda' = the GPU (refused "
+                        "when there is none); 'cpu' = the plain torch "
+                        "versions on the CPU")
     p.add_argument("--survivor", choices=["auto", "full", "window"],
                    default="auto",
                    help="survivor-buffer mode: 'window' = the reference's "
@@ -117,7 +124,8 @@ def parse_args(argv=None):
                    help="with --e2e-device: in-graph workload generator — "
                         "'cuda' = fused counter-mode kernels K7/K8 "
                         "(chain/genkernel.py), 'torch' = element chain, "
-                        "'auto' = cuda on a GPU")
+                        "'auto' = cuda on --device cuda, torch on --device "
+                        "cpu")
     return p.parse_args(argv)
 
 
@@ -208,7 +216,7 @@ def run_decode_file(args, cfg: DecoderConfig) -> int:
 
     if args.stream_words:
         sv = StreamingViterbi(cfg, dec_len=dec_len, backend=args.backend,
-                              survivor=args.survivor)
+                              survivor=args.survivor, device=args.device)
         total_bits = 0
         for path, n in zip(args.decode_file, sizes):
             rc, bits = _stream_decode_one(args, cfg, sv, path, n)
@@ -220,7 +228,7 @@ def run_decode_file(args, cfg: DecoderConfig) -> int:
         return 0
 
     dec = ViterbiGPU(cfg, dec_len=dec_len, backend=args.backend,
-                     survivor=args.survivor)
+                     survivor=args.survivor, device=args.device)
     if len(args.decode_file) > 1 and len(set(sizes)) == 1:
         # equal-sized files queue back to back through run_stream
         # (sustained serving: no synchronize between decodes)
@@ -272,17 +280,16 @@ def run_decode_file(args, cfg: DecoderConfig) -> int:
 
 
 def run_e2e_device(args, cfg: DecoderConfig) -> int:
-    """--e2e-device: the in-graph simulation on one device (the GPU when
-    there is one).  Same final output lines as the pipeline path; -v adds
-    the first call's time, the kernel build included, and one steady-state
-    call's, between CUDA events on a GPU."""
+    """--e2e-device: the in-graph simulation on one device (--device).
+    Same final output lines as the pipeline path; -v adds the first call's
+    time, the kernel build included, and one steady-state call's, between
+    CUDA events on a GPU."""
     from .sharding.simulate import build_sharded_simulation
 
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device = resolve_device(args.device)
     if args.generator == "cuda" and device.type != "cuda":
         raise ConfigResolutionError(
-            f"generator='cuda' needs a CUDA device "
-            f"(torch.cuda.is_available()={torch.cuda.is_available()})")
+            f"generator='cuda' needs a CUDA device (--device {args.device})")
     seed = args.seed if args.seed is not None else \
         int(np.random.SeedSequence().entropy % (2 ** 31))
     t0 = time.perf_counter()
@@ -317,15 +324,13 @@ def run_e2e_device(args, cfg: DecoderConfig) -> int:
 def run_pipeline(message_len: int, snr: float, cfg: DecoderConfig,
                  verbose: bool = False, seed=None, dec_len=None,
                  backend: str = "auto", survivor: str = "auto",
-                 device=None, emit_file=None):
+                 device="cuda", emit_file=None):
     """Build and run the full chain; returns (BEN, pipeline, decoded_words)
     with the decoded int32 words left on the device.  ``emit_file``: also
     write the packed channel stream there, as --decode-file reads it.
     (reference: main.cpp:119-172 runPipeline)"""
     if seed is None:
         seed = int(np.random.SeedSequence().entropy % (2 ** 31))
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
     kwargs = {"dec_len": dec_len} if dec_len else {}
     viterbi = ViterbiDecoder(cfg, backend=backend, survivor=survivor,
                              device=device, **kwargs)
@@ -447,6 +452,13 @@ def main(argv=None) -> int:
               f"framing.", file=sys.stderr)
         return 1
 
+    try:
+        resolve_device(args.device)
+    except RuntimeError as e:
+        # no card and no --device cpu: refused, never run on the CPU
+        print(f"Error: {e}.", file=sys.stderr)
+        return -1
+
     if args.verbose:
         if not args.decode_file:
             print(f"Message Length: {args.num}")
@@ -470,11 +482,12 @@ def main(argv=None) -> int:
                                  verbose=args.verbose, seed=args.seed,
                                  dec_len=args.dec_len, backend=args.backend,
                                  survivor=args.survivor,
+                                 device=args.device,
                                  emit_file=args.emit_file)
     except ConfigResolutionError as e:
-        # flag combinations the resolved backend cannot honor (no GPU for
-        # --backend or --generator cuda): reference-style error line; any
-        # other error is a real bug and keeps its traceback
+        # flag combinations the resolved backend cannot honor (--backend
+        # or --generator cuda with --device cpu): reference-style error
+        # line; any other error is a real bug and keeps its traceback
         print(f"Error: {e}", file=sys.stderr)
         return -1
     ber = ben / args.num

@@ -77,7 +77,7 @@
 #include <cstdint>
 #include <type_traits>
 
-// Build parts: core_cuda.load_library compiles this file once per part, all
+// Build parts: library.load_library compiles this file once per part, all
 // started together, with -DBUILD_PART=<i> for each i below the count on the
 // next line; a part holds the entry points of its group (K1 K2 K6 | K3 |
 // K4's word mode | K4's value mode and K5), so the ptxas work of the ~50

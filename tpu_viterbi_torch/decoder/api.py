@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..config import ChannelIn, ConfigResolutionError, DecoderConfig
+from ..hardware import resolve_device
 from .core_cuda import SURVIVORS, kernel_for, resolve_window
 from .core_torch import (BlockPlan, assemble_output, auto_dec_len,
                          decode_blocks_torch, plan_blocks)
@@ -35,41 +36,39 @@ BACKENDS = ("auto", "cuda", "torch")
 
 
 class ViterbiGPU:
-    """Block-parallel Viterbi decoder on a CUDA device (or the CPU)."""
+    """Block-parallel Viterbi decoder on a CUDA device, or on the CPU when
+    the caller asks for it."""
 
     def __init__(self, config: DecoderConfig = DecoderConfig(),
                  input_num: Optional[int] = None,
                  dec_len: int = DEFAULT_DEC_LEN,
                  backend: str = "auto",
                  survivor: str = "auto",
-                 device=None):
+                 device="cuda"):
         """backend: 'auto' | 'cuda' | 'torch' — 'auto' launches the CUDA
         kernels on a CUDA device (K1 for the integer channels, K2 for FP32,
         K3 for the windowed survivor) and runs their plain torch versions
-        on the CPU, as the JAX package's 'pallas-interpret' runs its kernel
-        anywhere; 'cuda' requires a GPU; 'torch' runs the plain versions on
-        either device.
+        on a CPU device, as the JAX package's 'pallas-interpret' runs its
+        kernel anywhere; 'cuda' requires a CUDA device; 'torch' runs the
+        plain versions on either device.
 
         survivor: 'auto' | 'full' | 'window' — 'window' is the reference's
         one-pointer circular buffer (viterbi.cu:99-100); 'auto' keeps the
         full survivor store unless it would take more than half of the
         GPU's total memory (core_cuda.resolve_window).
 
-        device: where decoding runs; default the GPU when there is one."""
+        device: where decoding runs, the GPU unless the caller passes
+        'cpu'; a CUDA device with no GPU present raises RuntimeError."""
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, "
                              f"got {backend!r}")
         if survivor not in SURVIVORS:
             raise ValueError(f"survivor must be one of {SURVIVORS}, "
                              f"got {survivor!r}")
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        self.device = torch.device(device)
-        if backend == "cuda" and (self.device.type != "cuda"
-                                  or not torch.cuda.is_available()):
+        self.device = resolve_device(device)
+        if backend == "cuda" and self.device.type != "cuda":
             raise ConfigResolutionError(
-                f"backend='cuda' needs a CUDA device (device={device!r}, "
-                f"torch.cuda.is_available()={torch.cuda.is_available()})")
+                f"backend='cuda' needs a CUDA device (device={device!r})")
         self.config = config
         self.dec_len = dec_len if dec_len == "auto" else int(dec_len)
         self.backend = backend
@@ -109,7 +108,7 @@ class ViterbiGPU:
                 if self.dec_len == "auto" else self.dec_len
             plan = plan_blocks(message_len, cfg.bits_per_pack, dl)
             self._plan_cache = (input_num, plan, resolve_window(
-                self.survivor, plan, self.device))
+                self.survivor, cfg, plan, self.device))
         return self._plan_cache[1:]
 
     def _decoder(self, input_num: int):

@@ -14,15 +14,8 @@
 
 All six live in ``csrc/viterbi.cu`` (the decode kernels instantiate one
 kernel template), which exports one plain C entry point per kernel
-(``viterbi_k1_launch`` ...).  Every ``csrc/*.cu`` (this file's kernels and
-the generator kernels K7/K8 of ``csrc/genkernel.cu``) goes into ONE shared
-library, loaded with ``ctypes``: ``nvcc`` compiles the sources in
-parallel, one process per source and build part, and links them once — a
-build of seconds,
-where an extension that includes PyTorch's headers takes minutes.  The
-library is built at first use from the package's own sources into
-``tpu_viterbi_torch/_build/``, keyed by a hash of the sources and the
-flags.
+(``viterbi_k1_launch`` ...), bound from the package's one shared library
+(``tpu_viterbi_torch/library.py``).
 
 K1-K3 take none of the TPU staging (``_body_and_edge``, the lane-roll
 halo, ``padded_input_words``, ``LANE_TILE``, ``fp32_ud_words``): each
@@ -32,6 +25,10 @@ included, with zero fill past its end.  The staged entries
 ``decode_blocks_cuda``) stage through K6 first, as the JAX package's
 A/B paths do; ``b_pad`` is B on the GPU.
 
+The window kernels' survivor ring lives in shared memory: before a window
+launch ``check_smem`` holds it against ``hardware.smem_budget_bytes``, and
+``resolve_window`` reads both budgets of the hardware model.
+
 On a CPU tensor a wrapper runs its plain version (``core_torch``); on a
 CUDA tensor it launches the kernel or raises — it never falls back.
 """
@@ -39,15 +36,10 @@ CUDA tensor it launches the kernel or raises — it never falls back.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import re
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
+from .. import hardware, library
 from ..config import ChannelIn, ConfigResolutionError, DecoderConfig
 from .core_torch import (BlockPlan, assemble_output, clamp_split,
                          decode_blocks_torch, decode_planes_torch,
@@ -56,93 +48,11 @@ from .core_torch import (BlockPlan, assemble_output, clamp_split,
                          survivor_window_slots, traceback_shape,
                          words_per_block)
 
-_PKG = Path(__file__).resolve().parent.parent
-CSRC = _PKG / "csrc"
-SOURCE = CSRC / "viterbi.cu"        # K1 ... K6
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
+SOURCE = library.CSRC / "viterbi.cu"        # K1 ... K6
 SURVIVORS = ("auto", "full", "window")
-_PARTS = re.compile(r"^// nvcc parts: (\d+)$", re.M)
-
-_library = None     # the loaded ctypes.CDLL of every csrc/*.cu
-build_log = None    # nvcc's -Xptxas -v report of this process' build
-
-
-def find_nvcc() -> str:
-    """nvcc from $CUDA_HOME, the PATH, or the toolkit's default prefix."""
-    home = os.environ.get("CUDA_HOME")
-    for cand in ((os.path.join(home, "bin", "nvcc") if home else None),
-                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on the "
-                       "PATH): the CUDA kernels cannot be built")
-
-
-def build_parts(source: Path) -> int:
-    """How many objects ``source`` compiles into: the count on its
-    ``// nvcc parts: N`` line, else 1.  Part i is compiled with
-    ``-DBUILD_PART=i``."""
-    m = _PARTS.search(source.read_text())
-    return int(m.group(1)) if m else 1
-
-
-def load_library() -> ctypes.CDLL:
-    """Compile every ``csrc/*.cu`` (once per hash of the sources and the
-    flags) into one library and load it: one ``nvcc -c`` per source and
-    build part (``build_parts``), all started together, then one ``nvcc
-    -shared`` link.  Sets ``build_log`` to ptxas's register/spill report
-    when this process compiled it; it stays None when the library was
-    cached."""
-    global _library, build_log
-    if _library is not None:
-        return _library
-    sources = sorted(CSRC.glob("*.cu"))
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
-        digest.update(src.name.encode() + b"\0" + src.read_bytes())
-    lib_path = BUILD_DIR / f"libtpu_viterbi_{digest.hexdigest()[:16]}.so"
-    if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        nvcc = find_nvcc()
-        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-        jobs = [(src, i, tmp.with_name(f"{tmp.name}.{src.stem}.{i}.o"))
-                for src in sources for i in range(build_parts(src))]
-        objs = [obj for _, _, obj in jobs]
-        procs = [subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, f"-DBUILD_PART={i}", "-c", "-o", str(obj),
-             str(src)], stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True) for src, i, obj in jobs]
-        logs = [p.communicate()[1] for p in procs]     # waits for every one
-        try:
-            for (src, i, _), p, log in zip(jobs, procs, logs):
-                if p.returncode != 0:
-                    raise RuntimeError(f"nvcc failed building {src.name} "
-                                       f"part {i} (rc {p.returncode}):\n"
-                                       f"{log}")
-            res = subprocess.run([nvcc, "-shared", "-o", str(tmp),
-                                  *map(str, objs)], capture_output=True,
-                                 text=True)
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed linking {lib_path.name} "
-                                   f"(rc {res.returncode}):\n{res.stderr}")
-        finally:
-            for obj in objs:
-                obj.unlink(missing_ok=True)
-        build_log = "".join(logs)
-        os.replace(tmp, lib_path)       # atomic: concurrent builds
-    _library = ctypes.CDLL(str(lib_path))
-    return _library
-
-
-def bind(entry: str, argtypes):
-    """Entry point ``entry`` of the library (built and loaded once a
-    process), with its argument types; it returns the cudaError_t."""
-    fn = getattr(load_library(), entry)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn
+# time-blocks (threads) a CUDA block: viterbi.cu's kThreads (a test holds
+# the two equal)
+K_THREADS = 64
 
 
 class CudaKernel:
@@ -164,7 +74,7 @@ class CudaKernel:
     def build(self) -> None:
         """Build and load the library (once a process), bind the entry."""
         if self._fn is None:
-            self._fn = bind(self.entry, self.ARGTYPES)
+            self._fn = library.bind(self.entry, self.ARGTYPES)
 
     def _check_device(self, *tensors: torch.Tensor) -> bool:
         """True for CPU tensors (run the plain version), False for CUDA
@@ -194,6 +104,8 @@ class CudaKernel:
                 window: bool) -> torch.Tensor:
         """One launch of a decode entry on a reader's Source (p0, p1, n,
         stride) -> (B, n_emit) int32 output packs (uint32 bit patterns)."""
+        if window:
+            check_smem(cfg)
         n_conv, n_emit = traceback_shape(cfg, plan)
         b = plan.num_blocks
         surv = None if window else torch.empty(
@@ -360,26 +272,55 @@ def kernel_for(cfg: DecoderConfig, window: bool) -> StreamKernel:
     return K2 if cfg.channel_in == ChannelIn.FP32 else K1
 
 
-def resolve_window(survivor: str, plan: BlockPlan, device=None) -> bool:
+def ring_bytes(cfg: DecoderConfig) -> int:
+    """Dynamic shared memory of the window kernels' survivor ring for one
+    CUDA block: survivor_window_slots(cfg) slots x 64 states x K_THREADS
+    threads x 4 bytes (64 KB at W = 4, 96 KB at W = 6)."""
+    return survivor_window_slots(cfg) * 64 * K_THREADS * 4
+
+
+def check_smem(cfg: DecoderConfig) -> None:
+    """Raise ValueError when the survivor ring of a window launch (K3, and
+    K4/K5 with ``window``) exceeds ``hardware.smem_budget_bytes()``:
+    refused before the launch, not at it.  Counterpart of
+    ``core_pallas._check_vmem`` (:178-191)."""
+    need, budget = ring_bytes(cfg), hardware.smem_budget_bytes()
+    if need > budget:
+        raise ValueError(
+            f"survivor ring does not fit shared memory: W = "
+            f"{survivor_window_slots(cfg)} slots x 64 states x {K_THREADS} "
+            f"threads needs {need} bytes per CUDA block (budget {budget} "
+            f"bytes, hardware.smem_budget_bytes); use the full store")
+
+
+def resolve_window(survivor: str, cfg: DecoderConfig, plan: BlockPlan,
+                   device="cuda") -> bool:
     """Map the survivor knob to the window flag (counterpart of
     core_pallas.resolve_window, :155-175).  'full' and 'window' say it;
-    'auto' keeps the full store unless its n_packs * 64 * B * 4 bytes
-    exceed half of the CUDA device's total memory, the GPU's reading of
-    "fits VMEM".  The limit is fixed for a card, as the TPU's VMEM budget
-    is for a chip, so a plan decodes alike whatever else holds memory at
-    the time (live free memory would make the output depend on it: window
-    and full store differ on noisy input).  On the CPU 'auto' keeps the
-    full store."""
+    'auto' keeps the full store while its n_packs * 64 * B * 4 bytes fit
+    ``hardware.survivor_store_budget_bytes`` (half of the card's total
+    memory), and takes the window only where the store does not fit and
+    the ring does (``hardware.smem_budget_bytes``); where neither fits it
+    raises.  'auto' on the CPU (device 'cpu') keeps the full store."""
     if survivor not in SURVIVORS:
         raise ValueError(f"survivor must be one of {SURVIVORS}, "
                          f"got {survivor!r}")
     if survivor != "auto":
         return survivor == "window"
-    device = torch.device(device if device is not None else "cpu")
+    device = hardware.resolve_device(device)
     if device.type != "cuda":
         return False
-    total = torch.cuda.get_device_properties(device).total_memory
-    return plan.n_packs * 64 * plan.num_blocks * 4 > total // 2
+    store = plan.n_packs * 64 * plan.num_blocks * 4
+    store_budget = hardware.survivor_store_budget_bytes(device)
+    if store <= store_budget:
+        return False
+    need, budget = ring_bytes(cfg), hardware.smem_budget_bytes()
+    if need <= budget:
+        return True
+    raise ValueError(
+        f"neither survivor mode fits: the full store needs {store} bytes of "
+        f"device memory (budget {store_budget}) and the window ring {need} "
+        f"bytes of shared memory (budget {budget})")
 
 
 S16_LAYOUTS = ("pack", "halves", "lazy", "group")

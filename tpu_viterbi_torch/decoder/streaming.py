@@ -29,7 +29,7 @@ class StreamingViterbi:
 
     def __init__(self, config: DecoderConfig = DecoderConfig(),
                  dec_len: int = DEFAULT_DEC_LEN, backend: str = "auto",
-                 survivor: str = "auto", device=None):
+                 survivor: str = "auto", device="cuda"):
         """backend / survivor / device are forwarded to the underlying
         ViterbiGPU (api.py); survivor='window' streams through kernel K3."""
         self.config = config

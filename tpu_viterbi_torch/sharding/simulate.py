@@ -27,6 +27,7 @@ from ..chain.genkernel import packed_workload_cuda, ref_words_from_packs
 from ..chain.workload import packed_workload
 from ..config import ChannelIn, DecoderConfig
 from ..decoder.api import ViterbiGPU
+from ..hardware import resolve_device
 from ..utils.bits import _popcount32
 
 # channel scale per input format (the reference's 40000.0 saturates every
@@ -72,11 +73,11 @@ def build_sharded_simulation(cfg: DecoderConfig, message_len: int,
                              snr_db: float = 5.5, scale: float = None,
                              dec_len=2048, generator: str = "auto",
                              survivor: str = "auto", backend: str = "auto",
-                             device=None, return_output: bool = False):
+                             device="cuda", return_output: bool = False):
     """-> (simulate(seed), m): simulate runs generate -> decode -> count on
-    ``device`` (default: the GPU when there is one) and returns the bit-error
-    count over the m decoded bits as a 0-dim tensor there (and the decoded
-    words when return_output).  snr_db = math.inf is the noiseless channel.
+    ``device`` (the GPU unless the caller passes 'cpu') and returns the
+    bit-error count over the m decoded bits as a 0-dim tensor there (and
+    the decoded words when return_output).  snr_db = math.inf is the noiseless channel.
 
     generator: 'cuda' = K7/K8 (their plain version on a CPU device, as the
     JAX package's 'pallas' runs in interpret mode off the TPU), 'torch' =
@@ -84,9 +85,7 @@ def build_sharded_simulation(cfg: DecoderConfig, message_len: int,
     two draw different (equally Gaussian) noise, so their counts differ
     under noise and agree in distribution.  dec_len, survivor and backend
     are ViterbiGPU's."""
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    device = torch.device(device)
+    device = resolve_device(device)
     input_num = 2 * message_len
     m = cfg.get_message_len(input_num)
     if m <= 0:
@@ -125,7 +124,7 @@ def simulate_sharded(cfg: DecoderConfig, message_len: int,
                      snr_db: float = 5.5, seed: int = 0, scale: float = None,
                      dec_len=2048, generator: str = "auto",
                      survivor: str = "auto", backend: str = "auto",
-                     device=None) -> Tuple[int, int]:
+                     device="cuda") -> Tuple[int, int]:
     """One-shot: -> (bit_error_count, message_len)."""
     fn, m = build_sharded_simulation(cfg, message_len, snr_db=snr_db,
                                      scale=scale, dec_len=dec_len,

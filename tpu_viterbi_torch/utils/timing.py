@@ -1,0 +1,119 @@
+"""Kernel timing on the card, and the fixed-shape canary K10; the
+counterpart of ``tpu_viterbi/utils/timing.py``.
+
+The JAX package timed by the slope between k and 1 repetitions inside one
+jitted graph, each on a fresh input, because its TPU sat behind a relay
+that added ~30 ms a call and memoized identical calls (its :1-9).  Here two
+CUDA events around the launches read the device's own clock, so one
+warmed launch is one sample: no slope and no fresh inputs.  Every timing
+here needs a CUDA device and raises without one.
+"""
+
+from __future__ import annotations
+
+import statistics
+from typing import Callable
+
+import torch
+
+from ..config import ChannelIn, DecoderConfig
+from ..decoder import core_cuda
+from ..decoder.core_torch import BlockPlan, plan_blocks, words_per_block
+from ..hardware import resolve_device
+
+LANE_TILE = 128       # blocks per TPU program: the canary's unit of blocks
+CANARY_SEED = 7000    # the JAX canary's first key, PRNGKey(7000)
+
+
+def cuda_ms(fn: Callable, runs: int):
+    """CUDA-event times of ``runs`` calls of fn on the current stream, each
+    synchronized: (median ms, all ms, the last call's result)."""
+    ts = []
+    out = None
+    for _ in range(runs):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = fn()
+        e.record()
+        e.synchronize()
+        ts.append(s.elapsed_time(e))
+    return statistics.median(ts), ts, out
+
+
+def ab_ms(fa: Callable, fb: Callable, runs: int):
+    """CUDA-event times of fa and fb, launched in turns (a, b, b, a, ...):
+    (median a, median b, all a, all b, out a, out b)."""
+    ta, tb = [], []
+    out_a = out_b = None
+    for i in range(runs):
+        order = ((fa, ta), (fb, tb)) if i % 2 == 0 else ((fb, tb), (fa, ta))
+        for fn, ts in order:
+            ms, _, out = cuda_ms(fn, 1)
+            ts.append(ms)
+            if fn is fa:
+                out_a = out
+            else:
+                out_b = out
+    return (statistics.median(ta), statistics.median(tb), ta, tb, out_a,
+            out_b)
+
+
+def time_in_graph(fn: Callable, x: torch.Tensor, runs: int = 5) -> float:
+    """Seconds per fn(x): the median of ``runs`` CUDA-event timed calls
+    after one untimed call, on the current stream of x's device.  A CPU
+    tensor raises: there is no device clock to read."""
+    if not isinstance(x, torch.Tensor) or x.device.type != "cuda":
+        raise ValueError(f"time_in_graph times CUDA launches and takes a "
+                         f"CUDA tensor, got "
+                         f"{getattr(x, 'device', type(x).__name__)}")
+    with torch.cuda.device(x.device):
+        fn(x)
+        ms, _, _ = cuda_ms(lambda: fn(x), runs)
+    return ms / 1e3
+
+
+def canary_plan(tiles: int = 16, n_packs: int = 256):
+    """(cfg, plan) of the canary: SOFT8, b32 packs, ``tiles`` x 128 blocks
+    of ``n_packs`` packs each, so dec_len = 32 n_packs - 64 (8128 at the
+    default), n_conv 1, n_emit n_packs - 2 and 16 n_packs words a block,
+    the static arguments of the JAX canary (bench.py:73-77)."""
+    cfg = DecoderConfig(ChannelIn.SOFT8)
+    bpp = cfg.bits_per_pack
+    dec_len = bpp * n_packs - 64
+    plan = plan_blocks(tiles * LANE_TILE * dec_len, bpp, dec_len)
+    return cfg, plan
+
+
+def canary_words(cfg: DecoderConfig, plan: BlockPlan, device="cuda",
+                 seed: int = CANARY_SEED) -> torch.Tensor:
+    """The canary's pre-staged word-major input: (wpb + wph, B) full-range
+    random int32 SOFT8 words from a torch.Generator seeded with ``seed`` on
+    ``device``."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    lw = sum(words_per_block(cfg, plan))
+    return torch.randint(-2 ** 31, 2 ** 31, (lw, plan.num_blocks),
+                         generator=gen, device=dev, dtype=torch.int64
+                         ).to(torch.int32)
+
+
+def canary_ns(tiles: int = 16, n_packs: int = 256, reps: int = 5,
+              device="cuda") -> float:
+    """Kernel K10, the counterpart of the JAX bench's ``_run_canary``
+    (bench.py:58-109): a fixed-shape launch of K4 in word mode with the
+    full survivor store and traceback, on pre-staged random words drawn
+    outside the timed region.  Returns ns per ACS stage per 128-block
+    tile (the JAX normalisation, bench.py:109): the median launch time
+    over tiles x n_packs x 32 stages.
+
+    A fixed shape is the point of a canary, so the JAX shape is kept,
+    though on this card it is small: 2048 blocks are 2048 threads, 32 CUDA
+    blocks of 64 on 32 of the H100's 132 SMs.  The number measures
+    per-thread ACS latency, not the card's throughput."""
+    cfg, plan = canary_plan(tiles, n_packs)
+    words = canary_words(cfg, plan, device)
+    seconds = time_in_graph(lambda w: core_cuda.K4(w, cfg, plan), words,
+                            runs=reps)
+    return seconds * 1e9 / (tiles * n_packs * plan.bits_per_pack)
