@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: builds kernels K1-K6
 (decode and staging), K7, K8 (workload generator), K9 (the hardware
-model's shared-memory probe) and K11 (the op-cost probe) from the checkout
+model's shared-memory probe), K11 (the op-cost probe) and K12-K15 (K1's
+design probes: layout, ablation, ACS variants, ILP) from the checkout
 into one library (one nvcc per source, started together, one link), holds
 each against its plain PyTorch version, drives the hardware model (the
 probe of `python -m tpu_viterbi_torch.hardware`, K3's shared-memory gate,
@@ -62,7 +63,9 @@ from tpu_viterbi_torch.decoder.core_torch import (  # noqa: E402
     clamp_split, decode_blocks_torch, decode_packed_torch,
     decode_planes_torch, decode_staged_torch, needs_int32_renorm,
     plan_blocks, stage_transpose, traceback_shape, words_per_block)
-from tpu_viterbi_torch.scripts import op_cost_probe  # noqa: E402
+from tpu_viterbi_torch.scripts import (  # noqa: E402
+    acs_variants_bench, ilp_probe, kernel_ablation, layout_probe,
+    op_cost_probe)
 from tpu_viterbi_torch.sharding.simulate import (  # noqa: E402
     DEFAULT_SCALES, build_sharded_simulation)
 from tpu_viterbi_torch.utils import timing  # noqa: E402
@@ -79,7 +82,10 @@ K1, K2, K3 = core_cuda.K1, core_cuda.K2, core_cuda.K3
 K4, K5, K6 = core_cuda.K4, core_cuda.K5, core_cuda.K6
 K7, K8 = genkernel.K7, genkernel.K8
 K9, K11 = hardware.K9, op_cost_probe.K11
-KERNELS = core_cuda.KERNELS + genkernel.KERNELS + (K9, K11)
+K12, K13 = layout_probe.K12, kernel_ablation.K13
+K14, K15 = acs_variants_bench.K14, ilp_probe.K15
+KERNELS = core_cuda.KERNELS + genkernel.KERNELS + (K9, K11, K12, K13, K14,
+                                                   K15)
 REPLACES = {"K1": "tpu_viterbi/decoder/core_pallas.py:638",
             "K2": "tpu_viterbi/decoder/core_pallas.py:683",
             "K3": "tpu_viterbi/decoder/core_pallas.py:440",
@@ -90,7 +96,11 @@ REPLACES = {"K1": "tpu_viterbi/decoder/core_pallas.py:638",
             "K8": "tpu_viterbi/chain/genkernel.py:294",
             "K9": "tpu_viterbi/hardware.py:123",
             "K10": "bench.py:78",
-            "K11": "scripts/op_cost_probe.py:129"}
+            "K11": "scripts/op_cost_probe.py:129",
+            "K12": "scripts/layout_probe.py:216",
+            "K13": "scripts/kernel_ablation.py:162",
+            "K14": "scripts/acs_variants_bench.py:132",
+            "K15": "scripts/ilp_probe.py:48"}
 CLI_SCALE = 40000.0                 # the CLI's channel scale (main.cpp:137)
 
 # Bounds: the least time the card could take for a kernel's work, the
@@ -161,8 +171,8 @@ def device_phase():
 
 
 def build_phase():
-    """One nvcc per source, all started together, and one link build the
-    library of the eight kernels; each binds its entry point."""
+    """One nvcc per source (and build part), all started together, and one
+    link build the library of every kernel; each binds its entry point."""
     t0 = time.perf_counter()
     for k in KERNELS:
         k.build()
@@ -1124,6 +1134,226 @@ def canary_phase(card: str, runs: dict):
     return k_ms, p_ms, err, bnd
 
 
+PROBE_CHECK_STAGES = 64             # K12's and K14's checks (2 packs of K14)
+ABLATION_CHECK_PACKS = 8
+ILP_CHECK_STEPS = 256
+LT_BYTES = 128 * 4                  # a 128-lane int32 row
+
+
+def probe_path(probe):
+    """Run a design probe's entry point (its ``probe()``, all variants: one
+    call) through ``drive``: (its results, {kernel name: launches})."""
+    results = []
+
+    def path() -> int:
+        results.extend(probe())
+        return 0
+
+    rc, _, counts = drive([], path)
+    if rc != 0:
+        raise AssertionError(f"{probe.__module__}: rc {rc}")
+    return results, counts
+
+
+def share(bnd, ms: float) -> str:
+    return f"bound {bnd[0]:.4f} ms by {bnd[1]} ({bnd[0] / ms:.0%} of it)"
+
+
+def layout_phase(card: str, runs: dict):
+    """K12: every variant bit-equal to its plain version at
+    PROBE_CHECK_STAGES on every program of both grids (2048 and 15,872
+    arrays), then `python -m tpu_viterbi_torch.scripts.layout_probe` (all
+    variants at both grids, STAGES stages) with the counts set to 0, and
+    each variant's bound (layout_probe.OPS lane-operations an
+    array-stage).  Returns K12's row: A at the JAX shape beside its plain
+    version there, which must agree."""
+    lp = layout_probe
+    x = lp.probe_input(lp.HEADLINE_TILES, "cuda", seed=SEED)
+    for tiles in (lp.GRID, lp.HEADLINE_TILES):
+        for v in lp.VARIANTS:
+            xv = x[:tiles * lp.ROWS]
+            got = K12(v, xv, PROBE_CHECK_STAGES)
+            torch.cuda.synchronize()
+            if not torch.equal(got, lp.layout_torch(v, xv,
+                                                    PROBE_CHECK_STAGES)):
+                raise AssertionError(f"K12 {v} differs from its plain "
+                                     f"version at {tiles} tiles")
+    say("18 layout", f"K12 bit-equal to its plain version on all "
+        f"{len(lp.VARIANTS)} variants, every program of {lp.GRID} and "
+        f"{lp.HEADLINE_TILES} tiles, {PROBE_CHECK_STAGES} stages")
+    results, counts = probe_path(lp.probe)
+    record(runs, counts, 1, ["K12"], "layout probe")
+    by = {(r["variant"], r["tiles"]): r for r in results}
+    for r in results:
+        bnd = bound(r["tiles"] * lp.ROWS * LT_BYTES + r["tiles"] * 64 *
+                    LT_BYTES, lp.OPS[r["variant"]] * r["arrays"] * lp.STAGES)
+        r["bound"] = bnd
+        say("18 layout", f"{card}: {r['variant']} at {r['arrays']} arrays: "
+            f"{r['ms']:.4f} ms = {r['ns_per_stage_tile']:.4f} ns/stage/tile;"
+            f" SASS {r['sass_per_stage']:g} a stage a thread, "
+            f"{r['lane_instr_per_array_stage']:g} lane-instructions an "
+            f"array-stage = {r['lane_instr_per_ns']:.1f} a ns; registers "
+            f"{r['regs']}, stack {r['stack']} B; {share(bnd, r['ms'])}")
+    for tiles in (lp.GRID, lp.HEADLINE_TILES):
+        a, c = by[("real", tiles)], by[("lanes", tiles)]
+        say("18 layout", f"A against C at {tiles * 128} arrays: "
+            f"{a['ns_per_stage_tile']:.4f} against "
+            f"{c['ns_per_stage_tile']:.4f} ns/stage/tile (C / A = "
+            f"{c['ms'] / a['ms']:.3f})")
+    xs = x[:lp.GRID * lp.ROWS]
+    got = K12("real", xs, lp.STAGES)
+    p_ms, _, want = cuda_ms(lambda: lp.layout_torch("real", xs, lp.STAGES),
+                            1)
+    if not torch.equal(got, want):
+        raise AssertionError("K12 real differs from its plain version at "
+                             "the JAX shape")
+    a = by[("real", lp.GRID)]
+    return a["ms"], p_ms, 0, a["bound"]
+
+
+def ablation_phase(card: str, runs: dict, k10_ms: float):
+    """K13: every variant's output and survivor store bit-equal to its plain
+    version on all GRID programs at ABLATION_CHECK_PACKS packs, then `python
+    -m tpu_viterbi_torch.scripts.kernel_ablation` with the counts set to 0,
+    and each variant's bound, beside K10 (K4 with every piece, at the same
+    2048 blocks x 8192 stages, ``k10_ms`` in this run).  Returns K13's row:
+    +traceback at the JAX shape beside its plain version there, output and
+    store equal."""
+    ka = kernel_ablation
+    words = ka.probe_input(ka.GRID, ABLATION_CHECK_PACKS, "cuda", seed=SEED)
+    for v in ka.VARIANTS:
+        out, store = K13(v, words, ka.GRID)
+        torch.cuda.synchronize()
+        want, want_store = ka.ablation_torch(v, words, ka.GRID)
+        if not torch.equal(out, want) or (store is None) != (
+                want_store is None) or (store is not None and
+                                        not torch.equal(store, want_store)):
+            raise AssertionError(f"K13 {v} differs from its plain version")
+    say("19 ablation", f"K13 bit-equal to its plain version on all "
+        f"{len(ka.VARIANTS)} variants, output and survivor store, "
+        f"{ka.GRID} programs of {ABLATION_CHECK_PACKS} packs")
+    results, counts = probe_path(ka.probe)
+    record(runs, counts, 1, ["K13"], "ablation probe")
+    arrays = ka.GRID * 128
+    stages = ka.N_PACKS * 32
+    for r in results:
+        v = r["variant"]
+        read = 4 * ka.WPP if v == "body" else ka.N_PACKS * ka.WPP
+        store = ka.N_PACKS * 64 if v in ("+dump", "+traceback") else 0
+        out_rows = ka.n_emit(v, ka.N_PACKS)
+        bnd = bound((read + store + out_rows) * arrays * 4,
+                    ka.OPS[v] * arrays * stages)
+        r["bound"] = bnd
+        say("19 ablation", f"{card}: {v} at {arrays} arrays x {stages} "
+            f"stages: {r['ms']:.4f} ms = {r['ns_per_stage_tile']:.4f} "
+            f"ns/stage/tile; SASS {r['sass_per_stage']:g} a stage; "
+            f"registers {r['regs']}, stack {r['stack']} B; "
+            f"{share(bnd, r['ms'])}")
+    say("19 ablation", f"K10 in this run, K4 with every piece at the same "
+        f"shape: {k10_ms:.4f} ms = {k10_ms * 1e6 / (stages * ka.GRID):.4f} "
+        f"ns/stage/tile")
+    full = ka.probe_input(ka.GRID, ka.N_PACKS, "cuda", seed=SEED)
+    out, store = K13("+traceback", full, ka.GRID)
+    p_ms, _, (want, want_store) = cuda_ms(
+        lambda: ka.ablation_torch("+traceback", full, ka.GRID), 1)
+    if not (torch.equal(out, want) and torch.equal(store, want_store)):
+        raise AssertionError("K13 +traceback differs from its plain version "
+                             "at the JAX shape")
+    tb = results[-1]
+    if tb["variant"] != "+traceback":
+        raise AssertionError("the ablation probe's last variant is not "
+                             "+traceback")
+    return tb["ms"], p_ms, 0, tb["bound"]
+
+
+def acs_variants_phase(card: str, runs: dict):
+    """K14: every variant bit-equal to its plain version on the JAX width
+    at two packs, then `python -m
+    tpu_viterbi_torch.scripts.acs_variants_bench` with the counts set to
+    0, and each variant's bound.  Returns K14's row: eo (the true even/odd
+    ACS) at the JAX shape beside its plain version there."""
+    av = acs_variants_bench
+    width = av.N_TILES * 128
+    rs = av.probe_input(PROBE_CHECK_STAGES // av.BPP, width, "cuda",
+                        seed=SEED)
+    for v in av.VARIANTS:
+        got = K14(v, rs)
+        torch.cuda.synchronize()
+        if not torch.equal(got, av.acs_variants_torch(v, rs)):
+            raise AssertionError(f"K14 {v} differs from its plain version")
+    say("20 acs variants", f"K14 bit-equal to its plain version on all "
+        f"{len(av.VARIANTS)} variants, {width} arrays, "
+        f"{PROBE_CHECK_STAGES} stages")
+    results, counts = probe_path(av.probe)
+    record(runs, counts, 1, ["K14"], "ACS variants probe")
+    stages = av.N_PACKS * av.BPP
+    by = {}
+    for r in results:
+        v = r["variant"]
+        rows = 1 if v == "bit_tb" else 2
+        bnd = bound((stages * rows + 64) * width * 4,
+                    av.OPS[v] * width * stages)
+        r["bound"] = bnd
+        by[v] = r
+        say("20 acs variants", f"{card}: {v} at {width} arrays x {stages} "
+            f"stages: {r['ms']:.4f} ms = {r['ns_per_stage_tile']:.4f} "
+            f"ns/stage/tile; SASS {r['sass_per_stage']:g} a stage; "
+            f"registers {r['regs']}, stack {r['stack']} B; "
+            f"{share(bnd, r['ms'])}")
+    full = av.probe_input(av.N_PACKS, width, "cuda", seed=SEED)
+    got = K14("eo", full)
+    p_ms, _, want = cuda_ms(lambda: av.acs_variants_torch("eo", full), 1)
+    if not torch.equal(got, want):
+        raise AssertionError("K14 eo differs from its plain version at the "
+                             "JAX shape")
+    return by["eo"]["ms"], p_ms, 0, by["eo"]["bound"]
+
+
+def ilp_phase(card: str, runs: dict):
+    """K15: every chain count at both occupancies equal to its plain
+    version at each element's tile position after ILP_CHECK_STEPS steps,
+    then `python -m tpu_viterbi_torch.scripts.ilp_probe` with the counts
+    set to 0, and each run's bound over its slope.  Returns K15's row: 4
+    chains at the SM's 2048 threads and ILP_CHECK_STEPS steps, beside the
+    plain version there (as K11's row)."""
+    ip = ilp_probe
+    x = ip.probe_input("cuda")
+    steps = ILP_CHECK_STEPS
+    plain = {n: ip.ilp_torch(n, x, steps).reshape(-1) for n in ip.CHAINS}
+    for occupancy in ip.OCCUPANCIES:
+        blocks, threads = ip.grid(occupancy)
+        idx = torch.arange(blocks * threads, device="cuda") % ip.TILE
+        for n in ip.CHAINS:
+            got = K15(n, x, steps, blocks, threads)
+            torch.cuda.synchronize()
+            if not torch.equal(got, plain[n][idx]):
+                raise AssertionError(f"K15 {n} chains {occupancy} differs "
+                                     f"from its plain version")
+    say("21 ilp", f"K15 bit-equal to its plain version on 1, 2 and 4 "
+        f"chains at both occupancies, {steps} steps")
+    results, counts = probe_path(ip.probe)
+    record(runs, counts, 1, ["K15"], "ILP probe")
+    for r in results:
+        lanes = r["blocks"] * r["threads"]
+        dt = r["ms_hi"] - r["ms_lo"]
+        bnd = bound(0, lanes * (ip.STEPS_HI - ip.STEPS_LO) * ip.UNROLL *
+                    r["chains"] * ip.OPS_A_PAIR)
+        say("21 ilp", f"{card}: {r['chains']} chains, {r['occupancy']} "
+            f"({r['blocks']} x {r['threads']}): slope {dt:.4f} ms = "
+            f"{r['ns_per_pair']:.4f} ns a dependent pair; "
+            f"{r['sass_per_clock_per_sm']:.2f} SASS lane-instructions a "
+            f"clock per SM ({r['sass_loop']} a step); {share(bnd, dt)}")
+    blocks, threads = ip.grid("full")
+    k_ms, _, _ = cuda_ms(lambda: K15(4, x, steps, blocks, threads), 5)
+    p_ms, _, _ = cuda_ms(lambda: ip.ilp_torch(4, x, steps), 1)
+    lanes = blocks * threads
+    bnd = bound(x.numel() * 4 + lanes * 4,
+                lanes * steps * ip.UNROLL * 4 * ip.OPS_A_PAIR)
+    say("21 ilp", f"{card}: 4 chains, full, {steps} steps: median "
+        f"{k_ms:.4f} ms, plain {p_ms:.1f} ms; {share(bnd, k_ms)}")
+    return k_ms, p_ms, 0, bnd
+
+
 def main() -> int:
     card = device_phase()
     build_phase()
@@ -1157,16 +1387,28 @@ def main() -> int:
     times["K9"] = hardware_phase(card, gen, runs)
     times["K11"] = op_cost_phase(card, runs)
     times["K10"] = canary_phase(card, runs)
+    times["K12"] = layout_phase(card, runs)
+    times["K13"] = ablation_phase(card, runs, times["K10"][0])
+    times["K14"] = acs_variants_phase(card, runs)
+    times["K15"] = ilp_phase(card, runs)
     # launches a call, measured in the main-path runs: where the design
-    # fixes it, it must be so (one a decode or a generation; the probe's
-    # two step counts of one warm-up and REPS timed launches a variant;
-    # time_in_graph's one untimed and CANARY_REPS timed); K9's is the
-    # search's, which depends on the card
+    # fixes it, it must be so (one a decode or a generation; the op-cost
+    # and ILP probes' two step counts, the layout probe's two grids, of one
+    # warm-up and REPS timed launches a variant; time_in_graph's one
+    # untimed and CANARY_REPS timed); K9's is the search's, which depends
+    # on the card
     want = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8"), 1)
     want["K10"] = CANARY_REPS + 1
     want["K11"] = 2 * len(op_cost_probe.VARIANTS) * (op_cost_probe.REPS + 1)
+    want["K12"] = 2 * len(layout_probe.VARIANTS) * (layout_probe.REPS + 1)
+    want["K13"] = len(kernel_ablation.VARIANTS) * (kernel_ablation.REPS + 1)
+    want["K14"] = len(acs_variants_bench.VARIANTS) * (
+        acs_variants_bench.REPS + 1)
+    want["K15"] = 2 * len(ilp_probe.OCCUPANCIES) * len(ilp_probe.CHAINS) * \
+        (ilp_probe.REPS + 1)
     rows = [(k.name, str(k.source.relative_to(ROOT))) for k in KERNELS]
-    rows.insert(-1, ("K10", str(K4.source.relative_to(ROOT))))
+    rows.insert([name for name, _ in rows].index("K11"),
+                ("K10", str(K4.source.relative_to(ROOT))))
     per_call = {name: launches_per_call(runs, name, want.get(name))
                 for name, _ in rows}
     print(json.dumps({"kernels": [{

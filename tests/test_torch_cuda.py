@@ -4,7 +4,8 @@ staged-input paths (``decode_packed_cuda(fused=False)``,
 ViterbiGPU's CUDA path (run, run_stream, streaming); the generator
 kernels K7 and K8 against theirs, and the in-graph simulation on the card;
 the hardware model (K9's probe, K3's shared-memory gate), the op-cost
-kernels K11 and the canary K10.
+kernels K11 and the canary K10; the probes' kernels K12-K15 (layout,
+ablation, ACS variants, ILP) against their plain versions.
 Every test here needs a CUDA GPU and skips without one; the
 file imports no jax, so it runs on a machine that has only the port's
 dependencies:
@@ -24,7 +25,9 @@ from tpu_viterbi_torch.chain.quantize import unpack_to_soft
 from tpu_viterbi_torch.config import ChannelIn, DecodeOut, DecoderConfig
 from tpu_viterbi_torch.decoder import core_cuda, core_torch
 from tpu_viterbi_torch.decoder.streaming import StreamingViterbi
-from tpu_viterbi_torch.scripts import op_cost_probe
+from tpu_viterbi_torch.scripts import (acs_variants_bench, ilp_probe,
+                                       kernel_ablation, layout_probe,
+                                       op_cost_probe)
 from tpu_viterbi_torch.sharding import simulate
 from tpu_viterbi_torch.utils import timing
 
@@ -500,3 +503,95 @@ def test_canary_and_timing(gpu):
     ns = timing.canary_ns(tiles=1, n_packs=16, reps=3)
     assert ns > 0 and core_cuda.K4.launches == before + 4
     assert timing.time_in_graph(lambda t: t * 2, words, runs=3) > 0
+
+
+# --- the probes' kernels K12-K15 ---
+
+@pytest.mark.parametrize("variant", layout_probe.VARIANTS)
+def test_k12_matches_plain(gpu, variant):
+    """Four tiles at 64 stages: every program equals the plain version's;
+    one launch; a refused shape raises before any launch."""
+    x = layout_probe.probe_input(4, gpu, seed=1)
+    K12 = layout_probe.K12
+    before = K12.launches
+    got = K12(variant, x, 64)
+    torch.cuda.synchronize()
+    assert K12.launches == before + 1
+    assert torch.equal(got, layout_probe.layout_torch(variant, x, 64))
+    with pytest.raises(ValueError):
+        K12(variant, x[:100], 64)
+    with pytest.raises(ValueError):
+        K12(variant, x, 40)
+    assert K12.launches == before + 1
+
+
+@pytest.mark.parametrize("variant", kernel_ablation.VARIANTS)
+def test_k13_matches_plain(gpu, variant):
+    """Three programs of 6 packs: output and survivor store equal the
+    plain version's; one launch; a refused shape raises before any
+    launch."""
+    words = kernel_ablation.probe_input(3, 6, gpu, seed=2)
+    K13 = kernel_ablation.K13
+    before = K13.launches
+    out, store = K13(variant, words, 3)
+    torch.cuda.synchronize()
+    assert K13.launches == before + 1
+    want, want_store = kernel_ablation.ablation_torch(variant, words, 3)
+    assert torch.equal(out, want)
+    assert (store is None) == (want_store is None)
+    if store is not None:
+        assert torch.equal(store, want_store)
+    with pytest.raises(ValueError):
+        K13(variant, words, 5)
+    assert K13.launches == before + 1
+
+
+@pytest.mark.parametrize("variant", acs_variants_bench.VARIANTS)
+def test_k14_matches_plain(gpu, variant):
+    """Three packs on 300 arrays (a ragged CUDA block): equal to the plain
+    version; one launch; a refused shape raises before any launch."""
+    rs = acs_variants_bench.probe_input(3, 300, gpu, seed=3)
+    K14 = acs_variants_bench.K14
+    before = K14.launches
+    got = K14(variant, rs)
+    torch.cuda.synchronize()
+    assert K14.launches == before + 1
+    assert torch.equal(got,
+                       acs_variants_bench.acs_variants_torch(variant, rs))
+    with pytest.raises(ValueError):
+        K14(variant, rs[:, :16].contiguous())
+    assert K14.launches == before + 1
+
+
+@pytest.mark.parametrize("occupancy", ilp_probe.OCCUPANCIES)
+@pytest.mark.parametrize("chains", ilp_probe.CHAINS)
+def test_k15_matches_plain(gpu, chains, occupancy):
+    """Each occupancy's grid at 20 steps: every element equals the plain
+    value at its tile position; one launch; a refused grid raises before
+    any launch."""
+    x = ilp_probe.probe_input(gpu)
+    blocks, threads = ilp_probe.grid(occupancy)
+    K15 = ilp_probe.K15
+    before = K15.launches
+    got = K15(chains, x, 20, blocks, threads)
+    torch.cuda.synchronize()
+    assert K15.launches == before + 1
+    flat = ilp_probe.ilp_torch(chains, x, 20).reshape(-1)
+    idx = torch.arange(got.numel(), device=gpu) % flat.numel()
+    assert torch.equal(got, flat[idx])
+    with pytest.raises(ValueError):
+        K15(chains, x, 20, blocks, 48)
+    assert K15.launches == before + 1
+
+
+def test_probe_sass_readings(gpu):
+    """Every variant of K12-K15 has a stage (step) loop in the library's
+    SASS, and a register count."""
+    for mod, keys in ((layout_probe, layout_probe.VARIANTS),
+                      (kernel_ablation, kernel_ablation.VARIANTS),
+                      (acs_variants_bench, acs_variants_bench.VARIANTS),
+                      (ilp_probe, ilp_probe.CHAINS)):
+        counts = mod.sass_counts()
+        assert set(counts) == set(keys)
+        for loop, res in counts.values():
+            assert loop > 0 and 0 < res["REG"] <= 255

@@ -3,7 +3,8 @@ its CLI (--e2e-device, --generator) against the JAX package's, on the CPU:
 both generators decode to zero errors without noise (b32, b16 with
 m % 32 == 16, FP32); under noise the port counts, on the words JAX's
 generator draws, exactly the errors JAX's one-device simulation counts; the
-CLI's output lines and rejections match the JAX CLI's."""
+CLI's output lines and rejections match the JAX CLI's; dec_len 'auto' is
+resolved from the size JAX's one-device simulation resolves it from."""
 
 import math
 import re
@@ -15,9 +16,12 @@ import torch
 
 from tpu_viterbi import cli as jcli
 from tpu_viterbi.chain.genkernel import packed_workload_pallas
+from tpu_viterbi.chain.workload import packed_workload as jpacked_workload
 from tpu_viterbi.config import (ChannelIn as JChannelIn,
                                 DecodeOut as JDecodeOut,
                                 DecoderConfig as JDecoderConfig)
+from tpu_viterbi.decoder.core_xla import auto_dec_len as jauto_dec_len
+from tpu_viterbi.sharding.blocks import sharded_stage_count
 from tpu_viterbi.sharding.mesh import make_block_mesh
 from tpu_viterbi.sharding.simulate import (build_sharded_simulation as
                                            jbuild_simulation,
@@ -87,6 +91,60 @@ def test_counts_jax_generated_words_like_jax(jcfg):
     own, m2 = sim.simulate_sharded(cfg, n, snr_db=snr, seed=seed,
                                    generator="cuda", device="cpu")
     assert m2 == m and abs(own - want) <= want // 100
+
+
+def _jax_auto_dec_len(n: int, bpp: int) -> int:
+    """JAX's one-device simulation's 'auto' (sharding/simulate.py:101-104)."""
+    return jauto_dec_len(sharded_stage_count(n, 1, bpp), bpp)
+
+
+@pytest.mark.parametrize("bpp", [32, 16])
+def test_auto_dec_len_resolves_like_jax(bpp):
+    """'auto' is JAX's dec_len at every message length of a sweep (the
+    decoded length m, which ViterbiGPU's own 'auto' reads, gives another at
+    thousands of them); a number passes through."""
+    for n in (8200, 41024, *range(200, 1_100_000, 13)):
+        assert sim.resolve_dec_len("auto", n, bpp) == \
+            _jax_auto_dec_len(n, bpp), n
+    assert sim.resolve_dec_len(512, 8200, bpp) == 512
+
+
+@pytest.mark.parametrize("n,want", [(8200, 96), (41024, 352)])
+def test_simulation_builds_the_decoder_with_jax_auto_dec_len(monkeypatch, n,
+                                                             want):
+    seen = []
+
+    class Spy(sim.ViterbiGPU):
+        def __init__(self, *args, **kwargs):
+            seen.append(kwargs["dec_len"])
+            super().__init__(*args, **kwargs)
+
+    monkeypatch.setattr(sim, "ViterbiGPU", Spy)
+    sim.build_sharded_simulation(DecoderConfig(ChannelIn.SOFT8), n,
+                                 dec_len="auto", device="cpu")
+    assert seen == [want] == [_jax_auto_dec_len(n, 32)]
+
+
+def test_auto_dec_len_counts_jax_xla_words_like_jax(monkeypatch):
+    """SOFT8 at 0.5 dB, dec_len 'auto', n = 41024 (JAX's 352, the decoded
+    length's 320): the port's simulation on the words JAX's xla generator
+    draws counts what JAX's one-device simulation counts."""
+    n, seed, snr = 41024, 1, 0.5
+    jcfg = JDecoderConfig(JChannelIn.SOFT8)
+    want, m = jsimulate(jcfg, n, make_block_mesh(jax.devices()[:1]),
+                        snr_db=snr, seed=seed, generator="xla",
+                        dec_len="auto")
+    cfg = from_reference(jcfg)
+    bits, words = jpacked_workload(jax.random.PRNGKey(seed), n,
+                                   jcfg.channel_in, snr,
+                                   sim.DEFAULT_SCALES[cfg.channel_in])
+    monkeypatch.setattr(sim, "packed_workload", lambda *args: (
+        torch.from_numpy(np.array(bits)), torch.from_numpy(np.array(words))))
+    fn, m2 = sim.build_sharded_simulation(cfg, n, snr_db=snr,
+                                          dec_len="auto", generator="torch",
+                                          device="cpu")
+    assert m2 == m and 100 < want < m // 20
+    assert int(fn(seed)) == want
 
 
 def test_generator_and_length_rejections_match_jax():

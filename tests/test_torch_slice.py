@@ -234,6 +234,11 @@ def test_port_imports_no_jax():
             "import tpu_viterbi_torch.library\n"
             "import tpu_viterbi_torch.utils.timing\n"
             "import tpu_viterbi_torch.scripts.op_cost_probe\n"
+            "import tpu_viterbi_torch.scripts.common\n"
+            "import tpu_viterbi_torch.scripts.layout_probe\n"
+            "import tpu_viterbi_torch.scripts.kernel_ablation\n"
+            "import tpu_viterbi_torch.scripts.acs_variants_bench\n"
+            "import tpu_viterbi_torch.scripts.ilp_probe\n"
             "bad = [m for m in sys.modules\n"
             "       if m == 'jax' or m.startswith(('jax.', 'tpu_viterbi.'))\n"
             "       or m == 'tpu_viterbi']\n"

@@ -1,13 +1,14 @@
 """The package's one shared library: every ``csrc/*.cu`` (the decode
 kernels K1-K6, the generators K7/K8, the shared-memory probe K9, the
-op-cost kernels K11) built with ``nvcc`` and loaded with ``ctypes``.
+probes' kernels K11-K15) built with ``nvcc`` and loaded with ``ctypes``.
 
 Each source exports plain C entry points that return a ``cudaError_t``.
 ``nvcc`` compiles the sources in parallel, one process per source and build
 part, and links them once: a build of seconds, where an extension that
 includes PyTorch's headers takes minutes.  The library is built at first
 use from the package's own sources into ``tpu_viterbi_torch/_build/``,
-keyed by a hash of the sources and the flags.
+keyed by a hash of the sources, the headers they include (``csrc/*.cuh``)
+and the flags.
 
 Every wrapper binds its entry through ``bind``; this module imports
 nothing else of the package, so the hardware model and the kernels'
@@ -55,18 +56,18 @@ def build_parts(source: Path) -> int:
 
 
 def load_library() -> ctypes.CDLL:
-    """Compile every ``csrc/*.cu`` (once per hash of the sources and the
-    flags) into one library and load it: one ``nvcc -c`` per source and
-    build part (``build_parts``), all started together, then one ``nvcc
-    -shared`` link.  Sets ``build_log`` to ptxas's register/spill report
-    when this process compiled it; it stays None when the library was
-    cached."""
+    """Compile every ``csrc/*.cu`` (once per hash of the sources, the
+    ``csrc/*.cuh`` headers and the flags) into one library and load it:
+    one ``nvcc -c`` per source and build part (``build_parts``), all
+    started together, then one ``nvcc -shared`` link.  Sets ``build_log``
+    to ptxas's register/spill report when this process compiled it; it
+    stays None when the library was cached."""
     global _library, build_log
     if _library is not None:
         return _library
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + sorted(CSRC.glob("*.cuh")):
         digest.update(src.name.encode() + b"\0" + src.read_bytes())
     lib_path = BUILD_DIR / f"libtpu_viterbi_{digest.hexdigest()[:16]}.so"
     if not lib_path.exists():

@@ -28,18 +28,15 @@ and stay in ROADMAP.md with the rest of K11.
 from __future__ import annotations
 
 import ctypes
-import re
-import subprocess
 import sys
-import tempfile
-from pathlib import Path
 from typing import Dict
 
 import numpy as np
 import torch
 
-from .. import hardware, library
+from .. import hardware
 from ..utils.timing import cuda_ms
+from .common import ProbeKernel, cubin_listings, loop_instructions
 
 ROWS, COLS = 32, 128
 UNROLL = 8
@@ -89,24 +86,13 @@ def op_cost_torch(variant: str, x: torch.Tensor, steps: int) -> torch.Tensor:
     return a
 
 
-class OpCostKernel:
-    """Wrapper of K11's op-cost kernels, bound to ``viterbi_k11_launch`` of
-    the package's library.  ``launches`` counts kernel launches and nothing
-    else (plain-version calls on CPU tensors do not count)."""
+class OpCostKernel(ProbeKernel):
+    """K11, bound to ``viterbi_k11_launch``."""
 
     def __init__(self):
-        self.name = "K11"
-        self.entry = "viterbi_k11_launch"
-        self.source = library.CSRC / "op_cost.cu"
-        self.launches = 0
-        self._fn = None
-
-    def build(self) -> None:
-        """Build and load the library (once a process), bind the entry."""
-        if self._fn is None:
-            self._fn = library.bind(self.entry, [
-                ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                ctypes.c_int, ctypes.c_void_p])
+        super().__init__("K11", "viterbi_k11_launch", "op_cost.cu",
+                         [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                          ctypes.c_int, ctypes.c_int])
 
     def __call__(self, variant: str, x: torch.Tensor, steps: int,
                  tiles: int) -> torch.Tensor:
@@ -124,22 +110,13 @@ class OpCostKernel:
                 or not x.is_contiguous():
             raise ValueError(f"K11 takes a contiguous (32, 128) int32 tile, "
                              f"got {x.dtype} {tuple(x.shape)}")
-        if x.device.type == "cpu":
+        if not self.check_device(x):
             return op_cost_torch(variant, x, steps).expand(tiles, ROWS,
                                                            COLS).clone()
-        if x.device.type != "cuda":
-            raise ValueError(f"K11 runs on CPU or CUDA tensors, got "
-                             f"{x.device}")
-        self.build()
         out = torch.empty((tiles, ROWS, COLS), dtype=torch.int32,
                           device=x.device)
-        with torch.cuda.device(x.device):
-            err = self._fn(VARIANTS.index(variant), x.data_ptr(),
-                           out.data_ptr(), int(steps), int(tiles),
-                           torch.cuda.current_stream(x.device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"K11 launch failed: cudaError_t {err}")
-        self.launches += 1
+        self.launch(x.device, VARIANTS.index(variant), x.data_ptr(),
+                    out.data_ptr(), int(steps), int(tiles))
         return out
 
 
@@ -163,68 +140,10 @@ def probe_input(device) -> torch.Tensor:
     return torch.from_numpy(x.astype(np.int32)).to(device)
 
 
-_FUNCTION = re.compile(r"Function : (\S+)")
-_INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
-_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
-_BRANCH = re.compile(r"\bBRA\b.*?(0x[0-9a-f]+|\.L_x_\d+)")
-
-
-def loop_instructions(sass: str) -> Dict[str, int]:
-    """{mangled kernel name: SASS instructions of its innermost loop} from
-    a ``cuobjdump -sass`` listing: the instructions from a backward
-    branch's target to the branch, for the shortest such span (a branch
-    to itself, the trap after EXIT, is no loop)."""
-    counts = {}
-    pieces = _FUNCTION.split(sass)
-    for name, body in zip(pieces[1::2], pieces[2::2]):
-        addrs, labels, branches = [], {}, []
-        pending = []
-        for line in body.splitlines():
-            lab = _LABEL.match(line)
-            if lab:
-                pending.append(lab.group(1))
-                continue
-            m = _INSTR.search(line)
-            if not m:
-                continue
-            addr = int(m.group(1), 16)
-            for lab_name in pending:
-                labels[lab_name] = addr
-            pending = []
-            addrs.append(addr)
-            b = _BRANCH.search(m.group(2))
-            if b:
-                branches.append((addr, b.group(1)))
-        spans = []
-        for addr, target in branches:
-            t = int(target, 16) if target.startswith("0x") \
-                else labels.get(target)
-            if t is not None and t < addr:
-                spans.append(sum(t <= a <= addr for a in addrs))
-        if spans:
-            counts[name] = min(spans)
-    return counts
-
-
 def sass_loop_counts() -> Dict[str, int]:
     """{variant: SASS instructions in its step loop}, read with cuobjdump
-    from the built library: its cubins are extracted, and only the one
-    holding the op-cost kernels is disassembled (the decode kernels' take
-    seconds)."""
-    lib = library.load_library()
-    tool = str(Path(library.find_nvcc()).with_name("cuobjdump"))
-    with tempfile.TemporaryDirectory() as tmp:
-        subprocess.run([tool, "-xelf", "all", lib._name], cwd=tmp,
-                       capture_output=True, check=True, timeout=120)
-        cubins = [p for p in Path(tmp).iterdir()
-                  if b"op_cost_kernel" in p.read_bytes()]
-        if len(cubins) != 1:
-            raise RuntimeError(f"{len(cubins)} cubins of the library hold "
-                               f"the op-cost kernels")
-        sass = subprocess.run([tool, "-sass", str(cubins[0])],
-                              capture_output=True, text=True, check=True,
-                              timeout=120).stdout
-    loops = loop_instructions(sass)
+    from the built library's cubin that holds the op-cost kernels."""
+    loops = loop_instructions(cubin_listings("op_cost_kernel")[0])
     counts = {}
     for i, v in enumerate(VARIANTS):
         hits = [n for name, n in loops.items()

@@ -27,6 +27,7 @@ from ..chain.genkernel import packed_workload_cuda, ref_words_from_packs
 from ..chain.workload import packed_workload
 from ..config import ChannelIn, DecoderConfig
 from ..decoder.api import ViterbiGPU
+from ..decoder.core_torch import auto_dec_len
 from ..hardware import resolve_device
 from ..utils.bits import _popcount32
 
@@ -69,6 +70,16 @@ def count_errors(out: torch.Tensor, ref32: torch.Tensor, bits_per_pack: int,
     return _popcount32(v[0::2] ^ hi).sum() + _popcount32(v[1::2] ^ lo).sum()
 
 
+def resolve_dec_len(dec_len, message_len: int, bits_per_pack: int):
+    """The simulation's dec_len: 'auto' sized as the JAX package sizes it,
+    from the one-device shard's stage count (message_len rounded up to 32,
+    sharding/simulate.py:101-104, blocks.py:31-47), not from the decoded
+    length that ViterbiGPU's own 'auto' reads; any other value as given."""
+    if dec_len != "auto":
+        return dec_len
+    return auto_dec_len(-(-message_len // 32) * 32, bits_per_pack)
+
+
 def build_sharded_simulation(cfg: DecoderConfig, message_len: int,
                              snr_db: float = 5.5, scale: float = None,
                              dec_len=2048, generator: str = "auto",
@@ -84,7 +95,7 @@ def build_sharded_simulation(cfg: DecoderConfig, message_len: int,
     the element chain; 'auto' = 'cuda' on a GPU, 'torch' on the CPU.  The
     two draw different (equally Gaussian) noise, so their counts differ
     under noise and agree in distribution.  dec_len, survivor and backend
-    are ViterbiGPU's."""
+    are ViterbiGPU's; dec_len 'auto' is resolved by resolve_dec_len."""
     device = resolve_device(device)
     input_num = 2 * message_len
     m = cfg.get_message_len(input_num)
@@ -98,7 +109,9 @@ def build_sharded_simulation(cfg: DecoderConfig, message_len: int,
     if scale is None:
         scale = DEFAULT_SCALES[cfg.channel_in]
     # sized now, so the kernels are built before the first call
-    dec = ViterbiGPU(cfg, input_num=input_num, dec_len=dec_len,
+    dec = ViterbiGPU(cfg, input_num=input_num,
+                     dec_len=resolve_dec_len(dec_len, message_len,
+                                             cfg.bits_per_pack),
                      backend=backend, survivor=survivor, device=device)
     m32 = -(-m // 32) * 32
 
