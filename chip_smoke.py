@@ -1,8 +1,9 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: builds kernels K1-K6
 (decode and staging), K7, K8 (workload generator), K9 (the hardware
-model's shared-memory probe), K11 (the op-cost probe) and K12-K15 (K1's
-design probes: layout, ablation, ACS variants, ILP) from the checkout
-into one library (one nvcc per source, started together, one link), holds
+model's shared-memory probe), K11 (the op-cost probe), K12-K15 (K1's
+design probes: layout, ablation, ACS variants, ILP) and K16-K19 (the
+ACS-arithmetic probes: constructs, dtype rates, int16x2 SWAR, 16-bit ACS)
+from the checkout into one library (one nvcc per source, started together, one link), holds
 each against its plain PyTorch version, drives the hardware model (the
 probe of `python -m tpu_viterbi_torch.hardware`, K3's shared-memory gate,
 the canary K10 through K4 and the op-cost probe), the simulation chain, the
@@ -64,8 +65,8 @@ from tpu_viterbi_torch.decoder.core_torch import (  # noqa: E402
     decode_planes_torch, decode_staged_torch, needs_int32_renorm,
     plan_blocks, stage_transpose, traceback_shape, words_per_block)
 from tpu_viterbi_torch.scripts import (  # noqa: E402
-    acs_variants_bench, ilp_probe, kernel_ablation, layout_probe,
-    op_cost_probe)
+    acs_variants_bench, dtype_throughput, ilp_probe, kernel_ablation,
+    kernel_microbench, layout_probe, op_cost_probe, opt_bench, swar_probe)
 from tpu_viterbi_torch.sharding.simulate import (  # noqa: E402
     DEFAULT_SCALES, build_sharded_simulation)
 from tpu_viterbi_torch.utils import timing  # noqa: E402
@@ -84,8 +85,10 @@ K7, K8 = genkernel.K7, genkernel.K8
 K9, K11 = hardware.K9, op_cost_probe.K11
 K12, K13 = layout_probe.K12, kernel_ablation.K13
 K14, K15 = acs_variants_bench.K14, ilp_probe.K15
-KERNELS = core_cuda.KERNELS + genkernel.KERNELS + (K9, K11, K12, K13, K14,
-                                                   K15)
+K16, K17 = kernel_microbench.K16, dtype_throughput.K17
+K18, K19 = swar_probe.K18, opt_bench.K19
+KERNELS = core_cuda.KERNELS + genkernel.KERNELS + (
+    K9, K11, K12, K13, K14, K15, K16, K17, K18, K19)
 REPLACES = {"K1": "tpu_viterbi/decoder/core_pallas.py:638",
             "K2": "tpu_viterbi/decoder/core_pallas.py:683",
             "K3": "tpu_viterbi/decoder/core_pallas.py:440",
@@ -100,7 +103,11 @@ REPLACES = {"K1": "tpu_viterbi/decoder/core_pallas.py:638",
             "K12": "scripts/layout_probe.py:216",
             "K13": "scripts/kernel_ablation.py:162",
             "K14": "scripts/acs_variants_bench.py:132",
-            "K15": "scripts/ilp_probe.py:48"}
+            "K15": "scripts/ilp_probe.py:48",
+            "K16": "scripts/kernel_microbench.py:85",
+            "K17": "scripts/dtype_throughput.py:50",
+            "K18": "scripts/swar_probe.py:168",
+            "K19": "scripts/opt_bench.py:73"}
 CLI_SCALE = 40000.0                 # the CLI's channel scale (main.cpp:137)
 
 # Bounds: the least time the card could take for a kernel's work, the
@@ -1134,7 +1141,7 @@ def canary_phase(card: str, runs: dict):
     return k_ms, p_ms, err, bnd
 
 
-PROBE_CHECK_STAGES = 64             # K12's and K14's checks (2 packs of K14)
+PROBE_CHECK_STAGES = 64             # K12, K14, K16, K18, K19's checks
 ABLATION_CHECK_PACKS = 8
 ILP_CHECK_STEPS = 256
 LT_BYTES = 128 * 4                  # a 128-lane int32 row
@@ -1157,6 +1164,29 @@ def probe_path(probe):
 
 def share(bnd, ms: float) -> str:
     return f"bound {bnd[0]:.4f} ms by {bnd[1]} ({bnd[0] / ms:.0%} of it)"
+
+
+def probe_results(tag: str, card: str, runs: dict, mod, name: str,
+                  what: str, bound_of):
+    """A stage-loop probe's path: its ``probe()`` through ``probe_path``
+    with kernel ``name``'s launches recorded, each result's bound
+    (``bound_of(result)``) and one line each.  Returns the results."""
+    results, counts = probe_path(mod.probe)
+    record(runs, counts, 1, [name], what)
+    for r in results:
+        r["bound"] = bound_of(r)
+        say(tag, f"{card}: {mod.describe(r)}; {share(r['bound'], r['ms'])}")
+    return results
+
+
+def held_to_plain(what: str, got, plain) -> float:
+    """The ms of one CUDA-event run of ``plain``; raises unless its result
+    equals ``got``."""
+    torch.cuda.synchronize()
+    p_ms, _, want = cuda_ms(plain, 1)
+    if not torch.equal(got, want):
+        raise AssertionError(f"{what} differs from its plain version")
+    return p_ms
 
 
 def layout_phase(card: str, runs: dict):
@@ -1277,36 +1307,22 @@ def acs_variants_phase(card: str, runs: dict):
     rs = av.probe_input(PROBE_CHECK_STAGES // av.BPP, width, "cuda",
                         seed=SEED)
     for v in av.VARIANTS:
-        got = K14(v, rs)
-        torch.cuda.synchronize()
-        if not torch.equal(got, av.acs_variants_torch(v, rs)):
-            raise AssertionError(f"K14 {v} differs from its plain version")
+        held_to_plain(f"K14 {v}", K14(v, rs),
+                      lambda: av.acs_variants_torch(v, rs))
     say("20 acs variants", f"K14 bit-equal to its plain version on all "
         f"{len(av.VARIANTS)} variants, {width} arrays, "
         f"{PROBE_CHECK_STAGES} stages")
-    results, counts = probe_path(av.probe)
-    record(runs, counts, 1, ["K14"], "ACS variants probe")
     stages = av.N_PACKS * av.BPP
-    by = {}
-    for r in results:
-        v = r["variant"]
-        rows = 1 if v == "bit_tb" else 2
-        bnd = bound((stages * rows + 64) * width * 4,
-                    av.OPS[v] * width * stages)
-        r["bound"] = bnd
-        by[v] = r
-        say("20 acs variants", f"{card}: {v} at {width} arrays x {stages} "
-            f"stages: {r['ms']:.4f} ms = {r['ns_per_stage_tile']:.4f} "
-            f"ns/stage/tile; SASS {r['sass_per_stage']:g} a stage; "
-            f"registers {r['regs']}, stack {r['stack']} B; "
-            f"{share(bnd, r['ms'])}")
+    results = probe_results(
+        "20 acs variants", card, runs, av, "K14", "ACS variants probe",
+        lambda r: bound(((stages if r["variant"] == "bit_tb" else 2 * stages)
+                         + 64) * width * 4,
+                        av.OPS[r["variant"]] * width * stages))
     full = av.probe_input(av.N_PACKS, width, "cuda", seed=SEED)
-    got = K14("eo", full)
-    p_ms, _, want = cuda_ms(lambda: av.acs_variants_torch("eo", full), 1)
-    if not torch.equal(got, want):
-        raise AssertionError("K14 eo differs from its plain version at the "
-                             "JAX shape")
-    return by["eo"]["ms"], p_ms, 0, by["eo"]["bound"]
+    p_ms = held_to_plain("K14 eo at the JAX shape", K14("eo", full),
+                         lambda: av.acs_variants_torch("eo", full))
+    eo = next(r for r in results if r["variant"] == "eo")
+    return eo["ms"], p_ms, 0, eo["bound"]
 
 
 def ilp_phase(card: str, runs: dict):
@@ -1354,6 +1370,154 @@ def ilp_phase(card: str, runs: dict):
     return k_ms, p_ms, 0, bnd
 
 
+DTYPE_CHECK_STEPS = 256
+
+
+def microbench_phase(card: str, runs: dict):
+    """K16: every variant bit-equal to its plain version over the full
+    N_PACKS x 32 stages at both array counts (2048 and 15,872), then
+    `python -m tpu_viterbi_torch.scripts.kernel_microbench` with the counts
+    set to 0, and each variant's bound (kernel_microbench.OPS: one state's
+    work a stage, the 64 states being equal).  Returns K16's row: concat
+    (its 32 distinct children computed, not folded) at the JAX shape
+    beside its plain version there."""
+    km = kernel_microbench
+    stages = km.N_PACKS * km.BPP
+    plain_ms = {}
+    for tiles in (km.N_TILES, km.HEADLINE_TILES):
+        rs = km.probe_input(km.N_PACKS, tiles * 128, "cuda", seed=SEED)
+        for v in km.VARIANTS:
+            plain_ms[v, tiles] = held_to_plain(
+                f"K16 {v} at {tiles} tiles", K16(v, rs),
+                lambda: km.microbench_torch(v, rs))
+        del rs
+    say("22 microbench", f"K16 bit-equal to its plain version on all "
+        f"{len(km.VARIANTS)} variants at {km.N_TILES * 128} and "
+        f"{km.HEADLINE_TILES * 128} arrays, {stages} stages")
+    results = probe_results(
+        "22 microbench", card, runs, km, "K16", "construct microbenchmark",
+        lambda r: bound((stages * 2 + 64) * r["arrays"] * 4,
+                        km.OPS[r["variant"]] * r["arrays"] * stages))
+    row = next(r for r in results if r["variant"] == "concat" and
+               r["arrays"] == km.N_TILES * 128)
+    return row["ms"], plain_ms["concat", km.N_TILES], 0, row["bound"]
+
+
+def dtype_phase(card: str, runs: dict):
+    """K17: every dtype at both occupancies equal to its plain version at
+    each element's tile position, after DTYPE_CHECK_STEPS steps on the
+    probe's tile and after 3 steps on values near +-16,000 (the narrow
+    types wrap), then `python -m tpu_viterbi_torch.scripts.dtype_throughput`
+    with the counts set to 0, and each run's bound over its slope (packed
+    lane-instructions: two 16-bit or four 8-bit elements each).  Returns
+    K17's row: int16 at the SM's 2048 threads and DTYPE_CHECK_STEPS steps,
+    beside the plain version there (as K15's row)."""
+    dt = dtype_throughput
+    x = dt.probe_input("cuda")
+    g = torch.Generator().manual_seed(SEED)
+    wide = torch.randint(-16000, 16001, (32, 128), generator=g,
+                         dtype=torch.int32).cuda()
+    for xx, steps in ((x, DTYPE_CHECK_STEPS), (wide, 3)):
+        for d in dt.DTYPES:
+            plain = dt.dtype_torch(d, xx, steps).reshape(-1)
+            for occupancy in dt.OCCUPANCIES:
+                blocks, threads = dt.grid(d, occupancy)
+                got = K17(d, xx, steps, blocks, threads)
+                torch.cuda.synchronize()
+                idx = torch.arange(got.numel(), device="cuda") % dt.TILE
+                if not torch.equal(got, plain[idx]):
+                    raise AssertionError(f"K17 {d} {occupancy} differs from "
+                                         f"its plain version ({steps} "
+                                         f"steps)")
+    say("23 dtype", f"K17 bit-equal to its plain version on all "
+        f"{len(dt.DTYPES)} dtypes at both occupancies, {DTYPE_CHECK_STEPS} "
+        f"steps on 0..6 and 3 steps on +-16,000")
+    results, counts = probe_path(dt.probe)
+    record(runs, counts, 1, ["K17"], "dtype throughput probe")
+    for r in results:
+        lanes = r["blocks"] * r["threads"]
+        slope = r["ms_hi"] - r["ms_lo"]
+        bnd = bound(0, lanes * (dt.STEPS_HI - dt.STEPS_LO) * dt.UNROLL *
+                    dt.OPS_A_PAIR)
+        say("23 dtype", f"{card}: {r['dtype']} {r['occupancy']} "
+            f"({r['blocks']} x {r['threads']} x {r['pack']}): slope "
+            f"{slope:.4f} ms; {r['element_ops_per_ns']:.1f} element-ops/ns, "
+            f"{r['sass_per_clock_per_sm']:.2f} SASS lane-instructions a "
+            f"clock per SM ({r['sass_loop']} a step); {share(bnd, slope)}")
+    blocks, threads = dt.grid("int16", "full")
+    steps = DTYPE_CHECK_STEPS
+    k_ms, _, _ = cuda_ms(lambda: K17("int16", x, steps, blocks, threads), 5)
+    p_ms, _, _ = cuda_ms(lambda: dt.dtype_torch("int16", x, steps), 1)
+    lanes = blocks * threads
+    bnd = bound(x.numel() * 4 + lanes * dt.PACK["int16"] * 4,
+                lanes * steps * dt.UNROLL * dt.OPS_A_PAIR)
+    say("23 dtype", f"{card}: int16, full, {steps} steps: median "
+        f"{k_ms:.4f} ms, plain {p_ms:.1f} ms; {share(bnd, k_ms)}")
+    return k_ms, p_ms, 0, bnd
+
+
+def swar_phase(card: str, runs: dict):
+    """K18: every variant bit-equal to its plain version at
+    PROBE_CHECK_STAGES on every program of both grids (2048 and 15,872
+    arrays), then `python -m tpu_viterbi_torch.scripts.swar_probe` with
+    the counts set to 0, and each variant's bound.  Returns K18's row:
+    swar/stage at the JAX shape beside its plain version there."""
+    sp = swar_probe
+    for programs in (sp.GRID, sp.HEADLINE_TILES):
+        for v in sp.VARIANTS:
+            x = sp.probe_input(v, programs, "cuda", seed=SEED)
+            held_to_plain(f"K18 {v} at {programs} programs",
+                          K18(v, x, PROBE_CHECK_STAGES),
+                          lambda: sp.swar_torch(v, x, PROBE_CHECK_STAGES))
+    say("24 swar", f"K18 bit-equal to its plain version on all "
+        f"{len(sp.VARIANTS)} variants, every program of {sp.GRID} and "
+        f"{sp.HEADLINE_TILES} programs, {PROBE_CHECK_STAGES} stages")
+    results = probe_results(
+        "24 swar", card, runs, sp, "K18", "SWAR probe",
+        lambda r: bound(r["programs"] * (sp.ROWS_IN[r["variant"]] + 64) *
+                        LT_BYTES,
+                        sp.OPS[r["variant"]] * r["arrays"] * sp.STAGES))
+    x = sp.probe_input("swar/stage", sp.GRID, "cuda", seed=SEED)
+    p_ms = held_to_plain("K18 swar/stage at the JAX shape",
+                         K18("swar/stage", x, sp.STAGES),
+                         lambda: sp.swar_torch("swar/stage", x, sp.STAGES))
+    row = next(r for r in results
+               if r["variant"] == "swar/stage" and r["programs"] == sp.GRID)
+    return row["ms"], p_ms, 0, row["bound"]
+
+
+def opt_bench_phase(card: str, runs: dict):
+    """K19: every variant at every lt bit-equal to its plain version at two
+    packs over both array counts (4096 and 15,872), then `python -m
+    tpu_viterbi_torch.scripts.opt_bench` with the counts set to 0, and
+    each run's bound.  Returns K19's row: i16 at lt 128 at the JAX shape
+    beside its plain version there."""
+    ob = opt_bench
+    for width in (ob.LANES, ob.HEADLINE_ARRAYS):
+        rs = ob.probe_input(PROBE_CHECK_STAGES // ob.BPP, width, "cuda",
+                            seed=SEED)
+        for v in ob.VARIANTS:
+            want = ob.opt_bench_torch(v, rs)
+            for lt in ob.LTS:
+                if not torch.equal(K19(v, rs, lt), want):
+                    raise AssertionError(f"K19 {v} lt {lt} differs from its "
+                                         f"plain version at {width} arrays")
+    say("25 opt bench", f"K19 bit-equal to its plain version on all "
+        f"{len(ob.VARIANTS)} variants x lt {ob.LTS} at {ob.LANES} and "
+        f"{ob.HEADLINE_ARRAYS} arrays, {PROBE_CHECK_STAGES} stages")
+    stages = ob.N_PACKS * ob.BPP
+    results = probe_results(
+        "25 opt bench", card, runs, ob, "K19", "16-bit ACS probe",
+        lambda r: bound((stages * 2 + 64) * r["arrays"] * 4,
+                        ob.OPS[r["variant"]] * r["arrays"] * stages))
+    full = ob.probe_input(ob.N_PACKS, ob.LANES, "cuda", seed=SEED)
+    p_ms = held_to_plain("K19 i16 at the JAX shape", K19("i16", full, 128),
+                         lambda: ob.opt_bench_torch("i16", full))
+    row = next(r for r in results if r["variant"] == "i16" and
+               r["lt"] == 128 and r["arrays"] == ob.LANES)
+    return row["ms"], p_ms, 0, row["bound"]
+
+
 def main() -> int:
     card = device_phase()
     build_phase()
@@ -1391,12 +1555,16 @@ def main() -> int:
     times["K13"] = ablation_phase(card, runs, times["K10"][0])
     times["K14"] = acs_variants_phase(card, runs)
     times["K15"] = ilp_phase(card, runs)
+    times["K16"] = microbench_phase(card, runs)
+    times["K17"] = dtype_phase(card, runs)
+    times["K18"] = swar_phase(card, runs)
+    times["K19"] = opt_bench_phase(card, runs)
     # launches a call, measured in the main-path runs: where the design
     # fixes it, it must be so (one a decode or a generation; the op-cost
-    # and ILP probes' two step counts, the layout probe's two grids, of one
-    # warm-up and REPS timed launches a variant; time_in_graph's one
-    # untimed and CANARY_REPS timed); K9's is the search's, which depends
-    # on the card
+    # ILP and dtype probes' two step counts, the layout, microbenchmark,
+    # SWAR and 16-bit ACS probes' two array counts, of one warm-up and REPS
+    # timed launches a variant; time_in_graph's one untimed and CANARY_REPS
+    # timed); K9's is the search's, which depends on the card
     want = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8"), 1)
     want["K10"] = CANARY_REPS + 1
     want["K11"] = 2 * len(op_cost_probe.VARIANTS) * (op_cost_probe.REPS + 1)
@@ -1406,6 +1574,13 @@ def main() -> int:
         acs_variants_bench.REPS + 1)
     want["K15"] = 2 * len(ilp_probe.OCCUPANCIES) * len(ilp_probe.CHAINS) * \
         (ilp_probe.REPS + 1)
+    want["K16"] = 2 * len(kernel_microbench.VARIANTS) * (
+        kernel_microbench.REPS + 1)
+    want["K17"] = 2 * len(dtype_throughput.OCCUPANCIES) * len(
+        dtype_throughput.DTYPES) * (dtype_throughput.REPS + 1)
+    want["K18"] = 2 * len(swar_probe.VARIANTS) * (swar_probe.REPS + 1)
+    want["K19"] = 2 * len(opt_bench.LTS) * len(opt_bench.VARIANTS) * (
+        opt_bench.REPS + 1)
     rows = [(k.name, str(k.source.relative_to(ROOT))) for k in KERNELS]
     rows.insert([name for name, _ in rows].index("K11"),
                 ("K10", str(K4.source.relative_to(ROOT))))

@@ -5,7 +5,9 @@ ViterbiGPU's CUDA path (run, run_stream, streaming); the generator
 kernels K7 and K8 against theirs, and the in-graph simulation on the card;
 the hardware model (K9's probe, K3's shared-memory gate), the op-cost
 kernels K11 and the canary K10; the probes' kernels K12-K15 (layout,
-ablation, ACS variants, ILP) against their plain versions.
+ablation, ACS variants, ILP) and K16-K19 (constructs, dtype rates, int16x2
+SWAR, 16-bit ACS) against their plain versions, and the probes' entry
+points.
 Every test here needs a CUDA GPU and skips without one; the
 file imports no jax, so it runs on a machine that has only the port's
 dependencies:
@@ -25,9 +27,10 @@ from tpu_viterbi_torch.chain.quantize import unpack_to_soft
 from tpu_viterbi_torch.config import ChannelIn, DecodeOut, DecoderConfig
 from tpu_viterbi_torch.decoder import core_cuda, core_torch
 from tpu_viterbi_torch.decoder.streaming import StreamingViterbi
-from tpu_viterbi_torch.scripts import (acs_variants_bench, ilp_probe,
-                                       kernel_ablation, layout_probe,
-                                       op_cost_probe)
+from tpu_viterbi_torch.scripts import (acs_variants_bench, dtype_throughput,
+                                       ilp_probe, kernel_ablation,
+                                       kernel_microbench, layout_probe,
+                                       op_cost_probe, opt_bench, swar_probe)
 from tpu_viterbi_torch.sharding import simulate
 from tpu_viterbi_torch.utils import timing
 
@@ -585,13 +588,114 @@ def test_k15_matches_plain(gpu, chains, occupancy):
 
 
 def test_probe_sass_readings(gpu):
-    """Every variant of K12-K15 has a stage (step) loop in the library's
-    SASS, and a register count."""
+    """Every kernel of K12-K19 has a stage (step) loop in the library's
+    SASS, a register count and an opcode mix that sums to the loop."""
     for mod, keys in ((layout_probe, layout_probe.VARIANTS),
                       (kernel_ablation, kernel_ablation.VARIANTS),
                       (acs_variants_bench, acs_variants_bench.VARIANTS),
-                      (ilp_probe, ilp_probe.CHAINS)):
+                      (ilp_probe, ilp_probe.CHAINS),
+                      (kernel_microbench, kernel_microbench.VARIANTS),
+                      (dtype_throughput, dtype_throughput.DTYPES),
+                      (swar_probe, swar_probe.VARIANTS),
+                      (opt_bench, [(v, lt) for v in opt_bench.VARIANTS
+                                   for lt in opt_bench.LTS])):
         counts = mod.sass_counts()
         assert set(counts) == set(keys)
-        for loop, res in counts.values():
+        for loop, res, mix in counts.values():
             assert loop > 0 and 0 < res["REG"] <= 255
+            assert sum(mix.values()) == loop
+
+
+# --- the ACS-arithmetic probes' kernels K16-K19 ---
+
+@pytest.mark.parametrize("width", [kernel_microbench.N_TILES * 128,
+                                   kernel_microbench.HEADLINE_TILES * 128])
+@pytest.mark.parametrize("variant", kernel_microbench.VARIANTS)
+def test_k16_matches_plain(gpu, variant, width):
+    """Two packs at the JAX width (2048 arrays) and at 15,872: equal to the
+    plain version; one launch; a refused shape raises before any
+    launch."""
+    rs = kernel_microbench.probe_input(2, width, gpu, seed=6)
+    K16 = kernel_microbench.K16
+    before = K16.launches
+    got = K16(variant, rs)
+    torch.cuda.synchronize()
+    assert K16.launches == before + 1
+    assert torch.equal(got, kernel_microbench.microbench_torch(variant, rs))
+    with pytest.raises(ValueError):
+        K16(variant, rs[:, :16].contiguous())
+    assert K16.launches == before + 1
+
+
+@pytest.mark.parametrize("occupancy", dtype_throughput.OCCUPANCIES)
+@pytest.mark.parametrize("dtype", dtype_throughput.DTYPES)
+def test_k17_matches_plain(gpu, dtype, occupancy):
+    """Each occupancy's grid (the JAX tile, the SM's 2048 threads) at 20
+    steps on the probe's tile and at 3 steps on values near +-16,000:
+    every element equals the plain value at its tile position; one launch
+    each; a refused grid raises before any launch."""
+    dt = dtype_throughput
+    wide = torch.from_numpy(np.random.default_rng(7).integers(
+        -16000, 16001, (32, 128)).astype(np.int32)).to(gpu)
+    blocks, threads = dt.grid(dtype, occupancy)
+    K17 = dt.K17
+    before = K17.launches
+    for x, steps in ((dt.probe_input(gpu), 20), (wide, 3)):
+        got = K17(dtype, x, steps, blocks, threads)
+        torch.cuda.synchronize()
+        flat = dt.dtype_torch(dtype, x, steps).reshape(-1)
+        idx = torch.arange(got.numel(), device=gpu) % flat.numel()
+        assert torch.equal(got, flat[idx])
+    assert K17.launches == before + 2
+    with pytest.raises(ValueError):
+        K17(dtype, wide, 3, blocks, 48)
+    assert K17.launches == before + 2
+
+
+@pytest.mark.parametrize("programs", [swar_probe.GRID,
+                                      swar_probe.HEADLINE_TILES])
+@pytest.mark.parametrize("variant", swar_probe.VARIANTS)
+def test_k18_matches_plain(gpu, variant, programs):
+    """64 stages on every program of the JAX grid (2048 arrays) and of
+    15,872 arrays: equal to the plain version; one launch; a refused
+    stage count raises before any launch."""
+    x = swar_probe.probe_input(variant, programs, gpu, seed=8)
+    K18 = swar_probe.K18
+    before = K18.launches
+    got = K18(variant, x, 64)
+    torch.cuda.synchronize()
+    assert K18.launches == before + 1
+    assert torch.equal(got, swar_probe.swar_torch(variant, x, 64))
+    with pytest.raises(ValueError):
+        K18(variant, x, 62)
+    assert K18.launches == before + 1
+
+
+@pytest.mark.parametrize("width", [opt_bench.LANES,
+                                   opt_bench.HEADLINE_ARRAYS, 300])
+@pytest.mark.parametrize("variant", opt_bench.VARIANTS)
+def test_k19_matches_plain(gpu, variant, width):
+    """Two packs at the JAX width (4096 arrays), at 15,872 and at 300 (a
+    ragged block), at every lt: equal to the plain version; one launch
+    each; a refused lt raises before any launch."""
+    rs = opt_bench.probe_input(2, width, gpu, seed=9)
+    want = opt_bench.opt_bench_torch(variant, rs)
+    K19 = opt_bench.K19
+    before = K19.launches
+    for lt in opt_bench.LTS:
+        got = K19(variant, rs, lt)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert K19.launches == before + len(opt_bench.LTS)
+    with pytest.raises(ValueError):
+        K19(variant, rs, 64)
+    assert K19.launches == before + len(opt_bench.LTS)
+
+
+@pytest.mark.parametrize("mod", [kernel_microbench, dtype_throughput,
+                                 swar_probe, opt_bench],
+                         ids=lambda m: m.__name__.rsplit(".", 1)[1])
+def test_acs_probe_entry_points(gpu, mod):
+    """`python -m tpu_viterbi_torch.scripts.<probe>`'s main() runs every
+    variant on the card and returns 0."""
+    assert mod.main([]) == 0

@@ -239,6 +239,10 @@ def test_port_imports_no_jax():
             "import tpu_viterbi_torch.scripts.kernel_ablation\n"
             "import tpu_viterbi_torch.scripts.acs_variants_bench\n"
             "import tpu_viterbi_torch.scripts.ilp_probe\n"
+            "import tpu_viterbi_torch.scripts.kernel_microbench\n"
+            "import tpu_viterbi_torch.scripts.dtype_throughput\n"
+            "import tpu_viterbi_torch.scripts.swar_probe\n"
+            "import tpu_viterbi_torch.scripts.opt_bench\n"
             "bad = [m for m in sys.modules\n"
             "       if m == 'jax' or m.startswith(('jax.', 'tpu_viterbi.'))\n"
             "       or m == 'tpu_viterbi']\n"

@@ -25,33 +25,34 @@ from __future__ import annotations
 import ctypes
 import sys
 
-import numpy as np
 import torch
 
 from .. import hardware
-from .common import (LT, ProbeKernel, cubin_listings, pick,
-                     stage_loop_instructions, timed)
+from .common import (BPP, LT, ProbeKernel, check_names, check_stage_pairs,
+                     describe_stages, sass_table,
+                     stage_pairs_input as probe_input, time_stages)
 from .layout_probe import _interleave
 
 N_PACKS = 66
-BPP = 32
 N_TILES = 16
 REPS = 5
 VARIANTS = ("full", "pp_noshuf", "eo", "decbits", "bit_tb")
 LOOP_STAGES = dict(full=2, pp_noshuf=2, eo=2, decbits=2, bit_tb=1)
-# lane-operations an array-stage, for the bound: the forward variants' 2
-# adds, max and select a state (chip_smoke.ACS_OPS); the chase's shift, and,
-# two shift-ors and the sum's add
-OPS = dict(full=256, pp_noshuf=256, eo=256, decbits=256, bit_tb=5)
+# lane-operations an array-stage, for the bound: the work the function
+# needs.  All 64 states start at zero and see the stage's one bm, so the
+# path metrics stay equal (common.stage_pairs_input): bm's add, the 2
+# candidates and the max (4) once a stage, and eo's and decbits' odd
+# decision (1); then an update a distinct survivor row: full's select and
+# pp_noshuf's shift keep one row, decbits' shift-or two ([dec_e; dec_o]),
+# eo's select 64 (each holds the decisions along its own path; rows merge
+# only where a recent bm is 0).  The chase: its shift, and, two shift-ors
+# and the sum's add.
+OPS = dict(full=5, pp_noshuf=5, eo=69, decbits=7, bit_tb=5)
 
 
 def _check(variant: str, rs: torch.Tensor) -> None:
-    if variant not in VARIANTS:
-        raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS}")
-    if rs.dim() != 4 or rs.shape[1:3] != (BPP, 2) or rs.shape[0] == 0 or \
-            rs.shape[3] == 0 or rs.dtype != torch.int32:
-        raise ValueError(f"K14 takes (n_packs, {BPP}, 2, width) int32, got "
-                         f"{rs.dtype} {tuple(rs.shape)}")
+    check_names((variant,), VARIANTS)
+    check_stage_pairs("K14", rs)
 
 
 def acs_variants_torch(variant: str, rs: torch.Tensor) -> torch.Tensor:
@@ -126,52 +127,29 @@ class AcsVariantsKernel(ProbeKernel):
 K14 = AcsVariantsKernel()
 
 
-def probe_input(n_packs: int, width: int, device,
-                seed: int = 0) -> torch.Tensor:
-    """(n_packs, 32, 2, width) int32 values -100..100 from numpy's generator
-    (the JAX probe's randint range, :154-155)."""
-    x = np.random.default_rng(seed).integers(-100, 101,
-                                             (n_packs, BPP, 2, width))
-    return torch.from_numpy(x.astype(np.int32)).to(device)
-
-
 def sass_counts() -> dict:
-    """{variant: (SASS instructions of its stage loop, {REG, STACK, ...})}
-    read from the built library."""
-    sass, res = cubin_listings("viterbi_acs_variants")
-    loops = stage_loop_instructions(sass)
-    return {v: (pick(loops, "acs_kernel", f"ILi{i}E"),
-                pick(res, "acs_kernel", f"ILi{i}E"))
-            for i, v in enumerate(VARIANTS)}
+    """{variant: (SASS instructions of its stage loop, {REG, STACK, ...},
+    the loop's opcode mix)} read from the built library."""
+    return sass_table("viterbi_acs_variants",
+                      {v: ("acs_kernel", f"ILi{i}E")
+                       for i, v in enumerate(VARIANTS)})
 
 
 def run(variant: str, rs: torch.Tensor, sass: tuple) -> dict:
     """Time one variant on rs."""
-    ms, all_ms, _ = timed(lambda: K14(variant, rs), REPS)
-    loop, res = sass
-    tiles = rs.shape[3] / LT
-    return dict(variant=variant, ms=ms, all_ms=all_ms,
-                ns_per_stage_tile=ms * 1e6 / (rs.shape[0] * BPP * tiles),
-                sass_loop=loop, sass_per_stage=loop / LOOP_STAGES[variant],
-                regs=res.get("REG"), stack=res.get("STACK"),
-                local=res.get("LOCAL"))
+    return time_stages(lambda: K14(variant, rs), REPS, rs.shape[0] * BPP,
+                       rs.shape[3], sass, LOOP_STAGES[variant],
+                       variant=variant)
 
 
 def describe(r: dict) -> str:
-    return (f"{r['variant']:9s}: median {r['ms']:.4f} ms of "
-            f"{[round(t, 4) for t in r['all_ms']]} = "
-            f"{r['ns_per_stage_tile']:.4f} ns/stage/tile; SASS "
-            f"{r['sass_per_stage']:g} a stage ({r['sass_loop']} in the stage "
-            f"loop); registers {r['regs']}, stack {r['stack']} B, local "
-            f"{r['local']} B")
+    return describe_stages(r, f"{r['variant']:9s} {r['arrays']:6d} arrays")
 
 
 def probe(names=VARIANTS) -> list:
     """Time each named variant on the current CUDA device and print one
     line each; returns their ``run`` results."""
-    for v in names:
-        if v not in VARIANTS:
-            raise ValueError(f"unknown variant {v!r}; one of {VARIANTS}")
+    check_names(names, VARIANTS)
     dev = hardware.resolve_device("cuda")
     rs = probe_input(N_PACKS, N_TILES * LT, dev)
     sass = sass_counts()

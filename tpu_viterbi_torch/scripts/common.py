@@ -1,7 +1,7 @@
-"""What the probes' kernels (K11-K15) share: the wrapper that binds a
+"""What the probes' kernels (K11-K19) share: the wrapper that binds a
 kernel's entry point and counts its launches, the timing of a launch, the
 ACS' branch signs, and what the SASS of the built library says of a kernel
-(its loops' instructions, its registers and stack frame).
+(its loops' instructions and opcodes, its registers and stack frame).
 """
 
 from __future__ import annotations
@@ -10,6 +10,7 @@ import ctypes
 import re
 import subprocess
 import tempfile
+from collections import Counter
 from pathlib import Path
 from typing import Callable, Dict, List, Tuple
 
@@ -21,6 +22,33 @@ from ..trellis import branch_sign_table
 from ..utils.timing import cuda_ms
 
 LT = 128    # arrays (lanes) of a TPU program: the probes' unit of arrays
+BPP = 32    # stages a pack of the stage-pair input
+
+
+def check_stage_pairs(name: str, rs: torch.Tensor) -> None:
+    """Raise unless rs is the stage-pair input of K14, K16 and K19:
+    (n_packs, 32, 2, width) int32, n_packs and width > 0; stage t = 32 p + s
+    of array c reads rs[p, s, :, c]."""
+    if rs.dim() != 4 or rs.shape[1:3] != (BPP, 2) or rs.shape[0] == 0 or \
+            rs.shape[3] == 0 or rs.dtype != torch.int32:
+        raise ValueError(f"{name} takes (n_packs, {BPP}, 2, width) int32, "
+                         f"got {rs.dtype} {tuple(rs.shape)}")
+
+
+def stage_pairs_input(n_packs: int, width: int, device,
+                      seed: int = 0) -> torch.Tensor:
+    """(n_packs, 32, 2, width) int32 values -100..100 from numpy's
+    generator (the JAX probes' randint range; drawn as int64 and cast, as
+    K14's inputs always were, so a seed keeps its values).
+
+    Every state of an array sees its stage's one bm = r0 + r1, and the
+    probes start every state at zero, so the 64 path metrics stay equal
+    at every stage: the work a stage needs is one state's metric update
+    plus one update a distinct survivor row.  The probes' OPS count
+    that."""
+    x = np.random.default_rng(seed).integers(-100, 101,
+                                             (n_packs, BPP, 2, width))
+    return torch.from_numpy(x.astype(np.int32)).to(device)
 
 
 class ProbeKernel:
@@ -76,6 +104,38 @@ def timed(fn: Callable, reps: int):
     return cuda_ms(fn, reps)
 
 
+def check_names(names, allowed, what: str = "variant") -> None:
+    """Raise on a name that is not one of ``allowed``."""
+    for n in names:
+        if n not in allowed:
+            raise ValueError(f"unknown {what} {n!r}; one of {allowed}")
+
+
+def time_stages(fn: Callable, reps: int, stages: int, arrays: int,
+                sass: tuple, loop_stages: int, **keys) -> dict:
+    """Time ``fn``, one launch of a stage-loop kernel over ``stages``
+    stages of ``arrays`` arrays, with ``timed``: ``keys`` plus its ms, ns
+    per stage per 128-array tile, and what ``sass`` (a ``sass_table``
+    entry) says of its stage loop of ``loop_stages`` stages."""
+    ms, all_ms, _ = timed(fn, reps)
+    loop, res, mix = sass
+    return dict(keys, arrays=arrays, ms=ms, all_ms=all_ms,
+                ns_per_stage_tile=ms * 1e6 * LT / (stages * arrays),
+                sass_loop=loop, sass_per_stage=loop / loop_stages, mix=mix,
+                regs=res.get("REG"), stack=res.get("STACK"),
+                local=res.get("LOCAL"))
+
+
+def describe_stages(r: dict, label: str) -> str:
+    """One line of a ``time_stages`` result, after ``label``."""
+    return (f"{label}: median {r['ms']:.4f} ms of "
+            f"{[round(t, 4) for t in r['all_ms']]} = "
+            f"{r['ns_per_stage_tile']:.4f} ns/stage/tile; SASS "
+            f"{r['sass_per_stage']:g} a stage ({r['sass_loop']} in the stage "
+            f"loop: {describe_mix(r['mix'])}); registers {r['regs']}, stack "
+            f"{r['stack']} B, local {r['local']} B")
+
+
 # --- what the SASS says ---
 
 _FUNCTION = re.compile(r"Function : (\S+)")
@@ -129,18 +189,48 @@ def loop_instructions(sass: str) -> Dict[str, int]:
             for name, s in loop_spans(sass).items()}
 
 
+def _stage_span(spans: List[Tuple[int, int, int]]) -> Tuple[int, int, int]:
+    """The stage loop of one kernel's loops: the longest innermost loop
+    (one that holds no other loop's branch), so a short traceback loop
+    beside the stage loop, or a pack loop around it, is not taken for
+    it."""
+    inner = [(t, a, n) for t, a, n in spans
+             if not any((t2, a2) != (t, a) and t <= t2 and a2 <= a
+                        for t2, a2, _ in spans)]
+    return max(inner, key=lambda span: span[2])
+
+
 def stage_loop_instructions(sass: str) -> Dict[str, int]:
-    """{mangled kernel name: SASS instructions of its stage loop}: the
-    longest innermost loop (one that holds no other loop's branch), so a
-    short traceback loop beside the stage loop, or a pack loop around it,
-    is not taken for it."""
-    counts = {}
-    for name, spans in loop_spans(sass).items():
-        inner = [n for t, a, n in spans
-                 if not any((t2, a2) != (t, a) and t <= t2 and a2 <= a
-                            for t2, a2, _ in spans)]
-        counts[name] = max(inner)
-    return counts
+    """{mangled kernel name: SASS instructions of its stage loop}
+    (``_stage_span``)."""
+    return {name: _stage_span(spans)[2]
+            for name, spans in loop_spans(sass).items()}
+
+
+def stage_loop_opcodes(sass: str) -> Dict[str, Dict[str, int]]:
+    """{mangled kernel name: {opcode with its modifiers, e.g.
+    "VIADD.16x2": count}} of the instructions of its stage loop, most
+    frequent first: what ptxas made of each construct."""
+    spans = loop_spans(sass)
+    pieces = _FUNCTION.split(sass)
+    mixes = {}
+    for name, body in zip(pieces[1::2], pieces[2::2]):
+        if name not in spans:
+            continue
+        first, last, _ = _stage_span(spans[name])
+        counts = Counter()
+        for m in _INSTR.finditer(body):
+            if first <= int(m.group(1), 16) <= last:
+                words = m.group(2).split()
+                counts[words[1] if words[0].startswith("@") else
+                       words[0]] += 1
+        mixes[name] = dict(counts.most_common())
+    return mixes
+
+
+def describe_mix(mix: Dict[str, int], top: int = 8) -> str:
+    """'VIADD.16x2 64, PRMT 96, ...': the ``top`` most frequent opcodes."""
+    return ", ".join(f"{op} {n}" for op, n in list(mix.items())[:top])
 
 
 def resource_usage(text: str) -> Dict[str, Dict[str, int]]:
@@ -178,6 +268,16 @@ def cubin_listings(marker: str) -> Tuple[str, Dict[str, Dict[str, int]]]:
                                     check=True, timeout=120).stdout
                      for flag in ("-sass", "-res-usage")]
     return sass, resource_usage(res)
+
+
+def sass_table(marker: str, parts: Dict[object, Tuple[str, ...]]) -> dict:
+    """{key: (SASS instructions of its stage loop, {REG, STACK, ...}, its
+    stage loop's opcode mix)} of the kernels of the cubin that holds
+    ``marker``, each the one kernel whose name holds all of parts[key]."""
+    sass, res = cubin_listings(marker)
+    loops, mixes = stage_loop_instructions(sass), stage_loop_opcodes(sass)
+    return {key: (pick(loops, *p), pick(res, *p), pick(mixes, *p))
+            for key, p in parts.items()}
 
 
 def pick(table: Dict[str, object], *parts: str):

@@ -26,8 +26,7 @@ import numpy as np
 import torch
 
 from .. import hardware
-from .common import (ProbeKernel, cubin_listings, pick,
-                     stage_loop_instructions, timed)
+from .common import ProbeKernel, sass_table, timed
 from .op_cost_probe import grid_tiles, TILE_BLOCKS, THREADS as FULL_THREADS
 
 ROWS, COLS = 32, 128
@@ -124,12 +123,10 @@ def probe_input(device) -> torch.Tensor:
 
 
 def sass_counts() -> dict:
-    """{chains: (SASS instructions of the step loop, {REG, STACK, ...})}
-    read from the built library."""
-    sass, res = cubin_listings("viterbi_ilp")
-    loops = stage_loop_instructions(sass)
-    return {n: (pick(loops, "ilp_kernel", f"ILi{n}E"),
-                pick(res, "ilp_kernel", f"ILi{n}E")) for n in CHAINS}
+    """{chains: (SASS instructions of the step loop, {REG, STACK, ...}, the
+    loop's opcode mix)} read from the built library."""
+    return sass_table("viterbi_ilp", {n: ("ilp_kernel", f"ILi{n}E")
+                                      for n in CHAINS})
 
 
 def run(chains: int, occupancy: str, x: torch.Tensor, clock_hz: float,
@@ -145,7 +142,7 @@ def run(chains: int, occupancy: str, x: torch.Tensor, clock_hz: float,
     dt_ns = (ms[STEPS_HI] - ms[STEPS_LO]) * 1e6
     lanes = blocks * threads
     pairs = (STEPS_HI - STEPS_LO) * UNROLL * chains
-    loop, res = sass
+    loop, res, _ = sass
     per_clock = lanes * (STEPS_HI - STEPS_LO) * loop / dt_ns / \
         (sms * clock_hz * 1e-9)
     return dict(chains=chains, occupancy=occupancy, blocks=blocks,

@@ -30,8 +30,7 @@ import numpy as np
 import torch
 
 from .. import hardware
-from .common import (LT, ProbeKernel, branch_signs, cubin_listings, pick,
-                     stage_loop_instructions, timed)
+from .common import LT, ProbeKernel, branch_signs, sass_table, timed
 from .layout_probe import _interleave
 
 N_PACKS = 256
@@ -172,19 +171,17 @@ def probe_input(programs: int, n_packs: int, device,
 
 
 def sass_counts() -> dict:
-    """{variant: (SASS instructions of its stage loop, {REG, STACK, ...})}
-    read from the built library."""
-    sass, res = cubin_listings("viterbi_ablation")
-    loops = stage_loop_instructions(sass)
-    return {v: (pick(loops, "ablation_kernel", f"ILi{i}E"),
-                pick(res, "ablation_kernel", f"ILi{i}E"))
-            for i, v in enumerate(VARIANTS)}
+    """{variant: (SASS instructions of its stage loop, {REG, STACK, ...},
+    the loop's opcode mix)} read from the built library."""
+    return sass_table("viterbi_ablation",
+                      {v: ("ablation_kernel", f"ILi{i}E")
+                       for i, v in enumerate(VARIANTS)})
 
 
 def run(variant: str, words: torch.Tensor, sass: tuple) -> dict:
     """Time one variant over GRID programs of N_PACKS packs."""
     ms, all_ms, _ = timed(lambda: K13(variant, words, GRID), REPS)
-    loop, res = sass
+    loop, res, _ = sass
     return dict(variant=variant, ms=ms, all_ms=all_ms,
                 ns_per_stage_tile=ms * 1e6 / (N_PACKS * 32 * GRID),
                 sass_loop=loop, sass_per_stage=loop / LOOP_STAGES,

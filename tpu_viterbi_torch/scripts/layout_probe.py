@@ -32,8 +32,7 @@ import numpy as np
 import torch
 
 from .. import hardware
-from .common import (LT, ProbeKernel, branch_signs, cubin_listings, pick,
-                     stage_loop_instructions, timed)
+from .common import LT, ProbeKernel, branch_signs, sass_table, timed
 
 STAGES = 8192
 GRID = 16
@@ -182,12 +181,9 @@ def probe_input(tiles: int, device, seed: int = 0) -> torch.Tensor:
 
 
 def sass_counts() -> dict:
-    """{variant: (SASS instructions of its stage loop, {REG, STACK, ...})}
-    read from the built library."""
-    sass, res = cubin_listings("viterbi_layout")
-    loops = stage_loop_instructions(sass)
-    return {v: (pick(loops, KERNEL[v]), pick(res, KERNEL[v]))
-            for v in VARIANTS}
+    """{variant: (SASS instructions of its stage loop, {REG, STACK, ...},
+    the loop's opcode mix)} read from the built library."""
+    return sass_table("viterbi_layout", {v: (KERNEL[v],) for v in VARIANTS})
 
 
 def run(variant: str, x: torch.Tensor, tiles: int, sass: tuple) -> dict:
@@ -196,7 +192,7 @@ def run(variant: str, x: torch.Tensor, tiles: int, sass: tuple) -> dict:
     rows = programs * ROWS * TILES_A_PROGRAM[variant]
     xv = x[:rows]
     ms, all_ms, _ = timed(lambda: K12(variant, xv, STAGES), REPS)
-    loop, res = sass
+    loop, res, _ = sass
     per_stage = loop / LOOP_STAGES[variant]
     lane_instr = per_stage * THREADS_AN_ARRAY[variant] / \
         ARRAYS_A_THREAD[variant]
