@@ -2,8 +2,10 @@
 (decode and staging), K7, K8 (workload generator), K9 (the hardware
 model's shared-memory probe), K11 (the op-cost probe), K12-K15 (K1's
 design probes: layout, ablation, ACS variants, ILP) and K16-K19 (the
-ACS-arithmetic probes: constructs, dtype rates, int16x2 SWAR, 16-bit ACS)
-from the checkout into one library (one nvcc per source, started together, one link), holds
+ACS-arithmetic probes: constructs, dtype rates, int16x2 SWAR, 16-bit ACS),
+K20 (the generator probe) and K23 (the roll-halo decode of the staging-cost
+probe) from the checkout into one library (one nvcc per source, started
+together, one link), holds
 each against its plain PyTorch version, drives the hardware model (the
 probe of `python -m tpu_viterbi_torch.hardware`, K3's shared-memory gate,
 the canary K10 through K4 and the op-cost probe), the simulation chain, the
@@ -14,7 +16,10 @@ staged-input decode paths (decode_packed_cuda with fused=False and
 fp32_words=False, the values-in entry decode_blocks_cuda) at that size, and
 times each kernel against its plain version, its bound and, where one
 PyTorch call computes the same function, that call; and the in-graph
-simulation end to end.
+simulation end to end.  Phases 26-30 drive the generator probe and the
+decode-attribution probes (K21 bench pieces, K22 values-in split, K23
+staging cost, K24 SOFT16 pieces: launches of K1, K3, K4 and K6 beside K23)
+after holding their kernels against their plain versions.
 
     python3 chip_smoke.py
 
@@ -61,12 +66,16 @@ from tpu_viterbi_torch.config import (ChannelIn, DecodeOut,  # noqa: E402
                                       DecoderConfig)
 from tpu_viterbi_torch.decoder import core_cuda  # noqa: E402
 from tpu_viterbi_torch.decoder.core_torch import (  # noqa: E402
-    clamp_split, decode_blocks_torch, decode_packed_torch,
-    decode_planes_torch, decode_staged_torch, needs_int32_renorm,
-    plan_blocks, stage_transpose, traceback_shape, words_per_block)
+    clamp_split, decode_blocks, decode_blocks_torch, decode_packed_torch,
+    decode_planes_torch, decode_staged_torch, gather_blocks,
+    needs_int32_renorm, plan_blocks, stage_transpose, stage_words,
+    traceback_shape, words_per_block)
 from tpu_viterbi_torch.scripts import (  # noqa: E402
-    acs_variants_bench, dtype_throughput, ilp_probe, kernel_ablation,
-    kernel_microbench, layout_probe, op_cost_probe, opt_bench, swar_probe)
+    acs_variants_bench, bench_profile, bench_split, dtype_throughput,
+    genkernel_probe, ilp_probe, kernel_ablation, kernel_microbench,
+    layout_probe, op_cost_probe, opt_bench, soft16_pieces, staging_cost,
+    swar_probe)
+from tpu_viterbi_torch.scripts.common import PIECE_RUNS  # noqa: E402
 from tpu_viterbi_torch.sharding.simulate import (  # noqa: E402
     DEFAULT_SCALES, build_sharded_simulation)
 from tpu_viterbi_torch.utils import timing  # noqa: E402
@@ -87,8 +96,10 @@ K12, K13 = layout_probe.K12, kernel_ablation.K13
 K14, K15 = acs_variants_bench.K14, ilp_probe.K15
 K16, K17 = kernel_microbench.K16, dtype_throughput.K17
 K18, K19 = swar_probe.K18, opt_bench.K19
+K20, K23 = genkernel_probe.K20, staging_cost.K23
 KERNELS = core_cuda.KERNELS + genkernel.KERNELS + (
-    K9, K11, K12, K13, K14, K15, K16, K17, K18, K19)
+    K9, K11, K12, K13, K14, K15, K16, K17, K18, K19, K20, K23)
+GEN_ROUNDS_K7 = genkernel.GEN_ROUNDS
 REPLACES = {"K1": "tpu_viterbi/decoder/core_pallas.py:638",
             "K2": "tpu_viterbi/decoder/core_pallas.py:683",
             "K3": "tpu_viterbi/decoder/core_pallas.py:440",
@@ -107,7 +118,12 @@ REPLACES = {"K1": "tpu_viterbi/decoder/core_pallas.py:638",
             "K16": "scripts/kernel_microbench.py:85",
             "K17": "scripts/dtype_throughput.py:50",
             "K18": "scripts/swar_probe.py:168",
-            "K19": "scripts/opt_bench.py:73"}
+            "K19": "scripts/opt_bench.py:73",
+            "K20": "scripts/genkernel_probe.py:59",
+            "K21": "scripts/bench_profile.py:104",
+            "K22": "scripts/bench_split.py:60",
+            "K23": "scripts/staging_cost.py:241",
+            "K24": "scripts/soft16_pieces.py:107"}
 CLI_SCALE = 40000.0                 # the CLI's channel scale (main.cpp:137)
 
 # Bounds: the least time the card could take for a kernel's work, the
@@ -1079,13 +1095,7 @@ def op_cost_phase(card: str, runs: dict):
         f"{len(op_cost_probe.VARIANTS)} variants after {steps} steps, "
         f"{tiles} tiles; add4 at {steps} steps: median {k_ms:.4f} ms, plain "
         f"{p_ms:.1f} ms")
-    results = []
-
-    def probe_path() -> int:
-        results.extend(op_cost_probe.probe())
-        return 0
-
-    _, _, counts = drive([], probe_path)
+    results, counts = probe_run(op_cost_probe.probe)
     record(runs, counts, 1, ["K11"], "op-cost probe")
     add4 = next(r for r in results if r["variant"] == "add4")
     lanes = tiles * x.numel()
@@ -1147,19 +1157,12 @@ ILP_CHECK_STEPS = 256
 LT_BYTES = 128 * 4                  # a 128-lane int32 row
 
 
-def probe_path(probe):
-    """Run a design probe's entry point (its ``probe()``, all variants: one
-    call) through ``drive``: (its results, {kernel name: launches})."""
-    results = []
-
-    def path() -> int:
-        results.extend(probe())
-        return 0
-
-    rc, _, counts = drive([], path)
-    if rc != 0:
-        raise AssertionError(f"{probe.__module__}: rc {rc}")
-    return results, counts
+def probe_run(probe):
+    """Run a probe's entry point (its ``probe()``, all variants: one call)
+    through ``drive``: (its result, {kernel name: launches})."""
+    out = []
+    _, _, counts = drive([], lambda: out.append(probe()) or 0)
+    return out[0], counts
 
 
 def share(bnd, ms: float) -> str:
@@ -1168,10 +1171,10 @@ def share(bnd, ms: float) -> str:
 
 def probe_results(tag: str, card: str, runs: dict, mod, name: str,
                   what: str, bound_of):
-    """A stage-loop probe's path: its ``probe()`` through ``probe_path``
+    """A stage-loop probe's path: its ``probe()`` through ``probe_run``
     with kernel ``name``'s launches recorded, each result's bound
     (``bound_of(result)``) and one line each.  Returns the results."""
-    results, counts = probe_path(mod.probe)
+    results, counts = probe_run(mod.probe)
     record(runs, counts, 1, [name], what)
     for r in results:
         r["bound"] = bound_of(r)
@@ -1179,13 +1182,19 @@ def probe_results(tag: str, card: str, runs: dict, mod, name: str,
     return results
 
 
+def held(what: str, got, want) -> None:
+    """Raise unless ``got`` equals ``want`` (shapes and values)."""
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not torch.equal(got, want):
+        raise AssertionError(f"{what} differs from its plain version")
+
+
 def held_to_plain(what: str, got, plain) -> float:
     """The ms of one CUDA-event run of ``plain``; raises unless its result
     equals ``got``."""
     torch.cuda.synchronize()
     p_ms, _, want = cuda_ms(plain, 1)
-    if not torch.equal(got, want):
-        raise AssertionError(f"{what} differs from its plain version")
+    held(what, got, want)
     return p_ms
 
 
@@ -1211,7 +1220,7 @@ def layout_phase(card: str, runs: dict):
     say("18 layout", f"K12 bit-equal to its plain version on all "
         f"{len(lp.VARIANTS)} variants, every program of {lp.GRID} and "
         f"{lp.HEADLINE_TILES} tiles, {PROBE_CHECK_STAGES} stages")
-    results, counts = probe_path(lp.probe)
+    results, counts = probe_run(lp.probe)
     record(runs, counts, 1, ["K12"], "layout probe")
     by = {(r["variant"], r["tiles"]): r for r in results}
     for r in results:
@@ -1262,7 +1271,7 @@ def ablation_phase(card: str, runs: dict, k10_ms: float):
     say("19 ablation", f"K13 bit-equal to its plain version on all "
         f"{len(ka.VARIANTS)} variants, output and survivor store, "
         f"{ka.GRID} programs of {ABLATION_CHECK_PACKS} packs")
-    results, counts = probe_path(ka.probe)
+    results, counts = probe_run(ka.probe)
     record(runs, counts, 1, ["K13"], "ablation probe")
     arrays = ka.GRID * 128
     stages = ka.N_PACKS * 32
@@ -1347,7 +1356,7 @@ def ilp_phase(card: str, runs: dict):
                                      f"from its plain version")
     say("21 ilp", f"K15 bit-equal to its plain version on 1, 2 and 4 "
         f"chains at both occupancies, {steps} steps")
-    results, counts = probe_path(ip.probe)
+    results, counts = probe_run(ip.probe)
     record(runs, counts, 1, ["K15"], "ILP probe")
     for r in results:
         lanes = r["blocks"] * r["threads"]
@@ -1432,7 +1441,7 @@ def dtype_phase(card: str, runs: dict):
     say("23 dtype", f"K17 bit-equal to its plain version on all "
         f"{len(dt.DTYPES)} dtypes at both occupancies, {DTYPE_CHECK_STEPS} "
         f"steps on 0..6 and 3 steps on +-16,000")
-    results, counts = probe_path(dt.probe)
+    results, counts = probe_run(dt.probe)
     record(runs, counts, 1, ["K17"], "dtype throughput probe")
     for r in results:
         lanes = r["blocks"] * r["threads"]
@@ -1518,6 +1527,204 @@ def opt_bench_phase(card: str, runs: dict):
     return row["ms"], p_ms, 0, row["bound"]
 
 
+def genkernel_probe_phase(card: str, runs: dict):
+    """K20: tf and many at 20 and 13 rounds bit-equal to their plain
+    versions over the full JAX grid (64 x 256 x 128 counter pairs, reps 4
+    and 8), log_sqrt within 2 ulp of the larger term of torch's, then
+    `python -m tpu_viterbi_torch.scripts.genkernel_probe` with the counts
+    set to 0.  Returns K20's row: many at 20 rounds, reps 8."""
+    gp = genkernel_probe
+    c = gp.many_input("cuda")
+    t = gp.tf_input("cuda")
+    for rounds in gp.ROUNDS_LIST:
+        for got, want in zip(K20.tf(t, *gp.KEY, rounds=rounds),
+                             gp.tf_torch(t, *gp.KEY, rounds=rounds)):
+            held(f"K20 tf at {rounds} rounds", got, want)
+        for reps in gp.REPS_LIST:
+            held(f"K20 many at {rounds} rounds, reps {reps}",
+                 K20.many(c, *gp.MANY_KEY, reps, rounds),
+                 gp.many_torch(c, *gp.MANY_KEY, reps, rounds))
+    x = gp.log_input("cuda")
+    ulps = gp.term_ulps(K20.log_sqrt(x), gp.log_sqrt_torch(x), x)
+    if ulps > 2:
+        raise AssertionError(f"K20 log_sqrt {ulps} ulp from torch's")
+    say("26 genkernel probe", f"K20 tf and many bit-equal to their plain "
+        f"versions at {gp.ROUNDS_LIST} rounds over the {gp.G} x {gp.RB} x "
+        f"{gp.L} grid, reps {gp.REPS_LIST}; log_sqrt {ulps:g} ulp of the "
+        f"larger term from torch.log + torch.sqrt")
+    res, counts = probe_run(gp.probe)
+    record(runs, counts, 1, ["K20"], "generator probe")
+    n = c[0].numel()
+    for r in res["rates"]:
+        r["bound"] = bound(3 * n * 4, n * r["reps"] * (
+            gp.threefry_ops(r["rounds"]) + gp.MANY_OPS))
+        say("26 genkernel probe", f"{card}: many at {r['rounds']} rounds, "
+            f"reps {r['reps']}: best {r['best_ms']:.4f} ms, median "
+            f"{r['ms']:.4f} = {r['calls_per_ns']:.1f} threefry calls/ns; "
+            f"{share(r['bound'], r['ms'])}")
+    k13 = next(r for r in res["rates"] if r["rounds"] == GEN_ROUNDS_K7
+               and r["reps"] == max(gp.REPS_LIST))
+    k7_calls = -(-HEADLINE_BITS // 64) + HEADLINE_BITS
+    say("26 genkernel probe", f"{card}: K7 at the headline draws {k7_calls} "
+        f"threefry-{GEN_ROUNDS_K7} calls: {k7_calls / k13['calls_per_ns'] / 1e6:.4f}"
+        f" ms at this rate")
+    row = next(r for r in res["rates"] if r["rounds"] == gp.ROUNDS
+               and r["reps"] == max(gp.REPS_LIST))
+    p_ms, _, _ = cuda_ms(lambda: gp.many_torch(c, *gp.MANY_KEY, row["reps"],
+                                               row["rounds"]), 1)
+    return row["ms"], p_ms, 0, row["bound"]
+
+
+DECODE_CHECK_BITS = 2_000_000     # the decode probes' reduced checks
+
+
+def popcount_np(words: np.ndarray) -> int:
+    return int(np.unpackbits(words.astype(np.uint32).view(np.uint8)).sum())
+
+
+def bench_profile_phase(card: str, runs: dict):
+    """K21: at DECODE_CHECK_BITS and each dec_len, the pieces against their
+    plain versions (K6's staging, K1 alone, the decode, the count and
+    decode + count against numpy), then `python -m
+    tpu_viterbi_torch.scripts.bench_profile` at 32M bits with the counts
+    set to 0.  Returns K21's row: K1 alone at dec_len 8192."""
+    bp = bench_profile
+    for dl in bp.DEC_LENS:
+        plan = bp.make_plan(DECODE_CHECK_BITS, dl)
+        inp = bp.make_inputs(DECODE_CHECK_BITS, plan, "cuda", seed=SEED)
+        f = bp.pieces(inp, plan)
+        x = inp["x"]
+        held(f"K21 stage (K6) at dec_len {dl}", f["stage"](),
+             stage_words(x, bp.CFG, plan))
+        held(f"K21 kraw (K1) at dec_len {dl}", f["kraw"](),
+             decode_blocks_torch(x, bp.CFG, plan))
+        want = decode_packed_torch(x, bp.CFG, plan)
+        held(f"K21 decode at dec_len {dl}", f["decode"](), want)
+        y = inp["y"].cpu().numpy()
+        ref = inp["ref"].cpu().numpy()
+        n = plan.message_len // 32
+        w = want.cpu().numpy().astype(np.int64) & 0xFFFFFFFF
+        if int(f["check"]()) != popcount_np(y[0] ^ y[1]) or \
+                int(f["d+c"]()) != popcount_np(w[:n] ^ ref[:n]):
+            raise AssertionError(f"K21 check or d+c at dec_len {dl} differs "
+                                 f"from numpy's popcount")
+    say("27 bench profile", f"K21's pieces (K6, K1, decode, count, d+c) equal "
+        f"their plain versions at {DECODE_CHECK_BITS} bits, dec_len "
+        f"{bp.DEC_LENS}")
+    res, counts = probe_run(bp.probe)
+    record(runs, {"K21": counts["K1"] + counts["K6"]}, 1, ["K21"],
+           "bench profile")
+    for dl, t in res.items():
+        say("27 bench profile", f"{card}: dec_len {dl}: K6 stage "
+            f"{t['stage']:.4f}, K1 {t['kraw']:.4f}, assemble "
+            f"{t['decode'] - t['kraw']:.4f}, check {t['check']:.4f}, "
+            f"decode {t['decode']:.4f}, d+c {t['d+c']:.4f} ms; K1 launches "
+            f"{counts['K1']}, K6 {counts['K6']}")
+    dl = bp.DEC_LENS[0]
+    plan = bp.make_plan(HEADLINE_BITS, dl)
+    x = bp.make_inputs(HEADLINE_BITS, plan, "cuda")["x"]
+    p_ms, _, _ = cuda_ms(lambda: decode_blocks_torch(x, bp.CFG, plan), 1)
+    return res[dl]["kraw"], p_ms, 0, decode_bound(x.numel() * 4, bp.CFG,
+                                                   plan)
+
+
+def bench_split_phase(card: str, runs: dict):
+    """K22: at DECODE_CHECK_BITS, K6 on the values, K4 in value mode and
+    decode_blocks_cuda against their plain versions, then `python -m
+    tpu_viterbi_torch.scripts.bench_split` at 32M bits with the counts set
+    to 0.  Returns K22's row: K4 in value mode."""
+    bs = bench_split
+    plan = bs.make_plan(DECODE_CHECK_BITS)
+    r = bs.make_values(DECODE_CHECK_BITS, "cuda", seed=SEED)
+    f = bs.pieces(r, plan)
+    args = (2 * plan.dec_len, 2 * plan.block_len, plan.num_blocks)
+    staged = stage_transpose(r.reshape(-1), *args)
+    held("K22 staging (K6)", f["staging"](), staged)
+    held("K22 kernel (K4 values)", f["kernel"](),
+         decode_staged_torch(staged, bs.CFG, plan))
+    held("K22 full", f["full"](),
+         decode_blocks(gather_blocks(r, plan), bs.CFG, plan))
+    say("28 bench split", f"K22's pieces (K6, K4 values, decode_blocks_cuda) "
+        f"equal their plain versions at {DECODE_CHECK_BITS} bits")
+    t, counts = probe_run(bs.probe)
+    record(runs, {"K22": counts["K4"] + counts["K6"]}, 1, ["K22"],
+           "bench split")
+    m = bs.N_BITS
+    say("28 bench split", f"{card}: staging {t['staging']:.4f}, kernel "
+        f"{t['kernel']:.4f} ({m / t['kernel'] / 1e6:.2f} Gb/s), full "
+        f"{t['full']:.4f} ms ({m / t['full'] / 1e6:.2f} Gb/s); K4 launches "
+        f"{counts['K4']}, K6 {counts['K6']}")
+    plan = bs.make_plan(m)
+    staged = bs.stage_values(bs.make_values(m, "cuda"), plan)
+    p_ms, _, _ = cuda_ms(lambda: decode_staged_torch(staged, bs.CFG, plan), 1)
+    return t["kernel"], p_ms, 0, decode_bound(staged.numel() * 4, bs.CFG,
+                                              plan)
+
+
+def staging_cost_phase(card: str, runs: dict):
+    """K23: the roll kernel bit-equal to its plain version over the full
+    grid at the script's shape (32M bits, dec_len 8192: every block of
+    every tile), then `python -m tpu_viterbi_torch.scripts.staging_cost`
+    with the counts set to 0.  Returns K23's row, bound by its body bytes
+    and its ACS."""
+    sc = staging_cost
+    plan, _ = sc.make_plans(sc.N_BITS)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    xp = torch.randint(-2 ** 31, 2 ** 31, (sc.need_words(sc.CFG, plan),),
+                       generator=gen, device="cuda",
+                       dtype=torch.int64).to(torch.int32)
+    got = K23(xp, sc.CFG, plan)
+    p_ms, _, want = cuda_ms(lambda: sc.roll_decode_torch(xp, sc.CFG, plan), 1)
+    held("K23 over the full grid", got, want)
+    pplan = sc.padded_plan(plan)
+    say("29 staging cost", f"K23 bit-equal to its plain version over "
+        f"{pplan.num_blocks} blocks ({pplan.num_blocks // 128} tiles, the "
+        f"last block of each wrapping) at dec_len {plan.dec_len}")
+    t, counts = probe_run(sc.probe)
+    record(runs, counts, 1, ["K23"], "staging cost")
+    wpb, _ = words_per_block(sc.CFG, plan)
+    bnd = decode_bound(pplan.num_blocks * wpb * 4, sc.CFG, pplan)
+    say("29 staging cost", f"{card}: " + ", ".join(
+        f"{v} {t[v]:.4f}" for v in sc.VARIANTS) + f" ms; views - pre "
+        f"{t['views'] - t['pre']:.4f}, roll - views "
+        f"{t['roll'] - t['views']:.4f} ms; K23 {share(bnd, t['roll'])}")
+    return t["roll"], p_ms, 0, bnd
+
+
+def soft16_pieces_phase(card: str, runs: dict):
+    """K24: at DECODE_CHECK_BITS, each configuration's kernel-only piece (K1
+    or K3) against its plain version and its full piece's BEN 0, then
+    `python -m tpu_viterbi_torch.scripts.soft16_pieces` at 32M bits with
+    the counts set to 0: BEN 0 for every configuration.  Returns K24's
+    row: K1 on SOFT16, dec_len 4096."""
+    sp = soft16_pieces
+    for ch, dl, survivor in sp.CONFIGS:
+        case = sp.make_case(ch, dl, survivor, DECODE_CHECK_BITS, "cuda")
+        f = sp.pieces(case)
+        held(f"K24 {case['label']} kernel-only", f["kernel-only"](),
+             decode_blocks_torch(case["words"], case["cfg"], case["plan"],
+                                 case["window"]))
+        if int(f["full"]()):
+            raise AssertionError(f"K24 {case['label']}: BEN != 0")
+    say("30 soft16 pieces", f"K24's kernel-only pieces (K1, K3) equal their "
+        f"plain versions and the full decodes count BEN 0 at "
+        f"{DECODE_CHECK_BITS} bits, 5.5 dB")
+    res, counts = probe_run(sp.probe)
+    record(runs, {"K24": counts["K1"] + counts["K3"]}, 1, ["K24"],
+           "SOFT16 pieces")
+    for label, row in res.items():
+        if row["ben"]:
+            raise AssertionError(f"K24 {label} at 32M bits: BEN {row['ben']}")
+        say("30 soft16 pieces", f"{card}: {label}: kernel-only "
+            f"{row['kernel-only']:.4f} ms, full {row['full']:.4f} ms, BEN 0")
+    case = sp.make_case(ChannelIn.SOFT16, 4096, "full", sp.N_BITS, "cuda")
+    cfg, plan, words = case["cfg"], case["plan"], case["words"]
+    p_ms, _, _ = cuda_ms(lambda: decode_blocks_torch(words, cfg, plan), 1)
+    return res["soft16/4096"]["kernel-only"], p_ms, 0, decode_bound(
+        words.numel() * 4, cfg, plan)
+
+
 def main() -> int:
     card = device_phase()
     build_phase()
@@ -1559,6 +1766,11 @@ def main() -> int:
     times["K17"] = dtype_phase(card, runs)
     times["K18"] = swar_phase(card, runs)
     times["K19"] = opt_bench_phase(card, runs)
+    times["K20"] = genkernel_probe_phase(card, runs)
+    times["K21"] = bench_profile_phase(card, runs)
+    times["K22"] = bench_split_phase(card, runs)
+    times["K23"] = staging_cost_phase(card, runs)
+    times["K24"] = soft16_pieces_phase(card, runs)
     # launches a call, measured in the main-path runs: where the design
     # fixes it, it must be so (one a decode or a generation; the op-cost
     # ILP and dtype probes' two step counts, the layout, microbenchmark,
@@ -1581,9 +1793,22 @@ def main() -> int:
     want["K18"] = 2 * len(swar_probe.VARIANTS) * (swar_probe.REPS + 1)
     want["K19"] = 2 * len(opt_bench.LTS) * len(opt_bench.VARIANTS) * (
         opt_bench.REPS + 1)
+    # K20: tf, the 3 known answers and log_sqrt, then each rate; K21-K24:
+    # one warm-up and PIECE_RUNS timed calls a piece (K21: K6 + 3 K1 pieces
+    # a dec_len; K22: K6, K4, K6 + K4, and the kernel piece's staging; K23:
+    # the roll variant; K24: 2 pieces and the BEN call a configuration)
+    runs_a_piece = PIECE_RUNS + 1
+    want["K20"] = 5 + len(genkernel_probe.ROUNDS_LIST) * len(
+        genkernel_probe.REPS_LIST) * (
+            genkernel_probe.REPS * genkernel_probe.LAUNCHES_A_SAMPLE + 1)
+    want["K21"] = len(bench_profile.DEC_LENS) * 4 * runs_a_piece
+    want["K22"] = 4 * runs_a_piece + 1
+    want["K23"] = runs_a_piece
+    want["K24"] = len(soft16_pieces.CONFIGS) * (2 * runs_a_piece + 1)
     rows = [(k.name, str(k.source.relative_to(ROOT))) for k in KERNELS]
-    rows.insert([name for name, _ in rows].index("K11"),
-                ("K10", str(K4.source.relative_to(ROOT))))
+    rows += [(name, str(K1.source.relative_to(ROOT)))
+             for name in ("K10", "K21", "K22", "K24")]
+    rows.sort(key=lambda r: int(r[0][1:]))
     per_call = {name: launches_per_call(runs, name, want.get(name))
                 for name, _ in rows}
     print(json.dumps({"kernels": [{

@@ -6,7 +6,8 @@ kernels K7 and K8 against theirs, and the in-graph simulation on the card;
 the hardware model (K9's probe, K3's shared-memory gate), the op-cost
 kernels K11 and the canary K10; the probes' kernels K12-K15 (layout,
 ablation, ACS variants, ILP) and K16-K19 (constructs, dtype rates, int16x2
-SWAR, 16-bit ACS) against their plain versions, and the probes' entry
+SWAR, 16-bit ACS) against their plain versions, the generator probe K20
+and the roll-halo decode K23 against theirs, and the probes' entry
 points.
 Every test here needs a CUDA GPU and skips without one; the
 file imports no jax, so it runs on a machine that has only the port's
@@ -27,10 +28,13 @@ from tpu_viterbi_torch.chain.quantize import unpack_to_soft
 from tpu_viterbi_torch.config import ChannelIn, DecodeOut, DecoderConfig
 from tpu_viterbi_torch.decoder import core_cuda, core_torch
 from tpu_viterbi_torch.decoder.streaming import StreamingViterbi
-from tpu_viterbi_torch.scripts import (acs_variants_bench, dtype_throughput,
-                                       ilp_probe, kernel_ablation,
-                                       kernel_microbench, layout_probe,
-                                       op_cost_probe, opt_bench, swar_probe)
+from tpu_viterbi_torch.scripts import (acs_variants_bench, bench_profile,
+                                       bench_split, dtype_throughput,
+                                       genkernel_probe, ilp_probe,
+                                       kernel_ablation, kernel_microbench,
+                                       layout_probe, op_cost_probe,
+                                       opt_bench, soft16_pieces,
+                                       staging_cost, swar_probe)
 from tpu_viterbi_torch.sharding import simulate
 from tpu_viterbi_torch.utils import timing
 
@@ -699,3 +703,62 @@ def test_acs_probe_entry_points(gpu, mod):
     """`python -m tpu_viterbi_torch.scripts.<probe>`'s main() runs every
     variant on the card and returns 0."""
     assert mod.main([]) == 0
+
+
+@pytest.mark.parametrize("rounds", genkernel_probe.ROUNDS_LIST)
+def test_k20_matches_plain(gpu, rounds):
+    """tf on the parity input and many at reps 4 and 8 on an 8 x 256-row
+    grid (c0 near 2^31, so c0 + r wraps) bit-equal to their plain versions;
+    log_sqrt within 2 ulp of the larger term of torch's; one launch each;
+    the known answers at 20 rounds."""
+    gp, K20 = genkernel_probe, genkernel_probe.K20
+    c = gp.tf_input(gpu)
+    before = K20.launches
+    got = K20.tf(c, *gp.KEY, rounds=rounds)
+    want = gp.tf_torch(c, *gp.KEY, rounds=rounds)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    m = gp.many_input(gpu, g=8)
+    m[0] += 2 ** 31 - 300
+    for reps in gp.REPS_LIST:
+        assert torch.equal(K20.many(m, *gp.MANY_KEY, reps, rounds),
+                           gp.many_torch(m, *gp.MANY_KEY, reps, rounds))
+    x = gp.log_input(gpu)
+    assert gp.term_ulps(K20.log_sqrt(x), gp.log_sqrt_torch(x), x) <= 2
+    assert K20.launches == before + 2 + len(gp.REPS_LIST)
+    res = gp.parity(gpu)
+    assert res["tf_ok"] and res["known_ok"]
+
+
+@pytest.mark.parametrize("dec_len", [64, 96, 2048, 8192])
+def test_k23_matches_plain(gpu, dec_len):
+    """K23 on random full-range SOFT8 words pre-padded to ``need`` (blocks
+    past the plan decode the stream's words there): bit-equal to the plain
+    roll decode over every block of every tile; one launch."""
+    sc = staging_cost
+    cfg = sc.CFG
+    plan = core_torch.plan_blocks(dec_len * 300 - 32, 32, dec_len)
+    gen = torch.Generator(device=gpu)
+    gen.manual_seed(dec_len)
+    xp = torch.randint(-2 ** 31, 2 ** 31, (sc.need_words(cfg, plan),),
+                       generator=gen, device=gpu,
+                       dtype=torch.int64).to(torch.int32)
+    before = sc.K23.launches
+    got = sc.K23(xp, cfg, plan)
+    torch.cuda.synchronize()
+    assert sc.K23.launches == before + 1
+    want = sc.roll_decode_torch(xp, cfg, plan)
+    assert got.shape == (sc.padded_blocks(plan), dec_len // 32)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("mod,argv", [
+    (genkernel_probe, []), (bench_profile, ["2000000", "2048"]),
+    (bench_split, ["2000000"]), (staging_cost, ["2000000"]),
+    (soft16_pieces, ["2000000"])],
+    ids=lambda p: p.__name__.rsplit(".", 1)[1] if hasattr(p, "__name__")
+    else " ".join(p))
+def test_split_probe_entry_points(gpu, mod, argv):
+    """`python -m tpu_viterbi_torch.scripts.<probe>`'s main() runs on the
+    card (the decode probes at 2M bits) and returns 0."""
+    assert mod.main(argv) == 0

@@ -243,6 +243,11 @@ def test_port_imports_no_jax():
             "import tpu_viterbi_torch.scripts.dtype_throughput\n"
             "import tpu_viterbi_torch.scripts.swar_probe\n"
             "import tpu_viterbi_torch.scripts.opt_bench\n"
+            "import tpu_viterbi_torch.scripts.genkernel_probe\n"
+            "import tpu_viterbi_torch.scripts.bench_profile\n"
+            "import tpu_viterbi_torch.scripts.bench_split\n"
+            "import tpu_viterbi_torch.scripts.staging_cost\n"
+            "import tpu_viterbi_torch.scripts.soft16_pieces\n"
             "bad = [m for m in sys.modules\n"
             "       if m == 'jax' or m.startswith(('jax.', 'tpu_viterbi.'))\n"
             "       or m == 'tpu_viterbi']\n"

@@ -1,8 +1,8 @@
 // Kernels K7 and K8: the fused workload generator of the in-graph
 // simulation.  Message bits -> K=7 rate-1/2 convolutional encode -> BPSK ->
 // AWGN -> quantize -> pack, with every random draw recomputed from a counter
-// (threefry2x32 at 13 rounds), so the only device-memory traffic is the
-// outputs.
+// (threefry2x32 at 13 rounds, threefry.cuh, which K20 times), so the only
+// device-memory traffic is the outputs.
 //   - K7, viterbi_k7_launch: the four integer channels (HARD/SOFT4/SOFT8/
 //     SOFT16) -> ceil(n/32) int32 message-bit packs and ceil(2n/vpw) int32
 //     channel words.  Replaces the TPU kernel
@@ -48,6 +48,8 @@
 
 #include <cstdint>
 
+#include "threefry.cuh"
+
 namespace viterbi_gen {
 
 constexpr int kGenThreads = 256;
@@ -55,34 +57,6 @@ constexpr int kGenRounds = 13;  // BigCrush-passing minimum (genkernel.py:85)
 constexpr uint32_t kBitsTag = 1u;
 constexpr uint32_t kNoiseTag = 2u;
 constexpr float kTwoPi = 6.283185307179586f;  // f32(2 pi), as genkernel.py:128
-
-__device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
-  return __funnelshift_l(x, x, r);
-}
-
-// threefry2x32 with the Threefry rotation and key-injection schedule
-// (genkernel.py:92-113): rotation t % 8 in round t, key injection after
-// every 4th round and after the last.
-template <int ROUNDS>
-__device__ __forceinline__ uint2 threefry(uint32_t k0, uint32_t k1,
-                                          uint32_t c0, uint32_t c1) {
-  constexpr int kRots[8] = {13, 15, 26, 6, 17, 29, 16, 24};
-  const uint32_t ks[3] = {k0, k1, 0x1BD11BDAu ^ k0 ^ k1};
-  uint32_t x0 = c0 + k0;
-  uint32_t x1 = c1 + k1;
-#pragma unroll
-  for (int t = 0; t < ROUNDS; ++t) {
-    x0 += x1;
-    x1 = rotl(x1, kRots[t % 8]);
-    x1 ^= x0;
-    if (t % 4 == 3 || t == ROUNDS - 1) {
-      const int g = t / 4 + 1;
-      x0 += ks[g % 3];
-      x1 += ks[(g + 1) % 3] + static_cast<uint32_t>(g);
-    }
-  }
-  return make_uint2(x0, x1);
-}
 
 // Message-bit pack idx (MSB = earliest bit); the encoder's pre-history
 // (idx < 0) is zero.

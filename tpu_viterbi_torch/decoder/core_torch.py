@@ -183,6 +183,23 @@ def stage_words(packed: torch.Tensor, cfg: DecoderConfig,
     return stage_transpose(packed, wpb, wpb + wph, plan.num_blocks)
 
 
+def block_major_words(packed: torch.Tensor, cfg: DecoderConfig,
+                      plan: BlockPlan, b_pad: int):
+    """Packed channel words -> (body (b_pad, wpb), halo (b_pad, wph)), the
+    block-major layouts of ``core_pallas._block_major_words`` (:765): the
+    stream zero-padded to b_pad * wpb + wpb + wph words, the body its first
+    b_pad * wpb words cut into rows, the halo block k's first wph words
+    after its body (overlapped windows, so they may span several bodies
+    when dec_len < 64).  Rows past the plan's blocks hold the stream's
+    words there."""
+    wpb, wph = words_per_block(cfg, plan)
+    need = b_pad * wpb + wpb + wph
+    if packed.shape[0] < need:
+        packed = torch.cat([packed, packed.new_zeros(need - packed.shape[0])])
+    body = packed[: b_pad * wpb].reshape(b_pad, wpb)
+    return body, overlapped_windows(packed[wpb:], wpb, wph, b_pad)
+
+
 def unpack_words(wt: torch.Tensor, cfg: DecoderConfig) -> torch.Tensor:
     """(Lw, B) word-major integer channel words -> (Lw * dpp / 2, 2, B)
     int32 stage pairs.  Fields are MSB-first; HARD bits map to +-1, soft

@@ -1,5 +1,6 @@
-"""What the probes' kernels (K11-K19) share: the wrapper that binds a
+"""What the probes' kernels (K11-K24) share: the wrapper that binds a
 kernel's entry point and counts its launches, the timing of a launch, the
+decode-attribution probes' piece timer and attribution block (K21-K24), the
 ACS' branch signs, and what the SASS of the built library says of a kernel
 (its loops' instructions and opcodes, its registers and stack frame).
 """
@@ -102,6 +103,36 @@ def timed(fn: Callable, reps: int):
     ms, all ms, the last result)."""
     fn()
     return cuda_ms(fn, reps)
+
+
+PIECE_RUNS = 5      # CUDA-event samples of a decode-attribution piece
+
+
+def time_piece(label: str, fn: Callable, stages: int = 0,
+               runs: int = PIECE_RUNS) -> float:
+    """Time one piece of a decode (K21-K24's probes) with ``timed``, one
+    warmed launch a sample, and print its line: the median and every
+    sample, and ns per stage per 128-block tile where ``stages`` (tiles x
+    packs x 32) is given.  Returns the median ms."""
+    ms, all_ms, _ = timed(fn, runs)
+    per = f"  {ms * 1e6 / stages:7.3f} ns/stage" if stages else ""
+    print(f"{label:28s} {ms:8.4f} ms{per}   (of "
+          f"{[round(t, 4) for t in all_ms]})", flush=True)
+    return ms
+
+
+def print_attribution(rows) -> None:
+    """The probes' attribution block: a header, then one line per (label,
+    ms, note) row."""
+    print("---- attribution ----", flush=True)
+    for label, ms, note in rows:
+        print(f"{label:28s} {ms:8.4f} ms{note}", flush=True)
+
+
+def stage_tiles(plan) -> int:
+    """Stages of a plan counted as the JAX probes count them: 128-block
+    tiles x packs x 32 (the ns/stage of their lines)."""
+    return -(-plan.num_blocks // LT) * plan.n_packs * BPP
 
 
 def check_names(names, allowed, what: str = "variant") -> None:

@@ -1,0 +1,250 @@
+"""What staging costs a decode on the card: the counterpart of
+``scripts/staging_cost.py``, which split the TPU's full SOFT8 decode at 32M
+bits (dec_len 8192) into the kernel on pre-staged input, the in-graph
+staging around it, and the assemble and check after it, and tried two ways
+to stage nothing (views, and an in-kernel roll halo).  With kernel K23, the
+roll-halo decode (``csrc/staging_cost.cu``).
+
+    python -m tpu_viterbi_torch.scripts.staging_cost [message_bits]
+
+Variants, each timed with CUDA events, one warmed launch a sample
+(``common.time_piece``), on random full-range SOFT8 words:
+  pre     K4 in word mode on words K6 staged beforehand, plan0 (the plan of
+          (B - 1) * dec_len bits: overlap_bits 0, the JAX "no patch" plan)
+  roll    K23 on the stream pre-padded to ``need`` words: bodies from
+          device memory, halos from the next block of the 128-block tile
+          through shared memory, the tile's last block wrapping to its
+          first (``_kernel_roll``'s pltpu.roll: a timing probe)
+  views   K1 on that pre-padded stream: K1 reads each block's body and
+          halo straight from the flat stream, its own zero-copy design
+  graphP  K6 + K4 on the pre-padded stream (the JAX no-concat path)
+  graph   K6 + K4 on the live stream
+  graph0  K6 + K4 on the live stream under plan0
+  full    decode_packed_cuda (K1 + assemble) and a popcount of its words
+  full0   the same under plan0
+On the GPU there is no last-block patch and no pad-concat (K6 and K1 read
+zero past a stream's end), so the first two attribution lines measure
+K6 + K4's own differences; the line ``views - pre`` says what reading the
+flat stream costs K1 against pre-staged coalesced words, and ``roll -
+views`` what the shared-memory halo saves.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import sys
+from dataclasses import replace
+
+import torch
+
+from .. import hardware
+from ..config import ChannelIn, ConfigResolutionError, DecoderConfig
+from ..decoder import core_cuda
+from ..decoder.core_torch import (BlockPlan, block_major_words,
+                                  decode_staged_torch, needs_int32_renorm,
+                                  plan_blocks, traceback_shape,
+                                  words_per_block)
+from ..utils.bits import _popcount32
+from .common import (LT, ProbeKernel, print_attribution, stage_tiles,
+                     time_piece)
+
+N_BITS = 32_000_000
+DEC_LEN = 8192
+CFG = DecoderConfig(ChannelIn.SOFT8)
+VARIANTS = ("pre", "roll", "views", "graphP", "graph", "graph0", "full",
+            "full0")                 # the JAX script's order (:263-270)
+
+
+def padded_blocks(plan: BlockPlan) -> int:
+    """b_pad: the plan's blocks rounded up to whole 128-block tiles."""
+    return -(-plan.num_blocks // LT) * LT
+
+
+def padded_plan(plan: BlockPlan) -> BlockPlan:
+    """The plan over all b_pad blocks (what the roll kernel decodes)."""
+    b_pad = padded_blocks(plan)
+    return replace(plan, num_blocks=b_pad,
+                   message_len=b_pad * plan.dec_len)
+
+
+def need_words(cfg: DecoderConfig, plan: BlockPlan) -> int:
+    """The pre-padded stream's words, b_pad * wpb + wpb + wph (JAX
+    :160-162)."""
+    wpb, wph = words_per_block(cfg, plan)
+    return padded_blocks(plan) * wpb + wpb + wph
+
+
+def _check(packed: torch.Tensor, cfg: DecoderConfig, plan: BlockPlan):
+    if cfg.channel_in != ChannelIn.SOFT8 or plan.bits_per_pack != 32:
+        raise ConfigResolutionError(
+            f"K23 decodes the probe's SOFT8 channel in b32 packs, not "
+            f"{cfg.channel_in.name} b{plan.bits_per_pack}")
+    wpb, wph = words_per_block(cfg, plan)
+    if wph > wpb:
+        raise ValueError(f"the roll halo lies in the next block: dec_len "
+                         f"{plan.dec_len} < 64 has wph {wph} > wpb {wpb}")
+    if needs_int32_renorm(cfg, plan):
+        raise ValueError(f"K23 does not renormalise: dec_len "
+                         f"{plan.dec_len} is too long for int32 metrics")
+    if packed.dtype != torch.int32 or packed.dim() != 1 or \
+            not packed.is_contiguous():
+        raise ValueError(f"K23 takes a contiguous 1-D int32 stream, got "
+                         f"{packed.dtype} {tuple(packed.shape)}")
+
+
+def roll_words(packed: torch.Tensor, cfg: DecoderConfig,
+               plan: BlockPlan) -> torch.Tensor:
+    """(Lw, b_pad) word-major words of ``_kernel_roll`` (:219-229): block
+    128q + l's body, then the first wph words of block 128q + (l + 1) % 128
+    (the tile wraps)."""
+    _check(packed, cfg, plan)
+    b_pad = padded_blocks(plan)
+    _, wph = words_per_block(cfg, plan)
+    body, _ = block_major_words(packed, cfg, plan, b_pad)
+    lane = torch.arange(b_pad, device=packed.device)
+    nbr = lane - lane % LT + (lane + 1) % LT
+    return torch.cat([body, body[nbr, :wph]], dim=1).t().contiguous()
+
+
+def roll_decode_torch(packed: torch.Tensor, cfg: DecoderConfig,
+                      plan: BlockPlan) -> torch.Tensor:
+    """Plain version of K23: the staged decode (K4's plain version, full
+    store) of ``roll_words`` -> (b_pad, n_emit) int32 packs."""
+    return decode_staged_torch(roll_words(packed, cfg, plan), cfg,
+                               padded_plan(plan))
+
+
+class RollKernel(ProbeKernel):
+    """K23, bound to ``viterbi_k23_launch``."""
+
+    def __init__(self):
+        super().__init__("K23", "viterbi_k23_launch", "staging_cost.cu",
+                         [ctypes.c_void_p, ctypes.c_longlong,
+                          ctypes.c_void_p, ctypes.c_void_p,
+                          *[ctypes.c_int] * 6])
+
+    def __call__(self, packed: torch.Tensor, cfg: DecoderConfig,
+                 plan: BlockPlan) -> torch.Tensor:
+        """(b_pad, n_emit) int32 packs (uint32 bit patterns).  On a CUDA
+        tensor one launch on the current stream, not synchronized; on a CPU
+        tensor its plain version."""
+        _check(packed, cfg, plan)
+        if not self.check_device(packed):
+            return roll_decode_torch(packed, cfg, plan)
+        pplan = padded_plan(plan)
+        b_pad = pplan.num_blocks
+        n_conv, n_emit = traceback_shape(cfg, pplan)
+        wpb, wph = words_per_block(cfg, pplan)
+        surv = torch.empty((pplan.n_packs, 64, b_pad), dtype=torch.int32,
+                           device=packed.device)
+        out = torch.empty((b_pad, n_emit), dtype=torch.int32,
+                          device=packed.device)
+        self.launch(packed.device, packed.data_ptr(), packed.numel(),
+                    surv.data_ptr(), out.data_ptr(), b_pad, wpb, wph,
+                    pplan.n_packs, n_conv, n_emit)
+        return out
+
+
+K23 = RollKernel()
+
+
+def popcount_sum(out: torch.Tensor) -> torch.Tensor:
+    """The set bits of int32 words (the JAX probe's full-decode consumer):
+    a 0-dim int64 tensor."""
+    return _popcount32(out.to(torch.int64) & 0xFFFFFFFF).sum()
+
+
+def make_plans(n: int, dec_len: int = DEC_LEN, cfg: DecoderConfig = CFG):
+    """(plan, plan0): the n-bit transmission's plan, and plan0 of (B - 1) *
+    dec_len bits, whose overlap_bits is 0 (JAX :56-60)."""
+    plan = plan_blocks(cfg.get_message_len(2 * n), cfg.bits_per_pack,
+                       dec_len)
+    m0 = (plan.num_blocks - 1) * dec_len
+    plan0 = plan_blocks(m0, cfg.bits_per_pack, dec_len)
+    if plan0.overlap_bits != 0:
+        raise AssertionError(f"plan0 has overlap_bits {plan0.overlap_bits}")
+    return plan, plan0
+
+
+def make_inputs(n: int, device, dec_len: int = DEC_LEN,
+                cfg: DecoderConfig = CFG, seed: int = 0) -> dict:
+    """The probe's inputs: x, the transmission's n_words random words; xp,
+    need_words random words; st0, x staged for plan0 (K6, or its plain
+    version on the CPU); the two plans."""
+    plan, plan0 = make_plans(n, dec_len, cfg)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def words(k):
+        return torch.randint(-2 ** 31, 2 ** 31, (k,), generator=gen,
+                             device=device, dtype=torch.int64
+                             ).to(torch.int32)
+
+    x = words(cfg.get_input_words(2 * n))
+    xp = words(need_words(cfg, plan))
+    st0 = core_cuda.stage_words_cuda(x, cfg, plan0)
+    return dict(x=x, xp=xp, st0=st0, plan=plan, plan0=plan0)
+
+
+def variants(inp: dict, cfg: DecoderConfig = CFG) -> dict:
+    """{variant: a call of it on ``inp``} (``make_inputs``)."""
+    x, xp, st0 = inp["x"], inp["xp"], inp["st0"]
+    plan, plan0 = inp["plan"], inp["plan0"]
+    K1, K4 = core_cuda.K1, core_cuda.K4
+    stage = core_cuda.stage_words_cuda
+    return {
+        "pre": lambda: K4(st0, cfg, plan0),
+        "roll": lambda: K23(xp, cfg, plan),
+        "views": lambda: K1(xp, cfg, plan),
+        "graphP": lambda: K4(stage(xp, cfg, plan), cfg, plan),
+        "graph": lambda: K4(stage(x, cfg, plan), cfg, plan),
+        "graph0": lambda: K4(stage(x, cfg, plan0), cfg, plan0),
+        "full": lambda: popcount_sum(core_cuda.decode_packed_cuda(x, cfg,
+                                                                  plan)),
+        "full0": lambda: popcount_sum(core_cuda.decode_packed_cuda(x, cfg,
+                                                                   plan0)),
+    }
+
+
+def probe(n: int = N_BITS, device="cuda") -> dict:
+    """Time every variant at n bits on the card and print the JAX probe's
+    attribution block plus the GPU's two lines; returns {variant: median
+    ms}."""
+    dev = hardware.resolve_device(device)
+    if dev.type != "cuda":
+        raise ValueError("the staging-cost probe times kernels on the card")
+    inp = make_inputs(n, dev)
+    plan, plan0 = inp["plan"], inp["plan0"]
+    print(f"{torch.cuda.get_device_name(dev)}: m={plan.message_len} (ov="
+          f"{plan.overlap_bits}) m0={plan0.message_len} (ov=0) dec_len "
+          f"{plan.dec_len}: {plan.num_blocks} blocks, b_pad "
+          f"{padded_blocks(plan)}; K1 and K4 {core_cuda.K_THREADS} threads a "
+          f"CUDA block, K23 {LT}", flush=True)
+    fns = variants(inp)
+    t = {}
+    for v in VARIANTS:
+        zero = v in ("pre", "graph0", "full0")
+        t[v] = time_piece(v, fns[v], stage_tiles(plan0 if zero else plan))
+    print_attribution([
+        ("patch copy (graph-graph0)", t["graph"] - t["graph0"],
+         "   (no patch on the GPU: B vs B - 1 blocks)"),
+        ("pad-concat (graph-graphP)", t["graph"] - t["graphP"],
+         "   (no concat on the GPU: K6 reads zero past the end)"),
+        ("halo+input (graphP-pre)", t["graphP"] - t["pre"], ""),
+        ("assemble+check (full-graph)", t["full"] - t["graph"], ""),
+        ("full0 vs full", t["full"] - t["full0"], ""),
+        ("staging for K1 (views-pre)", t["views"] - t["pre"],
+         "   (K1's flat-stream reads against K4 on staged words)"),
+        ("roll halo (roll-views)", t["roll"] - t["views"],
+         "   (K23's shared-memory halo against K1's)")])
+    return t
+
+
+def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    probe(int(argv[0]) if argv else N_BITS)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
