@@ -3,9 +3,10 @@
 model's shared-memory probe), K11 (the op-cost probe), K12-K15 (K1's
 design probes: layout, ablation, ACS variants, ILP) and K16-K19 (the
 ACS-arithmetic probes: constructs, dtype rates, int16x2 SWAR, 16-bit ACS),
-K20 (the generator probe) and K23 (the roll-halo decode of the staging-cost
-probe) from the checkout into one library (one nvcc per source, started
-together, one link), holds
+K20 (the generator probe), K23 (the roll-halo decode of the staging-cost
+probe), K25 (the SOFT16 ablation), K26 (the staging transpose and its
+consumer) and K28 (the interleave) from the checkout into one library (one
+nvcc per source, started together, one link), holds
 each against its plain PyTorch version, drives the hardware model (the
 probe of `python -m tpu_viterbi_torch.hardware`, K3's shared-memory gate,
 the canary K10 through K4 and the op-cost probe), the simulation chain, the
@@ -19,7 +20,11 @@ PyTorch call computes the same function, that call; and the in-graph
 simulation end to end.  Phases 26-30 drive the generator probe and the
 decode-attribution probes (K21 bench pieces, K22 values-in split, K23
 staging cost, K24 SOFT16 pieces: launches of K1, K3, K4 and K6 beside K23)
-after holding their kernels against their plain versions.
+after holding their kernels against their plain versions.  Phases 31-35
+hold K1's and K3's u/d-word reader against its plain version and K2, and
+drive the last probes (K25 SOFT16 ablation, K26 transpose, K27 FP32
+routes: launches of K1, K2 and K3, K28 interleave); phases 16 and 19 cover
+K11's relayouts and K13's bisect traceback.
 
     python3 chip_smoke.py
 
@@ -61,23 +66,27 @@ from tpu_viterbi_torch.chain import (AddNoise, ConvolutionalEncoder,  # noqa: E4
                                      RandBitGen, SoftDecisionPacker,
                                      genkernel, snr_to_sigma,
                                      unpack_to_soft)
+from tpu_viterbi_torch.chain.genkernel import (  # noqa: E402
+    packed_workload_cuda, ref_words_from_packs)
 from tpu_viterbi_torch.chain.decoder_element import ViterbiDecoder  # noqa: E402
 from tpu_viterbi_torch.config import (ChannelIn, DecodeOut,  # noqa: E402
                                       DecoderConfig)
 from tpu_viterbi_torch.decoder import core_cuda  # noqa: E402
 from tpu_viterbi_torch.decoder.core_torch import (  # noqa: E402
-    clamp_split, decode_blocks, decode_blocks_torch, decode_packed_torch,
-    decode_planes_torch, decode_staged_torch, gather_blocks,
+    assemble_output, clamp_split, decode_blocks, decode_blocks_torch,
+    decode_packed_torch, decode_planes_torch, decode_staged_torch,
+    decode_ud_words_torch, fp32_ud_words_torch, gather_blocks,
     needs_int32_renorm, plan_blocks, stage_transpose, stage_words,
     traceback_shape, words_per_block)
 from tpu_viterbi_torch.scripts import (  # noqa: E402
     acs_variants_bench, bench_profile, bench_split, dtype_throughput,
-    genkernel_probe, ilp_probe, kernel_ablation, kernel_microbench,
-    layout_probe, op_cost_probe, opt_bench, soft16_pieces, staging_cost,
-    swar_probe)
+    fp32_fused_value_probe, genkernel_probe, ilp_probe, interleave_bench,
+    kernel_ablation, kernel_microbench, layout_probe, op_cost_probe,
+    opt_bench, soft16_ablation, soft16_pieces, staging_cost, swar_probe,
+    transpose_bench)
 from tpu_viterbi_torch.scripts.common import PIECE_RUNS  # noqa: E402
 from tpu_viterbi_torch.sharding.simulate import (  # noqa: E402
-    DEFAULT_SCALES, build_sharded_simulation)
+    DEFAULT_SCALES, build_sharded_simulation, count_errors)
 from tpu_viterbi_torch.utils import timing  # noqa: E402
 from tpu_viterbi_torch.utils.bits import (count_bit_errors,  # noqa: E402
                                           pack_msb_first)
@@ -97,8 +106,10 @@ K14, K15 = acs_variants_bench.K14, ilp_probe.K15
 K16, K17 = kernel_microbench.K16, dtype_throughput.K17
 K18, K19 = swar_probe.K18, opt_bench.K19
 K20, K23 = genkernel_probe.K20, staging_cost.K23
+K25, K26 = soft16_ablation.K25, transpose_bench.K26
+K28 = interleave_bench.K28
 KERNELS = core_cuda.KERNELS + genkernel.KERNELS + (
-    K9, K11, K12, K13, K14, K15, K16, K17, K18, K19, K20, K23)
+    K9, K11, K12, K13, K14, K15, K16, K17, K18, K19, K20, K23, K25, K26, K28)
 GEN_ROUNDS_K7 = genkernel.GEN_ROUNDS
 REPLACES = {"K1": "tpu_viterbi/decoder/core_pallas.py:638",
             "K2": "tpu_viterbi/decoder/core_pallas.py:683",
@@ -123,7 +134,11 @@ REPLACES = {"K1": "tpu_viterbi/decoder/core_pallas.py:638",
             "K21": "scripts/bench_profile.py:104",
             "K22": "scripts/bench_split.py:60",
             "K23": "scripts/staging_cost.py:241",
-            "K24": "scripts/soft16_pieces.py:107"}
+            "K24": "scripts/soft16_pieces.py:107",
+            "K25": "scripts/soft16_ablation.py:87",
+            "K26": "scripts/transpose_bench.py:68",
+            "K27": "scripts/fp32_fused_value_probe.py:95",
+            "K28": "scripts/interleave_bench.py:76"}
 CLI_SCALE = 40000.0                 # the CLI's channel scale (main.cpp:137)
 
 # Bounds: the least time the card could take for a kernel's work, the
@@ -1109,6 +1124,15 @@ def op_cost_phase(card: str, runs: dict):
         f"block-stage, {ACS_OPS} instructions, {rate:.1f} lane-instructions"
         f"/ns; semantic add4 {add4['lane_ops_per_ns']:.1f} lane-ops/ns); "
         f"table: {hardware.alu_model()}")
+    by = {r["variant"]: r for r in results}
+    n_ops = op_cost_probe.N_OPS
+    say("16 op cost", f"{card}: relayouts, a warp a column (constructs a "
+        f"clock per SM, SASS a step loop of {op_cost_probe.UNROLL}): " +
+        ", ".join(f"{v} {by[v]['ops_per_clock_per_sm'] / n_ops[v]:.2f} "
+                  f"({by[v]['sass_loop']})"
+                  for v in op_cost_probe.RELAYOUTS) +
+        f"; add {by['add']['ops_per_clock_per_sm']:.2f} "
+        f"({by['add']['sass_loop']})")
     return k_ms, p_ms, 0, bnd
 
 
@@ -1278,7 +1302,7 @@ def ablation_phase(card: str, runs: dict, k10_ms: float):
     for r in results:
         v = r["variant"]
         read = 4 * ka.WPP if v == "body" else ka.N_PACKS * ka.WPP
-        store = ka.N_PACKS * 64 if v in ("+dump", "+traceback") else 0
+        store = ka.N_PACKS * 64 if v in ("+dump",) + ka.TRACEBACKS else 0
         out_rows = ka.n_emit(v, ka.N_PACKS)
         bnd = bound((read + store + out_rows) * arrays * 4,
                     ka.OPS[v] * arrays * stages)
@@ -1288,9 +1312,12 @@ def ablation_phase(card: str, runs: dict, k10_ms: float):
             f"ns/stage/tile; SASS {r['sass_per_stage']:g} a stage; "
             f"registers {r['regs']}, stack {r['stack']} B; "
             f"{share(bnd, r['ms'])}")
+    by = {r["variant"]: r["ns_per_stage_tile"] for r in results}
     say("19 ablation", f"K10 in this run, K4 with every piece at the same "
         f"shape: {k10_ms:.4f} ms = {k10_ms * 1e6 / (stages * ka.GRID):.4f} "
-        f"ns/stage/tile")
+        f"ns/stage/tile; over +dump: +traceback "
+        f"{by['+traceback'] - by['+dump']:+.4f}, +tb(bisect) "
+        f"{by['+tb(bisect)'] - by['+dump']:+.4f} ns/stage/tile")
     full = ka.probe_input(ka.GRID, ka.N_PACKS, "cuda", seed=SEED)
     out, store = K13("+traceback", full, ka.GRID)
     p_ms, _, (want, want_store) = cuda_ms(
@@ -1298,10 +1325,7 @@ def ablation_phase(card: str, runs: dict, k10_ms: float):
     if not (torch.equal(out, want) and torch.equal(store, want_store)):
         raise AssertionError("K13 +traceback differs from its plain version "
                              "at the JAX shape")
-    tb = results[-1]
-    if tb["variant"] != "+traceback":
-        raise AssertionError("the ablation probe's last variant is not "
-                             "+traceback")
+    tb = next(r for r in results if r["variant"] == "+traceback")
     return tb["ms"], p_ms, 0, tb["bound"]
 
 
@@ -1725,6 +1749,200 @@ def soft16_pieces_phase(card: str, runs: dict):
         words.numel() * 4, cfg, plan)
 
 
+def ud_reader_phase(gen, runs: dict) -> int:
+    """K1's and K3's u/d-word reader: on random FP32 wires (NaN, +-inf)
+    staged by fp32_ud_words_torch, bit-equal to decode_ud_words_torch
+    (b32/b16 x dec_len 32/96/2048, full store and window); on
+    fp32_fused_value_probe's 2M-bit check wire, decode_ud_words_cuda equal
+    to K2 at 2048 and 8192 and to K3 at 4096 windowed.  Each decode is one
+    call of one kernel.  Returns the largest |diff| (0)."""
+    n_plans = 0
+    for out in (DecodeOut.O_B32, DecodeOut.O_B16):
+        cfg = DecoderConfig(ChannelIn.FP32, decode_out=out)
+        bpp = cfg.bits_per_pack
+        for dl in (32, 96, 2048):
+            plan = plan_blocks(dl * 300 - bpp, bpp, dl)
+            udw = fp32_ud_words_torch(random_words(cfg, plan, gen))
+            for window in (False, True):
+                held(f"K{3 if window else 1}-ud b{bpp} dec_len {dl}",
+                     core_cuda.decode_ud_words_cuda(udw, cfg, plan, window),
+                     assemble_output(decode_ud_words_torch(
+                         udw, cfg, plan, window), cfg, plan))
+                n_plans += 1
+    fp = fp32_fused_value_probe
+    v = fp.check_values(DECODE_CHECK_BITS, "cuda")
+    udw = fp32_ud_words_torch(v)
+    for dl, window in ((2048, False), (4096, True), (8192, False)):
+        plan = fp.make_plan(DECODE_CHECK_BITS, dl)
+        got, counts = counted(lambda: core_cuda.decode_ud_words_cuda(
+            udw, FP32, plan, window))
+        kernel = "K3" if window else "K1"
+        record(runs, counts, 1, [kernel], f"u/d words at {dl}")
+        if not torch.equal(got, core_cuda.decode_packed_cuda(
+                v, FP32, plan, window=window)):
+            raise AssertionError(f"the u/d route differs from "
+                                 f"{'K3' if window else 'K2'} at {dl}")
+    say("31 ud reader", f"K1-ud and K3-ud bit-equal to decode_ud_words_torch "
+        f"on {n_plans} plans (b32/b16 x dec_len 32/96/2048 x full/window, "
+        f"wires with NaN and +-inf); decode_ud_words_cuda(fp32_ud_words_"
+        f"torch(v)) == K2 at 2048 and 8192, == K3 at 4096 windowed on "
+        f"{DECODE_CHECK_BITS} bits of standard_normal x 5")
+    return 0
+
+
+def soft16_ablation_phase(card: str, runs: dict):
+    """K25: every variant bit-equal to its plain version on every program
+    of both grids (2048 and 15,872 arrays) at ABLATION_CHECK_PACKS packs,
+    then `python -m tpu_viterbi_torch.scripts.soft16_ablation` with the
+    counts set to 0, and each run's bound (its words read once, OPS
+    lane-operations an array-stage).  Returns K25's row: s16/unpack at the
+    JAX shape beside its plain version there."""
+    sa = soft16_ablation
+    for programs in (sa.GRID, sa.HEADLINE_TILES):
+        for v in sa.VARIANTS:
+            w = sa.probe_input(programs, ABLATION_CHECK_PACKS, sa.WPP[v],
+                               "cuda", seed=SEED)
+            held(f"K25 {v} at {programs} programs", K25(v, w, programs),
+                 sa.soft16_ablation_torch(v, w, programs))
+    say("32 soft16 ablation", f"K25 bit-equal to its plain version on all "
+        f"{len(sa.VARIANTS)} variants, every program of {sa.GRID} and "
+        f"{sa.HEADLINE_TILES} programs, {ABLATION_CHECK_PACKS} packs")
+    stages = sa.N_PACKS * 32
+    results = probe_results(
+        "32 soft16 ablation", card, runs, sa, "K25", "SOFT16 ablation",
+        lambda r: bound(r["programs"] * (sa.N_PACKS * sa.WPP[r["variant"]] + 1)
+                        * LT_BYTES, sa.OPS[r["variant"]] * r["arrays"] *
+                        stages))
+    for programs in (sa.GRID, sa.HEADLINE_TILES):
+        by = {r["variant"]: r["ns_per_stage_tile"] for r in results
+              if r["programs"] == programs}
+        say("32 soft16 ablation", f"{card}: {programs * 128} arrays: "
+            f"{sa.decomposition(by)}; LDG a loop pass " + ", ".join(
+                f"{r['variant']} {r['ldg']}" for r in results
+                if r["programs"] == programs))
+    w = sa.probe_input(sa.GRID, sa.N_PACKS, 32, "cuda", seed=SEED)
+    p_ms = held_to_plain("K25 s16/unpack at the JAX shape",
+                         K25("s16/unpack", w, sa.GRID),
+                         lambda: sa.soft16_ablation_torch("s16/unpack", w,
+                                                          sa.GRID))
+    row = next(r for r in results if r["variant"] == "s16/unpack" and
+               r["programs"] == sa.GRID)
+    return row["ms"], p_ms, 0, row["bound"]
+
+
+def transpose_phase(card: str, runs: dict):
+    """K26: every tiling's transpose of the JAX shape (15,744 x 1,056
+    int32) bit-equal to x.t(), the consumer on its output to its plain
+    version, then `python -m tpu_viterbi_torch.scripts.transpose_bench`
+    with the counts set to 0.  Returns K26's row: the 32x32 tiling (K6's
+    tile) beside transpose_torch, bound by its bytes, with
+    x.t().contiguous() as the library call."""
+    tb = transpose_bench
+    x = tb.probe_input("cuda", seed=SEED)
+    want = x.t().contiguous()
+    for tiling in tb.TILINGS:
+        held(f"K26 {tiling}", K26.transpose(tiling, x), want)
+    held("K26 consume", K26.consume(want), tb.consume_torch(want))
+    say("33 transpose", f"K26 bit-equal to its plain version: "
+        f"{', '.join(tb.TILINGS)} on ({tb.B}, {tb.LW}) int32, the consumer "
+        f"on the ({tb.LW}, {tb.B}) result")
+    res, counts = probe_run(tb.probe)
+    record(runs, counts, 1, ["K26"], "transpose bench")
+    bnd = bound(2 * x.numel() * 4)
+    say("33 transpose", f"{card}: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in res.items()) +
+        f" ms; {share(bnd, res['32x32'])} (32x32); best tiling "
+        f"{min(res[t] for t in tb.TILINGS):.4f} against torch "
+        f"{res['torch']:.4f}; consumer bound "
+        f"{bound(want.shape[0] * tb.SUM_COLS * 4)[0]:.6f} ms")
+    p_ms, _, _ = cuda_ms(lambda: tb.transpose_torch(x), 1)
+    return res["32x32"], p_ms, 0, bnd, res["torch"]
+
+
+def fp32_routes_phase(card: str, runs: dict):
+    """K27: the FP32 routes on K8's 32M-bit wire at 5.5 dB (the CLI's
+    --e2e-device generator and scale, seed SEED): K2 at 2048, K3 at 4096
+    windowed and the u/d route at 8192 each BEN 0; then `python -m
+    tpu_viterbi_torch.scripts.fp32_fused_value_probe` (its check, then
+    every route at 32M bits) with the counts set to 0: K1, K2 and K3 are
+    its launches.  Returns K27's row: K2 at 2048 on the probe's wire,
+    beside its plain version."""
+    fp = fp32_fused_value_probe
+    packs, wire = packed_workload_cuda(SEED, HEADLINE_BITS, ChannelIn.FP32,
+                                       5.5, CLI_SCALE)
+    m = FP32.get_message_len(2 * HEADLINE_BITS)
+    ref = ref_words_from_packs(packs, FP32.extra_l, m)
+    bens = {}
+    for label, dl, window in (("K2 2048", 2048, False),
+                              ("K3 4096 window", 4096, True),
+                              ("u/d 8192", 8192, False)):
+        plan = fp.make_plan(HEADLINE_BITS, dl)
+        out = core_cuda.decode_ud_words_cuda(fp32_ud_words_torch(wire), FP32,
+                                             plan, window) \
+            if label.startswith("u/d") else \
+            core_cuda.decode_packed_cuda(wire, FP32, plan, window=window)
+        bens[label] = int(count_errors(out, ref, 32, plan.message_len))
+    if any(bens.values()):
+        raise AssertionError(f"FP32 routes on K8's wire: BEN {bens}")
+    say("34 fp32 routes", f"K8's {HEADLINE_BITS}-bit FP32 wire at 5.5 dB "
+        f"(seed {SEED}, scale {CLI_SCALE:g}): BEN {bens}")
+    res, counts = probe_run(fp.probe)
+    if not all(res["check"].values()):
+        raise AssertionError(f"fp32_fused_value_probe's check: "
+                             f"{res['check']}")
+    record(runs, {"K27": counts["K1"] + counts["K2"] + counts["K3"]}, 1,
+           ["K27"], "FP32 routes")
+    x = fp.wire(HEADLINE_BITS, "cuda")
+    plan = fp.make_plan(HEADLINE_BITS, 2048)
+    label = "fused-value dl=2048 win=False (K2)"
+    bnd = decode_bound(x.numel() * 4, FP32, plan)
+    udw = fp32_ud_words_torch(x)
+    say("34 fp32 routes", f"{card}: " + "; ".join(
+        f"{k} {v:.4f} ms" for k, v in res.items() if k != "check") +
+        f"; launches K1 {counts['K1']}, K2 {counts['K2']}, K3 "
+        f"{counts['K3']}; K2 {share(bnd, res[label])}; the u/d staging's "
+        f"bound {bound((x.numel() + udw.numel()) * 4)[0]:.4f} ms by bytes")
+    p_ms, _, _ = cuda_ms(lambda: decode_blocks_torch(x, FP32, plan), 1)
+    return res[label], p_ms, 0, bnd
+
+
+INTERLEAVE_CHECK_REPS = 13          # two passes of 6 and a tail rep
+
+
+def interleave_phase(card: str, runs: dict):
+    """K28: every variant bit-equal to its plain version after
+    INTERLEAVE_CHECK_REPS reps at the JAX shape and the full grid, then
+    `python -m tpu_viterbi_torch.scripts.interleave_bench` (its check, then
+    both grids) with the counts set to 0, and each run's bound (OPS
+    lane-operations a column-rep).  Returns K28's row: regs at the JAX
+    shape beside its plain version there."""
+    ib = interleave_bench
+    for tiles in (ib.N_TILES, ib.full_tiles("cuda")):
+        x = ib.probe_input(tiles, "cuda", seed=SEED)
+        for v in ib.VARIANTS:
+            held(f"K28 {v} at {tiles} tiles",
+                 K28(v, x, INTERLEAVE_CHECK_REPS),
+                 ib.interleave_torch(v, x, INTERLEAVE_CHECK_REPS))
+    say("35 interleave", f"K28 bit-equal to its plain version on all "
+        f"{len(ib.VARIANTS)} variants at {ib.N_TILES} and "
+        f"{ib.full_tiles('cuda')} tiles, {INTERLEAVE_CHECK_REPS} reps")
+    res, counts = probe_run(ib.probe)
+    if res["correct"] != {v: v != "concat" for v in ib.VARIANTS}:
+        raise AssertionError(f"the interleave check: {res['correct']}")
+    record(runs, counts, 1, ["K28"], "interleave bench")
+    for r in res["runs"]:
+        r["bound"] = bound(2 * ib.ROWS * r["columns"] * 4,
+                           ib.OPS[r["variant"]] * r["columns"] * ib.REPS)
+        say("35 interleave", f"{card}: {ib.describe(r)}; "
+            f"{share(r['bound'], r['ms'])}")
+    x = ib.probe_input(ib.N_TILES, "cuda", seed=SEED)
+    p_ms = held_to_plain("K28 regs at the JAX shape", K28("regs", x, ib.REPS),
+                         lambda: ib.interleave_torch("regs", x, ib.REPS))
+    row = next(r for r in res["runs"] if r["variant"] == "regs" and
+               r["tiles"] == ib.N_TILES)
+    return row["ms"], p_ms, 0, row["bound"]
+
+
 def main() -> int:
     card = device_phase()
     build_phase()
@@ -1771,6 +1989,11 @@ def main() -> int:
     times["K22"] = bench_split_phase(card, runs)
     times["K23"] = staging_cost_phase(card, runs)
     times["K24"] = soft16_pieces_phase(card, runs)
+    ud_reader_phase(gen, runs)
+    times["K25"] = soft16_ablation_phase(card, runs)
+    times["K26"] = transpose_phase(card, runs)
+    times["K27"] = fp32_routes_phase(card, runs)
+    times["K28"] = interleave_phase(card, runs)
     # launches a call, measured in the main-path runs: where the design
     # fixes it, it must be so (one a decode or a generation; the op-cost
     # ILP and dtype probes' two step counts, the layout, microbenchmark,
@@ -1805,9 +2028,22 @@ def main() -> int:
     want["K22"] = 4 * runs_a_piece + 1
     want["K23"] = runs_a_piece
     want["K24"] = len(soft16_pieces.CONFIGS) * (2 * runs_a_piece + 1)
+    # K25: two array counts; K26: torch + consume, each tiling and the
+    # consumer, one warm-up and REPS timed each; K27: the check's 4 decodes,
+    # then one warm-up and RUNS timed calls a decoding route; K28: the
+    # check's one launch a variant, then two grids
+    want["K25"] = 2 * len(soft16_ablation.VARIANTS) * (
+        soft16_ablation.REPS + 1)
+    want["K26"] = (len(transpose_bench.TILINGS) + 2) * (
+        transpose_bench.REPS + 1)
+    want["K27"] = 4 + sum(kind != "staging" for *_, kind in
+                          fp32_fused_value_probe.ROUTES) * (
+        fp32_fused_value_probe.RUNS + 1)
+    want["K28"] = len(interleave_bench.VARIANTS) * (
+        1 + 2 * (interleave_bench.RUNS + 1))
     rows = [(k.name, str(k.source.relative_to(ROOT))) for k in KERNELS]
     rows += [(name, str(K1.source.relative_to(ROOT)))
-             for name in ("K10", "K21", "K22", "K24")]
+             for name in ("K10", "K21", "K22", "K24", "K27")]
     rows.sort(key=lambda r: int(r[0][1:]))
     per_call = {name: launches_per_call(runs, name, want.get(name))
                 for name, _ in rows}

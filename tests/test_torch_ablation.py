@@ -22,7 +22,8 @@ from tpu_viterbi_torch.scripts import kernel_ablation
 REPO = Path(__file__).resolve().parents[1]
 N_PACKS = 4
 FLAGS = {"body": (False, False, False), "+unpack": (True, False, False),
-         "+dump": (True, True, False), "+traceback": (True, True, True)}
+         "+dump": (True, True, False), "+traceback": (True, True, True),
+         "+tb(bisect)": (True, True, True, True)}
 torch.set_num_threads(1)
 
 
@@ -85,7 +86,7 @@ def test_ablation_plain_matches_jax_interpret(variant):
     got, surv = kernel_ablation.ablation_torch(variant, xt, 1)
     n_emit = kernel_ablation.n_emit(variant, N_PACKS)
     assert got.shape == (1, n_emit, 128) and got.dtype == torch.int32
-    if variant == "+traceback":
+    if variant in kernel_ablation.TRACEBACKS:
         assert np.array_equal(got[0, :N_PACKS - 2].numpy(),
                               want[:N_PACKS - 2])
         assert not got[0, N_PACKS - 2].any()
@@ -105,14 +106,18 @@ def test_ablation_plain_matches_jax_interpret(variant):
 
 
 def test_ablation_bisect_traceback_equals_onehot():
-    """The JAX probe's +tb(bisect) is a TPU relayout of the same read as
-    +traceback: the two JAX outputs are equal, so the port has one
-    traceback variant."""
+    """The JAX probe's +tb(bisect) reads the store through a select tree
+    and +traceback through a one-hot sum: the two JAX outputs are equal, and
+    so are the port's two variants (its own select tree and its gather)."""
     mod = _jax_ablation()
     x = _words(22)
     onehot, _ = _run_jax(mod, x, True, True, True)
     bisect, _ = _run_jax(mod, x, True, True, True, bisect_tb=True)
     assert np.array_equal(onehot[:N_PACKS - 2], bisect[:N_PACKS - 2])
+    xt = torch.from_numpy(x)
+    tb, tb_store = kernel_ablation.ablation_torch("+traceback", xt, 1)
+    bs, bs_store = kernel_ablation.ablation_torch("+tb(bisect)", xt, 1)
+    assert torch.equal(tb, bs) and torch.equal(tb_store, bs_store)
 
 
 def test_ablation_programs_are_independent():
@@ -132,7 +137,7 @@ def test_ablation_programs_are_independent():
 def test_ablation_rejections():
     words = kernel_ablation.probe_input(2, N_PACKS, "cpu")
     with pytest.raises(ValueError, match="unknown variant"):
-        kernel_ablation.K13("+tb(bisect)", words, 2)
+        kernel_ablation.K13("nope", words, 2)
     with pytest.raises(ValueError, match="int32 words"):
         kernel_ablation.K13("body", words[:, :8].contiguous(), 2)
     with pytest.raises(ValueError, match="int32 words"):

@@ -7,7 +7,9 @@ the hardware model (K9's probe, K3's shared-memory gate), the op-cost
 kernels K11 and the canary K10; the probes' kernels K12-K15 (layout,
 ablation, ACS variants, ILP) and K16-K19 (constructs, dtype rates, int16x2
 SWAR, 16-bit ACS) against their plain versions, the generator probe K20
-and the roll-halo decode K23 against theirs, and the probes' entry
+and the roll-halo decode K23 against theirs, K1's and K3's u/d-word reader,
+the last probes' kernels K25 (SOFT16 ablation), K26 (transpose and its
+consumer) and K28 (interleave) against theirs, and the probes' entry
 points.
 Every test here needs a CUDA GPU and skips without one; the
 file imports no jax, so it runs on a machine that has only the port's
@@ -30,11 +32,14 @@ from tpu_viterbi_torch.decoder import core_cuda, core_torch
 from tpu_viterbi_torch.decoder.streaming import StreamingViterbi
 from tpu_viterbi_torch.scripts import (acs_variants_bench, bench_profile,
                                        bench_split, dtype_throughput,
+                                       fp32_fused_value_probe,
                                        genkernel_probe, ilp_probe,
-                                       kernel_ablation, kernel_microbench,
-                                       layout_probe, op_cost_probe,
-                                       opt_bench, soft16_pieces,
-                                       staging_cost, swar_probe)
+                                       interleave_bench, kernel_ablation,
+                                       kernel_microbench, layout_probe,
+                                       op_cost_probe, opt_bench,
+                                       soft16_ablation, soft16_pieces,
+                                       staging_cost, swar_probe,
+                                       transpose_bench)
 from tpu_viterbi_torch.sharding import simulate
 from tpu_viterbi_torch.utils import timing
 
@@ -761,4 +766,122 @@ def test_k23_matches_plain(gpu, dec_len):
 def test_split_probe_entry_points(gpu, mod, argv):
     """`python -m tpu_viterbi_torch.scripts.<probe>`'s main() runs on the
     card (the decode probes at 2M bits) and returns 0."""
+    assert mod.main(argv) == 0
+
+
+# --- K1's u/d reader and the last probes' kernels K25, K26, K28 ---
+
+@pytest.mark.parametrize("out", [DecodeOut.O_B32, DecodeOut.O_B16],
+                         ids=lambda o: o.name)
+@pytest.mark.parametrize("dec_len", [32, 96, 2048])
+@pytest.mark.parametrize("window", [False, True])
+def test_ud_words_match_plain(gpu, rng, out, dec_len, window):
+    """K1 (K3 with the window) on the u/d words of a wire with NaN and
+    +-inf: equal to decode_ud_words_torch on the same words, one launch;
+    and, with the NaNs taken out, equal to K2 (K3) on the wire."""
+    cfg = DecoderConfig(ChannelIn.FP32, decode_out=out)
+    bpp = cfg.bits_per_pack
+    plan = core_torch.plan_blocks(dec_len * 300 - bpp, bpp, dec_len)
+    x = torch.from_numpy(_words(rng, cfg, plan)).to(gpu)
+    udw = core_torch.fp32_ud_words_torch(x)
+    kernel = core_cuda.K3 if window else core_cuda.K1
+    before = kernel.launches
+    got = core_cuda.decode_ud_words_cuda(udw, cfg, plan, window)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    want = core_torch.assemble_output(core_torch.decode_ud_words_torch(
+        udw, cfg, plan, window), cfg, plan)
+    assert torch.equal(got, want)
+    x = torch.nan_to_num(x, nan=0.0, posinf=float("inf"),
+                         neginf=float("-inf"))
+    assert torch.equal(
+        core_cuda.decode_ud_words_cuda(core_torch.fp32_ud_words_torch(x),
+                                       cfg, plan, window),
+        core_cuda.decode_packed_cuda(x, cfg, plan, window=window))
+
+
+def test_fp32_probe_check(gpu):
+    """K27's check at 200,000 bits: the u/d route equals K2 (full store,
+    2048) and K3 (window, 4096) on the JAX script's wire."""
+    assert fp32_fused_value_probe.check(200_000, gpu) == {"full": True,
+                                                          "window": True}
+
+
+@pytest.mark.parametrize("programs", [soft16_ablation.GRID, 3])
+@pytest.mark.parametrize("variant", soft16_ablation.VARIANTS)
+def test_k25_matches_plain(gpu, variant, programs):
+    """Three packs on the JAX grid and on 3 programs: equal to the plain
+    version; one launch; a refused shape raises before any launch."""
+    sa = soft16_ablation
+    words = sa.probe_input(programs, 3, sa.WPP[variant], gpu, seed=25)
+    before = sa.K25.launches
+    got = sa.K25(variant, words, programs)
+    torch.cuda.synchronize()
+    assert sa.K25.launches == before + 1
+    assert torch.equal(got, sa.soft16_ablation_torch(variant, words,
+                                                     programs))
+    with pytest.raises(ValueError):
+        sa.K25(variant, words[:, :8].contiguous(), programs)
+    assert sa.K25.launches == before + 1
+
+
+@pytest.mark.parametrize("shape", [(96, 80), (15744 // 8, 1056), (33, 130),
+                                   (1, 1)])
+def test_k26_matches_plain(gpu, shape):
+    """Every tiling's transpose equals x.t() (ragged tiles included), the
+    consumer equals its plain version and torch's sum; one launch each."""
+    tb = transpose_bench
+    x = tb.probe_input(gpu, *shape, seed=26)
+    before = tb.K26.launches
+    for tiling in tb.TILINGS:
+        assert torch.equal(tb.K26.transpose(tiling, x), x.t())
+    n = len(tb.TILINGS)
+    if shape[0] >= tb.SUM_COLS:
+        t = x.t().contiguous()
+        got = tb.K26.consume(t)
+        assert torch.equal(got, tb.consume_torch(t))
+        assert torch.equal(got, t[:, :128].sum(0, dtype=torch.int32))
+        n += 1
+    torch.cuda.synchronize()
+    assert tb.K26.launches == before + n
+
+
+@pytest.mark.parametrize("reps", [1, 5, 6, 13])
+@pytest.mark.parametrize("variant", interleave_bench.VARIANTS)
+def test_k28_matches_plain(gpu, variant, reps):
+    """Two tiles and a ragged 200 columns, reps around the shuffle's order
+    6: equal to the plain version; one launch each; the script's check."""
+    ib = interleave_bench
+    before = ib.K28.launches
+    for x in (ib.probe_input(2, gpu, seed=reps), ib.probe_input(
+            2, gpu, seed=reps)[:, :200].contiguous()):
+        assert torch.equal(ib.K28(variant, x, reps),
+                           ib.interleave_torch(variant, x, reps))
+    torch.cuda.synchronize()
+    assert ib.K28.launches == before + 2
+    assert ib.check_correct(variant, gpu) == (variant != "concat")
+
+
+def test_last_probe_sass_readings(gpu):
+    """K25's and K28's loops, K11's relayouts and K13's bisect are in the
+    library's SASS; a relayout's step loop holds a SHFL a construct."""
+    for mod, keys in ((soft16_ablation, soft16_ablation.VARIANTS),
+                      (interleave_bench, interleave_bench.VARIANTS),
+                      (kernel_ablation, kernel_ablation.VARIANTS)):
+        counts = mod.sass_counts()
+        assert set(counts) == set(keys)
+        for loop, res, mix in counts.values():
+            assert loop > 0 and 0 < res["REG"] <= 255
+    counts = op_cost_probe.sass_loop_counts()
+    assert set(counts) == set(op_cost_probe.VARIANTS)
+
+
+@pytest.mark.parametrize("mod,argv", [
+    (soft16_ablation, ["s8/unpack"]), (transpose_bench, []),
+    (fp32_fused_value_probe, ["2000000"]), (interleave_bench, ["shfl"])],
+    ids=lambda p: p.__name__.rsplit(".", 1)[1] if hasattr(p, "__name__")
+    else " ".join(p))
+def test_last_probe_entry_points(gpu, mod, argv):
+    """`python -m tpu_viterbi_torch.scripts.<probe>`'s main() runs on the
+    card and returns 0."""
     assert mod.main(argv) == 0

@@ -266,9 +266,10 @@ def _jax_op_cost_probe():
 
 @pytest.mark.parametrize("variant", op_cost_probe.VARIANTS)
 def test_op_cost_plain_matches_jax_interpret(variant):
-    """Each ported variant's plain version after `steps` steps equals the
-    JAX probe's make_kernel(variant, steps) run in interpret mode on the
-    same (32, 128) numpy input; so does K11's wrapper on a CPU tensor."""
+    """Each variant's plain version after `steps` steps equals the JAX
+    probe's make_kernel(variant, steps) run in interpret mode on the same
+    (32, 128) numpy input (permgather: its construct outside Pallas); so
+    does K11's wrapper on a CPU tensor."""
     jprobe = _jax_op_cost_probe()
     assert op_cost_probe.N_OPS[variant] == jprobe.N_OPS[variant]
     assert (op_cost_probe.UNROLL, op_cost_probe.STEPS_LO,
@@ -277,13 +278,23 @@ def test_op_cost_plain_matches_jax_interpret(variant):
     steps = 3
     x = np.random.default_rng(5).integers(-2 ** 31, 2 ** 31, (32, 128),
                                           dtype=np.int64).astype(np.int32)
-    call = pl.pallas_call(
-        jprobe.make_kernel(variant, steps), grid=(1,),
-        in_specs=[pl.BlockSpec((32, 128), lambda i: (0, 0))],
-        out_specs=pl.BlockSpec((32, 128), lambda i: (0, 0)),
-        out_shape=jax.ShapeDtypeStruct((32, 128), jnp.int32),
-        interpret=True)
-    want = np.asarray(call(jnp.asarray(x)))
+    if variant == "permgather":
+        # its kernel captures the constant PERM, which this jax's interpret
+        # mode refuses ("captures constants [i32[32]]"): the same construct,
+        # jnp.take(a, PERM, axis=0) + c, is evaluated outside Pallas
+        perm = jnp.asarray(np.r_[1:32, 0], dtype=jnp.int32)
+        a = c = jnp.asarray(x)
+        for _ in range(steps * jprobe.UNROLL):
+            a = jnp.take(a, perm, axis=0) + c
+        want = np.asarray(a)
+    else:
+        call = pl.pallas_call(
+            jprobe.make_kernel(variant, steps), grid=(1,),
+            in_specs=[pl.BlockSpec((32, 128), lambda i: (0, 0))],
+            out_specs=pl.BlockSpec((32, 128), lambda i: (0, 0)),
+            out_shape=jax.ShapeDtypeStruct((32, 128), jnp.int32),
+            interpret=True)
+        want = np.asarray(call(jnp.asarray(x)))
     xt = torch.from_numpy(x)
     assert np.array_equal(op_cost_probe.op_cost_torch(variant, xt,
                                                       steps).numpy(), want)
@@ -298,9 +309,9 @@ def test_op_cost_probe_rejections():
     x = op_cost_probe.probe_input("cpu")
     assert x.dtype == torch.int32 and int(x.min()) >= 0 and int(x.max()) <= 6
     with pytest.raises(ValueError, match="unknown variant"):
-        op_cost_probe.op_cost_torch("merge", x, 1)
+        op_cost_probe.op_cost_torch("nope", x, 1)
     with pytest.raises(ValueError, match="unknown variant"):
-        op_cost_probe.K11("rollsub", x, 1, 1)
+        op_cost_probe.K11("nope", x, 1, 1)
     with pytest.raises(ValueError, match="int32 tile"):
         op_cost_probe.K11("add", x.T, 1, 1)
     with pytest.raises(ValueError, match="tiles > 0"):

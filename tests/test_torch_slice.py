@@ -248,6 +248,10 @@ def test_port_imports_no_jax():
             "import tpu_viterbi_torch.scripts.bench_split\n"
             "import tpu_viterbi_torch.scripts.staging_cost\n"
             "import tpu_viterbi_torch.scripts.soft16_pieces\n"
+            "import tpu_viterbi_torch.scripts.soft16_ablation\n"
+            "import tpu_viterbi_torch.scripts.transpose_bench\n"
+            "import tpu_viterbi_torch.scripts.fp32_fused_value_probe\n"
+            "import tpu_viterbi_torch.scripts.interleave_bench\n"
             "bad = [m for m in sys.modules\n"
             "       if m == 'jax' or m.startswith(('jax.', 'tpu_viterbi.'))\n"
             "       or m == 'tpu_viterbi']\n"

@@ -16,6 +16,11 @@
 //                 (pack >> 26) & 63: output row kp - 1 gets the pack of kp
 //                 for kp = n_packs - 2 .. 1, and row n_packs - 2, which the
 //                 JAX kernel never writes, gets 0
+//   4 +tb(bisect) the same chase, each pack chosen by a select tree (JAX
+//                 :102-108): the thread loads all 64 words of its column of
+//                 pack kp, addresses that do not depend on the state, then
+//                 halves them 6 times on the state's bits 5 .. 0.  Its
+//                 output equals +traceback's.
 // Output: (programs, 1, 128) = (pm + pp)[0] per program, or (programs,
 // n_packs - 1, 128) with +traceback.  The stage is K1's acs_stage (acs.cuh),
 // wrapping.  The plain PyTorch version is ablation_torch in
@@ -28,7 +33,9 @@
 // design does about it: it is K1's, piece for piece: one thread per array,
 // 64 CUDA threads a block, a loop of two stages whose next input loads
 // while it runs (K1's reader runs a word ahead), the store's 32
-// neighbouring arrays a warp written as one coalesced row.
+// neighbouring arrays a warp written as one coalesced row.  The bisect
+// trades +traceback's one load a pack, whose address waits for the last
+// one, for 64 loads a pack that can all be in flight, and 63 selects.
 
 #include <cuda_runtime.h>
 
@@ -56,11 +63,22 @@ __device__ __forceinline__ Bm raw_bm(const int* w, int s) {
   return m;
 }
 
+// One level of the bisect's select tree: x[0 .. H) = the upper or lower
+// half of x[0 .. 2H) by the state's bit log2(H).  H is a template argument
+// so that every index is a constant and x stays in registers.
+template <int H>
+__device__ __forceinline__ void halve(uint32_t (&x)[kStates], int state) {
+  const bool hi = (state / H) & 1;
+#pragma unroll
+  for (int j = 0; j < H; ++j) x[j] = hi ? x[H + j] : x[j];
+}
+
 template <int V>
 __global__ void __launch_bounds__(kThreads)
 ablation_kernel(const int* __restrict__ words, uint32_t* __restrict__ surv,
                 int* __restrict__ out, int programs, int n_packs) {
   constexpr bool kUnpack = V >= 1, kDump = V >= 2, kTrace = V >= 3;
+  constexpr bool kBisect = V == 4;
   const int arrays = programs * kCols;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= arrays) return;
@@ -113,8 +131,24 @@ ablation_kernel(const int* __restrict__ words, uint32_t* __restrict__ surv,
     int state = 0;
     for (int k = 0; k < n_emit; ++k) {
       const int kp = n_packs - 1 - k;
-      const uint32_t pack =
-          surv[(static_cast<size_t>(kp) * kStates + state) * arrays + i];
+      uint32_t pack;
+      if constexpr (kBisect) {
+        const uint32_t* col = surv + static_cast<size_t>(kp) * kStates * arrays
+                              + i;
+        uint32_t x[kStates];
+#pragma unroll
+        for (int s = 0; s < kStates; ++s)
+          x[s] = col[static_cast<size_t>(s) * arrays];
+        halve<32>(x, state);
+        halve<16>(x, state);
+        halve<8>(x, state);
+        halve<4>(x, state);
+        halve<2>(x, state);
+        halve<1>(x, state);
+        pack = x[0];
+      } else {
+        pack = surv[(static_cast<size_t>(kp) * kStates + state) * arrays + i];
+      }
       if (k >= 1) o[(kp - 1) * kCols] = static_cast<int>(pack);
       state = static_cast<int>((pack >> 26) & 63u);
     }
@@ -138,10 +172,11 @@ cudaError_t launch(const int* words, uint32_t* surv, int* out, int programs,
 
 using namespace viterbi_ablation;
 
-// Launch variant `variant` (0 body, 1 +unpack, 2 +dump, 3 +traceback) over
+// Launch variant `variant` (0 body, 1 +unpack, 2 +dump, 3 +traceback, 4
+// +tb(bisect)) over
 // `programs` programs of n_packs (>= 4) packs: words holds programs x
-// n_packs x 16 x 128 int32, surv n_packs x 64 x programs x 128 uint32 (read
-// only by variants 2 and 3), out programs x (1 or n_packs - 1) x 128 int32.
+// n_packs x 16 x 128 int32, surv n_packs x 64 x programs x 128 uint32 (used
+// only by variants 2-4), out programs x (1 or n_packs - 1) x 128 int32.
 // Returns the cudaError_t of the launch (0 = launched).
 extern "C" int viterbi_k13_launch(int variant, const void* words, void* surv,
                                   void* out, int programs, int n_packs,
@@ -158,6 +193,7 @@ extern "C" int viterbi_k13_launch(int variant, const void* words, void* surv,
     case 1: return static_cast<int>(launch<1>(w, sv, o, programs, n_packs, s));
     case 2: return static_cast<int>(launch<2>(w, sv, o, programs, n_packs, s));
     case 3: return static_cast<int>(launch<3>(w, sv, o, programs, n_packs, s));
+    case 4: return static_cast<int>(launch<4>(w, sv, o, programs, n_packs, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -11,10 +11,14 @@
 //     int32 words, read from the flat stream), full store.  Replaces the TPU
 //     kernel tpu_viterbi/decoder/core_pallas.py:_viterbi_kernel_fused (the
 //     word-mode unpack of _viterbi_kernel and the full-store branch of
-//     _decode_core).
+//     _decode_core); with UdReader (width code kUdWidth) the FP32 channel's
+//     u/d words, its ud_mode branch (:600-602), which the JAX package
+//     reaches through _run_kernel_fused(..., ud_mode=True) (:1167-1177).
 //   - K2, viterbi_k2_launch: FloatReader (the FP32 channel's raw interleaved
-//     f32 wire), full store.  Replaces _viterbi_kernel_fused_f32v; none of its
-//     TPU staging is ported (_body_and_edge's roll halo, fp32_ud_words).
+//     f32 wire), full store.  Replaces _viterbi_kernel_fused_f32v; its TPU
+//     staging (_body_and_edge's roll halo) is not needed: K2 reads the flat
+//     wire.  The u/d-word staging core_xla.fp32_ud_words is
+//     core_torch.fp32_ud_words_torch, plain torch ops as the JAX one is XLA.
 //   - K3, viterbi_k3_launch: K1's and K2's readers with the windowed
 //     survivor ring in shared memory.  Replaces the window=True branch of
 //     _decode_core (:440-486) with its slot count survivor_window_slots
@@ -120,7 +124,11 @@ struct Source {
 // span several following bodies when dec_len < 64); words past the stream
 // read as zero.  STAGED = true (K4 word mode): row i of column k of K6's
 // (Lw, B) output, so a warp's 32 loads are one coalesced row segment.
-template <int WIDTH, bool STAGED = false>
+// UD = true (K1 and K3 on the FP32 channel's u/d words, WIDTH 8): the two
+// fields of a stage ARE u and d, trunc(r0 + r1) and trunc(r0 - r1) packed
+// by the staging (core_torch.fp32_ud_words_torch), so no add or sub
+// follows the unpack (core_pallas.py:600-602).
+template <int WIDTH, bool STAGED = false, bool UD = false>
 struct IntReader {
   static constexpr int kPairsPerWord = 16 / WIDTH;
   static constexpr bool kWrap = false;
@@ -165,9 +173,21 @@ struct IntReader {
       a1 = static_cast<int>(cur << WIDTH) >> (32 - WIDTH);
     }
     if constexpr (2 * WIDTH < 32) cur <<= 2 * WIDTH;
-    int_bm(a0, a1, m);
+    if constexpr (UD) {
+      m.u = a0;
+      m.d = a1;
+      m.nu = -a0;
+      m.nd = -a1;
+    } else {
+      int_bm(a0, a1, m);
+    }
   }
 };
+
+// K1's and K3's reader of the u/d words: SOFT8's framing (4 fields a word,
+// so wph = 2 * WARMUP / 4, core_pallas.py:896), fields taken as (u, d).
+using UdReader = IntReader<8, false, true>;
+constexpr int kUdWidth = -8;  // the entry points' width code for UdReader
 
 // Reader of the FP32 channel's raw interleaved wire [r0, r1, r0, r1, ...]:
 // one float4 holds two stages.  Block k starts at value `first` =
@@ -499,8 +519,9 @@ using namespace viterbi;
 // Plain C entry points (bound with ctypes), one per decode kernel, all with
 // one signature: p0, p1, n, stride make the reader's Source; surv: the full
 // store, or null for the window (K4, K5; K1 and K2 need it, K3 ignores it);
-// width: the channel's field width (1, 4, 8, 16) for words, 0 for f32
-// values, 32 for int32 values (K4); n_slots: the ring's W >= 3 for the
+// width: the channel's field width (1, 4, 8, 16) for words, kUdWidth (-8)
+// for the FP32 channel's u/d words (K1, K3), 0 for f32 values, 32 for int32
+// values (K4); n_slots: the ring's W >= 3 for the
 // window.  Each returns the cudaError_t of the launch (0 = launched).
 #define VITERBI_CASE(W, R, B, WINDOW)                                      \
   if (width == W && bpp == B)                                              \
@@ -539,6 +560,8 @@ extern "C" int viterbi_k1_launch(VITERBI_ARGS) {
   VITERBI_CASE(8, IntReader<8>, 16, false)
   VITERBI_CASE(16, IntReader<16>, 32, false)
   VITERBI_CASE(16, IntReader<16>, 16, false)
+  VITERBI_CASE(kUdWidth, UdReader, 32, false)
+  VITERBI_CASE(kUdWidth, UdReader, 16, false)
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -565,6 +588,8 @@ extern "C" int viterbi_k3_launch(VITERBI_ARGS) {
   VITERBI_CASE(8, IntReader<8>, 16, true)
   VITERBI_CASE(16, IntReader<16>, 32, true)
   VITERBI_CASE(16, IntReader<16>, 16, true)
+  VITERBI_CASE(kUdWidth, UdReader, 32, true)
+  VITERBI_CASE(kUdWidth, UdReader, 16, true)
   return static_cast<int>(cudaErrorInvalidValue);
 }
 #endif

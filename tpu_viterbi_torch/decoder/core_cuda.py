@@ -18,9 +18,11 @@ kernel template), which exports one plain C entry point per kernel
 (``tpu_viterbi_torch/library.py``).
 
 K1-K3 take none of the TPU staging (``_body_and_edge``, the lane-roll
-halo, ``padded_input_words``, ``LANE_TILE``, ``fp32_ud_words``): each
-thread reads its block's words straight from the flat stream, halo
-included, with zero fill past its end.  The staged entries
+halo, ``padded_input_words``, ``LANE_TILE``): each thread reads its
+block's words straight from the flat stream, halo included, with zero
+fill past its end.  K1 and K3 also read the FP32 channel's u/d words
+(``decode_ud_words_cuda`` on ``core_torch.fp32_ud_words_torch``), the JAX
+kernel's ``ud_mode``.  The staged entries
 (``decode_packed_cuda(fused=False)``, ``fp32_words=False``,
 ``decode_blocks_cuda``) stage through K6 first, as the JAX package's
 A/B paths do; ``b_pad`` is B on the GPU.
@@ -43,9 +45,10 @@ from .. import hardware, library
 from ..config import ChannelIn, ConfigResolutionError, DecoderConfig
 from .core_torch import (BlockPlan, assemble_output, clamp_split,
                          decode_blocks_torch, decode_planes_torch,
-                         decode_staged_torch, needs_int32_renorm,
-                         stage_transpose, staged_word_mode,
-                         survivor_window_slots, traceback_shape,
+                         decode_staged_torch, decode_ud_words_torch,
+                         needs_int32_renorm, stage_transpose,
+                         staged_word_mode, survivor_window_slots,
+                         traceback_shape, ud_words_per_block,
                          words_per_block)
 
 SOURCE = library.CSRC / "viterbi.cu"        # K1 ... K6
@@ -356,6 +359,37 @@ def decode_blocks_cuda(r: torch.Tensor, cfg: DecoderConfig,
     return assemble_output(K4(staged, cfg, plan), cfg, plan)
 
 
+UD_WIDTH = -8       # viterbi.cu's kUdWidth: K1's and K3's u/d-word reader
+
+
+def decode_ud_words_cuda(udw: torch.Tensor, cfg: DecoderConfig,
+                         plan: BlockPlan, window: bool = False
+                         ) -> torch.Tensor:
+    """The FP32 channel's u/d words (``core_torch.fp32_ud_words_torch``) ->
+    flat int32 packed output words: K1's reader in ``ud`` mode (K3's with
+    ``window``), the counterpart of ``_run_kernel_fused(..., vpw=4,
+    width=8, ud_mode=True)`` (core_pallas.py:1167-1177).  The words are
+    framed as SOFT8's (``ud_words_per_block``); ``cfg`` is the FP32
+    configuration.  On a CPU tensor its plain version,
+    ``decode_ud_words_torch``."""
+    if cfg.channel_in != ChannelIn.FP32:
+        raise ConfigResolutionError(
+            f"u/d words are the FP32 channel's wire, not "
+            f"{cfg.channel_in.name}'s")
+    kernel = K3 if window else K1
+    if kernel._check_device(udw):
+        packs = decode_ud_words_torch(udw, cfg, plan, window)
+    else:
+        if udw.dtype != torch.int32 or udw.dim() != 1 \
+                or not udw.is_contiguous():
+            raise ValueError(f"{kernel.name} takes contiguous 1-D int32 u/d "
+                             f"words, got {udw.dtype} {tuple(udw.shape)}")
+        wpb, _ = ud_words_per_block(plan)
+        packs = kernel._decode(udw.device, udw.data_ptr(), None, udw.numel(),
+                               wpb, cfg, plan, UD_WIDTH, window)
+    return assemble_output(packs, cfg, plan)
+
+
 def decode_packed_cuda(packed: torch.Tensor, cfg: DecoderConfig,
                        plan: BlockPlan, fused: bool = True,
                        fp32_words: bool = True, window: bool = False,
@@ -368,9 +402,13 @@ def decode_packed_cuda(packed: torch.Tensor, cfg: DecoderConfig,
       flat stream; ``fused=False``: K6 stages the words word-major, K4
       decodes them in word mode (the staging pass kept for A/B);
     - FP32, ``fp32_words=True``: K2 (K3 with ``window``) on the raw f32
-      wire; ``fp32_words=False``: K6 stages the wire, the clamp and the
-      even/odd row split of ``stage_floats_2streams`` make two planes, K5
-      decodes them.
+      wire at every ``dec_len``; ``fp32_words=False``: K6 stages the wire,
+      the clamp and the even/odd row split of ``stage_floats_2streams``
+      make two planes, K5 decodes them.  The JAX entry takes its u/d-word
+      route (``fp32_ud_words`` and the kernel's ``ud_mode``) where the f32
+      value blocks do not fit VMEM (:1153-1177); K2 reads the flat wire and
+      keeps no such block, so no limit forces that route here.  It is
+      ``decode_ud_words_cuda``, and decodes the same bits.
 
     ``s16``: the JAX kernel's SOFT16 unpack layouts decode identically by
     construction; the GPU has one unpack, so any of the four names is

@@ -15,9 +15,11 @@ reference's fused persistent kernel, src/viterbi/viterbi.cu:144-207):
 It holds the plain version of every decode kernel (core_cuda.py), each
 computing its kernel's function: ``decode_blocks_torch`` (K1, K2, K3 on
 packed words), ``decode_staged_torch`` (K4 on staged words or values),
-``decode_planes_torch`` (K5 on two f32 planes) and ``stage_transpose``
-(K6); and the values-in entry ``decode_blocks`` with ``gather_blocks``,
-``forward_scan`` and ``traceback_scan``, as the JAX package exports them.
+``decode_planes_torch`` (K5 on two f32 planes), ``stage_transpose``
+(K6) and ``decode_ud_words_torch`` (K1 and K3 on the FP32 channel's u/d
+words of ``fp32_ud_words_torch``); and the values-in entry
+``decode_blocks`` with ``gather_blocks``, ``forward_scan`` and
+``traceback_scan``, as the JAX package exports them.
 The CPU tests hold it bit-exact against ``decode_packed_xla`` and
 ``core_xla.decode_blocks``, and ``chip_smoke.py`` holds the kernels
 against it on the card.  It runs on the CPU or on CUDA tensors.
@@ -262,11 +264,13 @@ _SIGN0_NP = (2 * ((BRANCH_CODE_J0 >> 1) & 1) - 1).astype(np.int32)[:, None]
 _SIGN1_NP = (2 * (BRANCH_CODE_J0 & 1) - 1).astype(np.int32)[:, None]
 
 
-def _branch_metrics(r0, r1, s0, s1, is_float: bool):
+def _branch_metrics(r0, r1, s0, s1, is_float: bool, ud: bool = False):
     """(64, B) int32 j=0 branch metrics bmA[s] = sign0[s]*r0 + sign1[s]*r1
     (reference: viterbiBM.cuh dp2a/dp4a correlations with +-1 coeffs); the
     FP32 correlation is truncated toward zero (viterbiBM.cuh:128-153).  The
-    j=1 metric is -bmA (see _acs_stage).
+    j=1 metric is -bmA (see _acs_stage).  ``ud``: r0, r1 are the stage's
+    (u, d) = (r0 + r1, r0 - r1) themselves, so bmA[s] = sign0[s] * (u where
+    the two signs agree, else d) (core_pallas.py:600-602).
 
     A NaN on the FP32 wire survives the clamp and makes a NaN correlation;
     it becomes 0, and an unclamped value beyond the int32 range (the
@@ -274,6 +278,8 @@ def _branch_metrics(r0, r1, s0, s1, is_float: bool):
     conversion does in the JAX core (core_xla.py:331-337); torch's gives
     INT32_MIN for both on the CPU, so the conversion clamps through
     int64."""
+    if ud:
+        return s0 * torch.where(s0 == s1, r0[None, :], r1[None, :])
     bm = s0 * r0[None, :] + s1 * r1[None, :]
     if not is_float:
         return bm
@@ -302,14 +308,16 @@ def _acs_stage(pm, pp, bm_a):
     return pm_new, pp_new
 
 
-def _pack_scan(rs: torch.Tensor, cfg: DecoderConfig, plan: BlockPlan):
+def _pack_scan(rs: torch.Tensor, cfg: DecoderConfig, plan: BlockPlan,
+               ud: bool = False):
     """ACS over all stages of all blocks from the stage pairs, (n_packs,
-    bpp, 2, B) or its (block_len, 2, B) view, as f32 (FP32) or int32.
-    Yields each survivor pack (64, B) int64, masked to bits_per_pack bits,
-    as its last stage completes."""
+    bpp, 2, B) or its (block_len, 2, B) view, as f32 (FP32) or int32; with
+    ``ud`` int32 (u, d) pairs (``_branch_metrics``).  Yields each survivor
+    pack (64, B) int64, masked to bits_per_pack bits, as its last stage
+    completes."""
     b = rs.shape[-1]
     bpp = plan.bits_per_pack
-    is_float = cfg.channel_in == ChannelIn.FP32
+    is_float = cfg.channel_in == ChannelIn.FP32 and not ud
     renorm = needs_int32_renorm(cfg, plan)
     dt = torch.float32 if is_float else torch.int32
     rs = rs.reshape(plan.block_len, 2, b).to(dt)
@@ -319,7 +327,7 @@ def _pack_scan(rs: torch.Tensor, cfg: DecoderConfig, plan: BlockPlan):
     pp = torch.zeros((NUM_STATES, b), dtype=torch.int64, device=rs.device)
     for p in range(plan.n_packs):
         for t in range(p * bpp, (p + 1) * bpp):
-            bm_a = _branch_metrics(rs[t, 0], rs[t, 1], s0, s1, is_float)
+            bm_a = _branch_metrics(rs[t, 0], rs[t, 1], s0, s1, is_float, ud)
             pm, pp = _acs_stage(pm, pp, bm_a)
         yield pp & ((1 << bpp) - 1)
         if renorm:
@@ -328,13 +336,13 @@ def _pack_scan(rs: torch.Tensor, cfg: DecoderConfig, plan: BlockPlan):
 
 
 def forward_scan_staged(rs: torch.Tensor, cfg: DecoderConfig,
-                        plan: BlockPlan) -> torch.Tensor:
+                        plan: BlockPlan, ud: bool = False) -> torch.Tensor:
     """ACS from the scan-major (n_packs, bpp, 2, B) stage layout (or its
     (block_len, 2, B) view), as core_xla.forward_scan_staged (:394).
     Returns the full survivor store, all packs (n_packs, 64, B) int64."""
     surv = torch.empty((plan.n_packs, NUM_STATES, rs.shape[-1]),
                        dtype=torch.int64, device=rs.device)
-    for p, pack in enumerate(_pack_scan(rs, cfg, plan)):
+    for p, pack in enumerate(_pack_scan(rs, cfg, plan, ud)):
         surv[p] = pack
     return surv
 
@@ -386,7 +394,7 @@ def _chase(ring: torch.Tensor, slots, b: int, bpp: int) -> torch.Tensor:
 
 
 def window_scan(rs: torch.Tensor, cfg: DecoderConfig,
-                plan: BlockPlan) -> torch.Tensor:
+                plan: BlockPlan, ud: bool = False) -> torch.Tensor:
     """The windowed survivor (core_pallas.py:440-486, the reference's
     one-pointer circular buffer): survivor pack p goes to ring slot p mod W
     and, once p - n_disc >= emit_lo, a fresh chase from state 0 through
@@ -404,7 +412,7 @@ def window_scan(rs: torch.Tensor, cfg: DecoderConfig,
     ring = torch.empty((w, NUM_STATES, b), dtype=torch.int64,
                        device=rs.device)
     out = torch.empty((b, n_emit), dtype=torch.int64, device=rs.device)
-    for p, pack in enumerate(_pack_scan(rs, cfg, plan)):
+    for p, pack in enumerate(_pack_scan(rs, cfg, plan, ud)):
         ring[p % w] = pack
         if p - n_disc >= emit_lo:
             out[:, p - n_disc - emit_lo] = _chase(
@@ -434,12 +442,12 @@ def assemble_output(out_packs: torch.Tensor, cfg: DecoderConfig,
 
 
 def _decode_stages(rs: torch.Tensor, cfg: DecoderConfig, plan: BlockPlan,
-                   window: bool) -> torch.Tensor:
-    """Stage pairs -> (B, n_emit) int32 output packs, full store or
-    window."""
+                   window: bool, ud: bool = False) -> torch.Tensor:
+    """Stage pairs ((u, d) pairs with ``ud``) -> (B, n_emit) int32 output
+    packs, full store or window."""
     if window:
-        return to_int32_bits(window_scan(rs, cfg, plan))
-    surv = forward_scan_staged(rs, cfg, plan)
+        return to_int32_bits(window_scan(rs, cfg, plan, ud))
+    surv = forward_scan_staged(rs, cfg, plan, ud)
     return to_int32_bits(traceback_scan(surv, cfg, plan))
 
 
@@ -498,6 +506,60 @@ def decode_planes_torch(r0: torch.Tensor, r1: torch.Tensor,
     shp = (plan.block_len, plan.num_blocks)
     rs = torch.stack([r0.reshape(shp), r1.reshape(shp)], dim=1)
     return _decode_stages(rs, cfg, plan, window)
+
+
+def fp32_ud_words_torch(vals: torch.Tensor) -> torch.Tensor:
+    """FP32 interleaved channel values -> the FP32 channel's u/d words, the
+    counterpart of ``core_xla.fp32_ud_words`` (:248-295; XLA there, plain
+    torch ops here): per stage (u, d) = (trunc(r0 + r1), trunc(r0 - r1))
+    after the clamp to [-8, 7], packed as a SOFT8 stream — 4 signed 8-bit
+    fields a word, MSB first, [u, d] interleaved per stage.  The values are
+    zero-padded to a multiple of 256 (128 stages), so the output has
+    padded / 4 int32 words.  u and d lie in [-16, 14]: 8-bit fields are
+    exact, and trunc is odd, so K1 on these words decodes as K2 on the wire.
+
+    +-inf saturate in the clamp.  A NaN makes every (u, d) of its 128-value
+    row 0, as in the XLA staging: its deinterleave is two one-hot matmuls,
+    so the NaN spreads over the row (0 x NaN = NaN), and XLA converts NaN
+    to 0."""
+    v = vals.to(torch.float32).reshape(-1).clamp(_FP_LO, _FP_HI)
+    pad = (-v.shape[0]) % 256
+    if pad:
+        v = torch.cat([v, v.new_zeros(pad)])
+    rows = v.reshape(-1, 128)
+    bad = rows.isnan().any(dim=1, keepdim=True)
+    r0, r1 = rows[:, 0::2], rows[:, 1::2]                # (rows, 64) stages
+    # fields in [-16, 14]: exact in int32; the packing's shifts wrap there
+    q = torch.stack([(r0 + r1).masked_fill(bad, 0.0).to(torch.int32),
+                     (r0 - r1).masked_fill(bad, 0.0).to(torch.int32)],
+                    dim=-1).reshape(-1, 4) & 0xFF        # [u, d, u, d] a word
+    return (q[:, 0] << 24) | (q[:, 1] << 16) | (q[:, 2] << 8) | q[:, 3]
+
+
+def ud_words_per_block(plan: BlockPlan):
+    """(wpb, wph) of the u/d words: SOFT8's framing, 4 fields a word
+    (core_pallas.py:896: wph = 2 * WARMUP // 4)."""
+    return 2 * plan.dec_len // 4, 2 * WARMUP // 4
+
+
+def ud_stage_pairs(udw: torch.Tensor, plan: BlockPlan) -> torch.Tensor:
+    """u/d words -> (block_len, 2, B) int32 (u, d) pairs of every block,
+    halo included, zero past the stream's end."""
+    wpb, wph = ud_words_per_block(plan)
+    wt = overlapped_windows(udw.to(torch.int32), wpb, wpb + wph,
+                            plan.num_blocks).t()
+    return unpack_words(wt, DecoderConfig(ChannelIn.SOFT8))
+
+
+def decode_ud_words_torch(udw: torch.Tensor, cfg: DecoderConfig,
+                          plan: BlockPlan, window: bool = False
+                          ) -> torch.Tensor:
+    """The plain version of K1 (K3 with ``window``) on the FP32 channel's
+    u/d words (``fp32_ud_words_torch``): (B, n_emit) int32 output packs.
+    ``cfg`` is the FP32 configuration: it gives the pack width and the
+    renorm rule."""
+    return _decode_stages(ud_stage_pairs(udw, plan), cfg, plan, window,
+                          ud=True)
 
 
 def decode_blocks(r_blocks: torch.Tensor, cfg: DecoderConfig,

@@ -1,7 +1,7 @@
 """The package's one shared library: every ``csrc/*.cu`` (the decode
 kernels K1-K6, the generators K7/K8, the shared-memory probe K9, the
-probes' kernels K11-K20 and K23) built with ``nvcc`` and loaded with
-``ctypes``.
+probes' kernels K11-K20, K23, K25, K26 and K28) built with ``nvcc`` and
+loaded with ``ctypes``.
 
 Each source exports plain C entry points that return a ``cudaError_t``.
 ``nvcc`` compiles the sources in parallel, one process per source and build

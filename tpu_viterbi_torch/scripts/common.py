@@ -1,4 +1,4 @@
-"""What the probes' kernels (K11-K24) share: the wrapper that binds a
+"""What the probes' kernels (K11-K28) share: the wrapper that binds a
 kernel's entry point and counts its launches, the timing of a launch, the
 decode-attribution probes' piece timer and attribution block (K21-K24), the
 ACS' branch signs, and what the SASS of the built library says of a kernel

@@ -9,10 +9,10 @@ Variants, each adding one piece (JAX :9-19):
   +unpack     SOFT8 word mode: each pack's 16 words unpacked, MSB first
   +dump       the survivor store: every pack's pp into device memory
   +traceback  the chase from state 0 down the store
-
-The JAX probe's +tb(bisect) variant reads the same store as +traceback
-through a TPU relayout and gives the same output; on the card both reads
-are one indexed load, so it is not a variant here.
+  +tb(bisect) the same chase, each pack picked from its 64 loaded words by
+              a select tree on the state's bits (JAX :102-108): its loads
+              do not wait for the state, +traceback's one load does; the
+              output is +traceback's
 
 Each variant runs GRID programs of 128 arrays over N_PACKS packs of 32
 stages: the median of REPS CUDA-event launches after one untimed launch,
@@ -37,11 +37,13 @@ N_PACKS = 256
 WPP = 16                # SOFT8 words of a 32-stage pack
 GRID = 16
 REPS = 5
-VARIANTS = ("body", "+unpack", "+dump", "+traceback")
+VARIANTS = ("body", "+unpack", "+dump", "+traceback", "+tb(bisect)")
+TRACEBACKS = ("+traceback", "+tb(bisect)")
 LOOP_STAGES = 2         # stages of one pass of the stage loop
 # lane-operations an array-stage, for the bound: the ACS (chip_smoke.ACS_OPS)
 # and, with the unpack, its two field extracts, an add and a subtract
-OPS = {"body": 256, "+unpack": 260, "+dump": 260, "+traceback": 260}
+OPS = {"body": 256, "+unpack": 260, "+dump": 260, "+traceback": 260,
+       "+tb(bisect)": 260}
 
 
 def _check(variant: str, words: torch.Tensor) -> int:
@@ -57,7 +59,35 @@ def _check(variant: str, words: torch.Tensor) -> int:
 
 def n_emit(variant: str, n_packs: int) -> int:
     """Output rows a program: the traceback's n_packs - 1, else one."""
-    return n_packs - 1 if variant == "+traceback" else 1
+    return n_packs - 1 if variant in TRACEBACKS else 1
+
+
+def stage_signs(device):
+    """(same, neg): (32, 1) bool masks of the even children 2q whose two
+    branch signs agree and whose first is negative."""
+    s0, s1 = branch_signs()
+    return (torch.from_numpy(s0 == s1).to(device)[:, None],
+            torch.from_numpy(s0 < 0).to(device)[:, None])
+
+
+def natural_stage(pm: torch.Tensor, pp: torch.Tensor, u: torch.Tensor,
+                  d: torch.Tensor, signs) -> tuple:
+    """One stage of the JAX probes' natural-order ACS (``_one_real_stage``
+    in natural order) on (64, arrays) int32 pm and pp, the stage's (arrays,)
+    u and d and ``stage_signs``: bm = (same sign ? u : d) * s0, a strict
+    '>' (the j=0 branch wins ties), int32 wrapping."""
+    same, neg = signs
+    bm = torch.where(same, u, d)
+    bm = torch.where(neg, -bm, bm)
+    lo, hi = pm[:32], pm[32:]
+    c0e, c1e = lo + bm, hi - bm
+    c0o, c1o = lo - bm, hi + bm
+    de, do = c1e > c0e, c1o > c0o
+    from_lo, from_hi = pp[:32] + pp[:32], pp[32:] + pp[32:] + 1
+    return (_interleave(torch.where(de, c1e, c0e), torch.where(do, c1o, c0o),
+                        0),
+            _interleave(torch.where(de, from_hi, from_lo),
+                        torch.where(do, from_hi, from_lo), 0))
 
 
 def ablation_torch(variant: str, words: torch.Tensor, programs: int):
@@ -74,13 +104,11 @@ def ablation_torch(variant: str, words: torch.Tensor, programs: int):
     arrays = programs * LT
     w = words.reshape(programs, n_packs, WPP, LT).permute(1, 2, 0, 3) \
         .reshape(n_packs, WPP, arrays)                   # [pack][row][array]
-    s0, s1 = branch_signs()
     dev = words.device
-    same = torch.from_numpy(s0 == s1).to(dev)[:, None]
-    neg = torch.from_numpy(s0 < 0).to(dev)[:, None]
+    signs = stage_signs(dev)
     pm = torch.zeros((64, arrays), dtype=torch.int32, device=dev)
     pp = torch.zeros_like(pm)
-    dump = variant in ("+dump", "+traceback")
+    dump = variant in ("+dump",) + TRACEBACKS
     store = torch.empty((n_packs, 64, arrays), dtype=torch.int32,
                         device=dev) if dump else None
     if variant == "body":
@@ -97,26 +125,23 @@ def ablation_torch(variant: str, words: torch.Tensor, programs: int):
                 u, d = u_all[s], d_all[s]
             else:
                 u, d = u_js[s % 2][s // 2], d_js[s % 2][s // 2]
-            bm = torch.where(same, u, d)
-            bm = torch.where(neg, -bm, bm)
-            lo, hi = pm[:32], pm[32:]
-            c0e, c1e = lo + bm, hi - bm
-            c0o, c1o = lo - bm, hi + bm
-            de, do = c1e > c0e, c1o > c0o
-            from_lo, from_hi = pp[:32] + pp[:32], pp[32:] + pp[32:] + 1
-            pm = _interleave(torch.where(de, c1e, c0e),
-                             torch.where(do, c1o, c0o), 0)
-            pp = _interleave(torch.where(de, from_hi, from_lo),
-                             torch.where(do, from_hi, from_lo), 0)
+            pm, pp = natural_stage(pm, pp, u, d, signs)
         if dump:
             store[p] = pp
-    if variant != "+traceback":
+    if variant not in TRACEBACKS:
         return (pm[0] + pp[0]).reshape(programs, 1, LT), store
     out = torch.zeros((n_packs - 1, arrays), dtype=torch.int32, device=dev)
     state = torch.zeros((1, arrays), dtype=torch.int64, device=dev)
     for k in range(n_packs - 1):
         kp = n_packs - 1 - k
-        pack = store[kp].gather(0, state)
+        if variant == "+traceback":
+            pack = store[kp].gather(0, state)
+        else:                               # halve the 64 rows 6 times
+            pack = store[kp]
+            for b in (5, 4, 3, 2, 1, 0):
+                h = 1 << b
+                pack = torch.where((state >> b) & 1 == 1, pack[h:2 * h],
+                                   pack[:h])
         if k >= 1:
             out[kp - 1] = pack[0]
         state = ((pack >> 26) & 63).to(torch.int64)
@@ -151,7 +176,7 @@ class AblationKernel(ProbeKernel):
                           dtype=torch.int32, device=dev)
         store = torch.empty((n_packs, 64, programs * LT), dtype=torch.int32,
                             device=dev) \
-            if variant in ("+dump", "+traceback") else None
+            if variant in ("+dump",) + TRACEBACKS else None
         self.launch(dev, VARIANTS.index(variant), words.data_ptr(),
                     None if store is None else store.data_ptr(),
                     out.data_ptr(), programs, n_packs)
@@ -214,9 +239,11 @@ def probe(names=VARIANTS) -> list:
         results.append(run(v, words, sass[v]))
         print(describe(results[-1]), flush=True)
     if len(results) > 1:
-        steps = [(b["variant"],
-                  b["ns_per_stage_tile"] - a["ns_per_stage_tile"])
-                 for a, b in zip(results, results[1:])]
+        # each piece against the variant it adds to; the bisect, like the
+        # JAX line's, against +dump
+        by = {r["variant"]: r["ns_per_stage_tile"] for r in results}
+        base = dict(zip(VARIANTS[1:], VARIANTS), **{"+tb(bisect)": "+dump"})
+        steps = [(v, by[v] - by[base[v]]) for v in by if base.get(v) in by]
         print("decomposition: " + " | ".join(f"{v} {d:+.4f}"
                                               for v, d in steps))
     return results

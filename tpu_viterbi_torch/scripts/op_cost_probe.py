@@ -19,10 +19,14 @@ some constructs (two adds into one IADD3), so a semantic rate can pass
 the issue limit where the instruction rate cannot.  ``hardware.alu_model``
 takes add4's instruction rate.
 
-Constructs of the ACS ported from the JAX probe: add, add4, mul, cmpsel,
-selconst, bcast, shiftor.  Its layout variants (merge, halves, cat*,
-permgather, rollsub) time TPU sublane relayouts; they are not ported here
-and stay in ROADMAP.md with the rest of K11.
+Constructs of the ACS, each thread one element of the tile: add, add4,
+mul, cmpsel, selconst, bcast, shiftor.  The JAX probe's relayouts of the
+tile's rows (merge, halves, cat8/4/2/1, permgather, rollsub), which timed
+TPU sublane relayouts, run a warp to a column, lane r holding row r: a row
+permutation is one ``shfl.sync.idx`` a construct, so they time the card's
+shuffle against its adds (halves moves no row: its add alone).  The
+relayouts count the same ops as the JAX probe (N_OPS); their lines say
+how many SASS instructions ptxas made of them.
 """
 
 from __future__ import annotations
@@ -43,12 +47,31 @@ UNROLL = 8
 STEPS_LO = 5000
 STEPS_HI = 45000
 REPS = 5
-VARIANTS = ("add", "add4", "mul", "cmpsel", "selconst", "bcast", "shiftor")
+VARIANTS = ("add", "add4", "mul", "cmpsel", "selconst", "bcast", "shiftor",
+            "merge", "halves", "cat8", "cat4", "cat2", "cat1", "permgather",
+            "rollsub")
+RELAYOUTS = VARIANTS[7:]      # a warp a column (csrc/op_cost.cu)
 # (32, 128) ops per construct, for the per-op rate (JAX :109-111)
-N_OPS = dict(add=1, add4=4, mul=1, cmpsel=3, selconst=3, bcast=1, shiftor=3)
+N_OPS = dict(add=1, add4=4, mul=1, cmpsel=3, selconst=3, bcast=1, shiftor=3,
+             merge=3, halves=3, cat8=3, cat4=3, cat2=3, cat1=3, permgather=2,
+             rollsub=2)
 THREADS = 256                 # a CUDA block
 BLOCKS_PER_SM = 8             # 8 x 256 = the SM's 2048 threads
 TILE_BLOCKS = ROWS * COLS // THREADS
+
+
+def _relayout(variant: str, a: torch.Tensor, c: torch.Tensor):
+    """One relayout construct of the JAX probe (:64-84) on (32, 128)."""
+    if variant == "permgather":             # jnp.take(a, [1..31, 0], axis=0)
+        return torch.roll(a, -1, 0) + c
+    if variant == "rollsub":                # pltpu.roll(a, 1, 0)
+        return torch.roll(a, 1, 0) + c
+    e, o = a[:16] + c[:16], a[16:] - c[16:]
+    g = 1 if variant == "merge" else 16 if variant == "halves" \
+        else int(variant[3:])
+    return torch.stack([e.reshape(16 // g, g, COLS), o.reshape(16 // g, g,
+                                                              COLS)],
+                       dim=1).reshape(ROWS, COLS)
 
 
 def op_cost_torch(variant: str, x: torch.Tensor, steps: int) -> torch.Tensor:
@@ -70,6 +93,10 @@ def op_cost_torch(variant: str, x: torch.Tensor, steps: int) -> torch.Tensor:
     u = x[1:2, :]
     mask = (torch.arange(ROWS, device=x.device) % 3 == 0)[:, None]
     a = x
+    if variant in RELAYOUTS:
+        for _ in range(n):
+            a = _relayout(variant, a, c)
+        return a
     for _ in range(n):
         if variant == "add":
             a = a + c
@@ -98,8 +125,9 @@ class OpCostKernel(ProbeKernel):
                  tiles: int) -> torch.Tensor:
         """(tiles, 32, 128) int32: ``tiles`` copies of the variant's value
         after ``steps`` steps on the tile ``x``.  On a CUDA tensor one
-        launch of tiles x 16 blocks of 256 threads, on the current stream,
-        not synchronized; on a CPU tensor its plain version."""
+        launch of tiles x 16 blocks of 256 threads (a relayout: tiles x 128
+        warps, one a column), on the current stream, not synchronized; on a
+        CPU tensor its plain version."""
         if variant not in N_OPS:
             raise ValueError(f"unknown variant {variant!r}; one of "
                              f"{VARIANTS}")
