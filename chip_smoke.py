@@ -24,7 +24,11 @@ after holding their kernels against their plain versions.  Phases 31-35
 hold K1's and K3's u/d-word reader against its plain version and K2, and
 drive the last probes (K25 SOFT16 ablation, K26 transpose, K27 FP32
 routes: launches of K1, K2 and K3, K28 interleave); phases 16 and 19 cover
-K11's relayouts and K13's bisect traceback.
+K11's relayouts and K13's bisect traceback.  Phase 5b times K1's int16x2
+path metrics against K1_I32, its int32 instances kept for that A/B (never
+launched by a main path), in turns on the same words, with the SASS a
+stage and the registers of each; phase 33 checks that K26's consumer is
+one launch and writes its output.
 
     python3 chip_smoke.py
 
@@ -69,12 +73,15 @@ from tpu_viterbi_torch.chain import (AddNoise, ConvolutionalEncoder,  # noqa: E4
 from tpu_viterbi_torch.chain.genkernel import (  # noqa: E402
     packed_workload_cuda, ref_words_from_packs)
 from tpu_viterbi_torch.chain.decoder_element import ViterbiDecoder  # noqa: E402
+from tpu_viterbi_torch.chain.encode import conv_encode  # noqa: E402
+from tpu_viterbi_torch.chain.quantize import quantize_and_pack  # noqa: E402
 from tpu_viterbi_torch.config import (ChannelIn, DecodeOut,  # noqa: E402
                                       DecoderConfig)
 from tpu_viterbi_torch.decoder import core_cuda  # noqa: E402
 from tpu_viterbi_torch.decoder.core_torch import (  # noqa: E402
-    assemble_output, clamp_split, decode_blocks, decode_blocks_torch,
-    decode_packed_torch, decode_planes_torch, decode_staged_torch,
+    PM16_BOUND, assemble_output, clamp_split, decode_blocks,
+    decode_blocks_i16_torch, decode_blocks_torch, decode_packed_torch,
+    decode_planes_torch, decode_staged_torch,
     decode_ud_words_torch, fp32_ud_words_torch, gather_blocks,
     needs_int32_renorm, plan_blocks, stage_transpose, stage_words,
     traceback_shape, words_per_block)
@@ -84,13 +91,16 @@ from tpu_viterbi_torch.scripts import (  # noqa: E402
     kernel_ablation, kernel_microbench, layout_probe, op_cost_probe,
     opt_bench, soft16_ablation, soft16_pieces, staging_cost, swar_probe,
     transpose_bench)
-from tpu_viterbi_torch.scripts.common import PIECE_RUNS  # noqa: E402
+from tpu_viterbi_torch.scripts.common import (PIECE_RUNS,  # noqa: E402
+                                              sass_table)
 from tpu_viterbi_torch.sharding.simulate import (  # noqa: E402
     DEFAULT_SCALES, build_sharded_simulation, count_errors)
 from tpu_viterbi_torch.utils import timing  # noqa: E402
 from tpu_viterbi_torch.utils.bits import (count_bit_errors,  # noqa: E402
+                                          extreme_field_words,
                                           pack_msb_first)
-from tpu_viterbi_torch.utils.timing import ab_ms, cuda_ms  # noqa: E402
+from tpu_viterbi_torch.utils.timing import (ab_ms, cuda_ms,  # noqa: E402
+                                            graph_ms)
 
 HEADLINE_BITS = 32_000_000          # the reference's default -n (main.cpp:176)
 HEADLINE = DecoderConfig(ChannelIn.SOFT8)   # SOFT8, int32 metrics, b32 packs
@@ -98,6 +108,7 @@ FP32 = DecoderConfig(ChannelIn.FP32)
 DEC_LEN = 2048                      # ViterbiGPU.DEFAULT_DEC_LEN
 SEED = 7
 K1, K2, K3 = core_cuda.K1, core_cuda.K2, core_cuda.K3
+K1_I32 = core_cuda.K1_I32           # K1's int32 metrics: the A/B's other side
 K4, K5, K6 = core_cuda.K4, core_cuda.K5, core_cuda.K6
 K7, K8 = genkernel.K7, genkernel.K8
 K9, K11 = hardware.K9, op_cost_probe.K11
@@ -108,7 +119,7 @@ K18, K19 = swar_probe.K18, opt_bench.K19
 K20, K23 = genkernel_probe.K20, staging_cost.K23
 K25, K26 = soft16_ablation.K25, transpose_bench.K26
 K28 = interleave_bench.K28
-KERNELS = core_cuda.KERNELS + genkernel.KERNELS + (
+KERNELS = core_cuda.KERNELS + (K1_I32,) + genkernel.KERNELS + (
     K9, K11, K12, K13, K14, K15, K16, K17, K18, K19, K20, K23, K25, K26, K28)
 GEN_ROUNDS_K7 = genkernel.GEN_ROUNDS
 REPLACES = {"K1": "tpu_viterbi/decoder/core_pallas.py:638",
@@ -225,6 +236,27 @@ def build_phase():
                    f"{spills or '-'})")
 
 
+def extreme_words(cfg, plan, gen):
+    """Integer channel words for the plan whose fields all sit at their
+    extremes (utils.bits.extreme_field_words, seeded from ``gen``), on the
+    card."""
+    rng = np.random.default_rng(int(torch.randint(
+        0, 2 ** 31, (1,), generator=gen, device=gen.device)))
+    n = cfg.get_input_words(2 * (plan.message_len + 64))
+    return torch.from_numpy(extreme_field_words(
+        rng, n, cfg.enc_data_width)).to(gen.device)
+
+
+def noiseless_words(plan, gen):
+    """SOFT8 words of a noiseless coded message at full amplitude (fields
+    +-127): the best path metric grows by 254 a stage, the worst case of
+    K1's int16 metrics."""
+    bits = torch.randint(0, 2, (plan.message_len + 64,), generator=gen,
+                         device=gen.device)
+    coded = conv_encode(bits).to(torch.float32) * 254.0 - 127.0
+    return quantize_and_pack(coded, ChannelIn.SOFT8)
+
+
 def random_words(cfg, plan, gen):
     """Full-range random channel words for the plan (more than the stream
     needs is not required: the kernels and the plain version zero-fill
@@ -251,7 +283,11 @@ def max_abs_diff(a, b) -> int:
 def compare_phase(gen, tally) -> int:
     """K1 against decode_blocks_torch on the same CUDA tensors, and the
     staged paths of the same words (staged_checks) against the same plain
-    result."""
+    result: random words on every plan, extreme fields (extreme_words) at
+    dec_len 2048 and 16384, and the SOFT8 headline (32M bits, dec_len
+    2048) on extreme fields and on noiseless full-amplitude words, where
+    K1's int16 metrics renormalise every pack; on SOFT8 the int32 K1
+    (K1_I32) too."""
     cases = []
     for ch in (ChannelIn.HARD, ChannelIn.SOFT4, ChannelIn.SOFT8,
                ChannelIn.SOFT16):
@@ -259,17 +295,31 @@ def compare_phase(gen, tally) -> int:
             cfg = DecoderConfig(ch, decode_out=out)
             bpp = cfg.bits_per_pack
             for dl in (32, 96, 2048):       # below 64, overlap > 0, default
-                cases.append((cfg, plan_blocks(dl * 300 - bpp, bpp, dl)))
-            cases.append((cfg, plan_blocks(DEC_LEN, bpp, DEC_LEN)))  # 1 block
+                cases.append((cfg, plan_blocks(dl * 300 - bpp, bpp, dl),
+                              random_words))
+            cases.append((cfg, plan_blocks(DEC_LEN, bpp, DEC_LEN),  # 1 block
+                          random_words))
+            if ch != ChannelIn.SOFT16:
+                for dl in (2048, 16384):
+                    cases.append((cfg, plan_blocks(dl * 40 - bpp, bpp, dl),
+                                  extreme_words))
     soft16 = DecoderConfig(ChannelIn.SOFT16)
-    cases.append((soft16, plan_blocks(16384 * 40, 32, 16384)))     # renorm
-    worst, n_renorm, n_single, n_overlap = 0, 0, 0, 0
-    for cfg, plan in cases:
-        x = random_words(cfg, plan, gen)
+    cases.append((soft16, plan_blocks(16384 * 40, 32, 16384),      # renorm
+                  random_words))
+    headline = plan_blocks(HEADLINE_BITS, 32, DEC_LEN)
+    cases.append((HEADLINE, headline, extreme_words))
+    cases.append((HEADLINE, headline,
+                  lambda cfg, plan, gen: noiseless_words(plan, gen)))
+    worst, n_renorm, n_single, n_overlap, n_i32 = 0, 0, 0, 0, 0
+    for cfg, plan, words in cases:
+        x = words(cfg, plan, gen)
         got = K1(x, cfg, plan)
         torch.cuda.synchronize()
         want = decode_blocks_torch(x, cfg, plan)
         err = max_abs_diff(got, want)
+        if cfg.channel_in == ChannelIn.SOFT8:
+            err = max(err, max_abs_diff(K1_I32(x, cfg, plan), want))
+            n_i32 += 1
         if got.shape != want.shape or err:
             raise AssertionError(
                 f"K1 disagrees with its plain version: {cfg.channel_in.name}"
@@ -285,7 +335,10 @@ def compare_phase(gen, tally) -> int:
     say("3 kernel vs plain", f"K1 bit-equal to core_torch on {len(cases)} "
         f"plans (HARD/SOFT4/SOFT8/SOFT16 x b32/b16 x dec_len 32/96/2048, "
         f"{n_single} single-block, {n_overlap} with overlap, {n_renorm} "
-        f"with int32 renorm at dec_len 16384); max |diff| {worst}")
+        f"with int32 renorm at dec_len 16384; extreme fields on HARD/SOFT4/"
+        f"SOFT8 x b32/b16 x dec_len 2048/16384 and on the {HEADLINE_BITS}-bit "
+        f"SOFT8 headline, and the headline's noiseless +-127 words); K1_I32 "
+        f"equal too on the {n_i32} SOFT8 plans; max |diff| {worst}")
     return worst
 
 
@@ -301,6 +354,9 @@ def drive(argv, main=None):
         rc = cli.main(argv) if main is None else main()
     torch.cuda.synchronize()
     counts = {k.name: k.launches for k in KERNELS}
+    if counts[K1_I32.name]:
+        raise AssertionError(f"a main path launched {K1_I32.name}, the int32 "
+                             f"K1 kept for the A/B only")
     text = buf.getvalue()
     for line in text.splitlines():
         if line.strip():
@@ -412,6 +468,80 @@ def timing_phase(card: str):
         f"({plain_ms / k1_ms:.0f}x); outputs bit-equal; bound {bnd[0]:.4f} "
         f"ms by {bnd[1]} ({bnd[0] / k1_ms:.0%} of it)")
     return k1_ms, plain_ms, bnd
+
+
+AB_RUNS = 10                        # CUDA-event samples a side of the A/B
+# K1's SOFT8 b32 full-store instances in viterbi.cu's cubin (mangled
+# template arguments: IntReader<8, false, false>, BPP 32, WINDOW false,
+# PM16 true / false): the int16x2 stage and the int32 one
+K1_SASS = {"int16x2": "viterbi_kernelINS_9IntReaderILi8ELb0ELb0EEELi32ELb0ELb1E",
+           "int32": "viterbi_kernelINS_9IntReaderILi8ELb0ELb0EEELi32ELb0ELb0E"}
+
+
+def k1_sass() -> dict:
+    """{side: (SASS a stage, registers, stack bytes)} of K1's two SOFT8 b32
+    instances: the stage loop runs two stages a pass."""
+    table = sass_table(K1_SASS["int16x2"],
+                       {side: (name,) for side, name in K1_SASS.items()})
+    return {side: (loop / 2, res.get("REG"), res.get("STACK"))
+            for side, (loop, res, _) in table.items()}
+
+
+def k1_ab_phase(card: str, gen) -> dict:
+    """K1 with int16x2 metrics against K1_I32, its int32 instances, on the
+    same words in the same call: the 32M-bit SOFT8 transmission at 5.5 dB
+    and extreme-field words of the same plan, AB_RUNS CUDA-event samples
+    each in turns (a, b, b, a, ...), outputs equal; SASS a stage and
+    registers of each; and on 2M bits of extreme fields at dec_len 2048,
+    K1 equal to its int16 plain version (decode_blocks_i16_torch), whose
+    largest candidate metric stays under PM16_BOUND.  Returns K1's extra
+    keys of the kernels line."""
+    packed, plan, _ = headline_packed(HEADLINE, 21)
+    sass = k1_sass()
+    res = {}
+    for label, x in (("coded 5.5 dB", packed),
+                     ("extreme fields", extreme_words(HEADLINE, plan, gen))):
+        K1(x, HEADLINE, plan)                                # warm-up
+        K1_I32(x, HEADLINE, plan)
+        a_ms, b_ms, a_all, b_all, a_out, b_out = ab_ms(
+            lambda: K1(x, HEADLINE, plan), lambda: K1_I32(x, HEADLINE, plan),
+            AB_RUNS)
+        if not torch.equal(a_out, b_out):
+            raise AssertionError(f"K1 A/B on {label}: int16x2 and int32 "
+                                 f"outputs differ")
+        res[label] = (a_ms, b_ms)
+        gbps = plan.message_len / 1e6
+        say("5b K1 A/B", f"{card}: {plan.message_len} bits SOFT8 b32 dec_len "
+            f"{plan.dec_len}, {label}: int16x2 median {a_ms:.4f} ms of "
+            f"{[round(t, 4) for t in a_all]} = {gbps / a_ms:.2f} Gb/s; int32 "
+            f"(K1_I32) median {b_ms:.4f} ms of {[round(t, 4) for t in b_all]}"
+            f" = {gbps / b_ms:.2f} Gb/s; ratio {a_ms / b_ms:.3f}; outputs "
+            f"bit-equal")
+    say("5b K1 A/B", "SASS a stage (stage loop / 2), registers, stack: " +
+        "; ".join(f"{side} {n:g}, {regs} registers, stack {stack} B"
+                  for side, (n, regs, stack) in sass.items()))
+    small = plan_blocks(DECODE_CHECK_BITS, 32, DEC_LEN)
+    x = extreme_words(HEADLINE, small, gen)
+    got = K1(x, HEADLINE, small)
+    plain16, peak = decode_blocks_i16_torch(x, HEADLINE, small,
+                                            return_peak=True)
+    held("K1 on extreme fields against decode_blocks_i16_torch", got,
+         plain16)
+    held("decode_blocks_i16_torch against decode_blocks_torch", plain16,
+         decode_blocks_torch(x, HEADLINE, small))
+    if peak > PM16_BOUND:
+        raise AssertionError(f"int16 candidate metric {peak} over the bound "
+                             f"{PM16_BOUND}")
+    say("5b K1 A/B", f"K1 == decode_blocks_i16_torch == decode_blocks_torch "
+        f"on {DECODE_CHECK_BITS} bits of extreme SOFT8 fields at dec_len "
+        f"{DEC_LEN}; largest |candidate metric| {peak} <= {PM16_BOUND}")
+    a_ms, b_ms = res["coded 5.5 dB"]
+    return {"int32_ms": b_ms, "ab_ms": a_ms,
+            "ab_extreme_ms": list(res["extreme fields"]),
+            "sass_per_stage": sass["int16x2"][0],
+            "int32_sass_per_stage": sass["int32"][0],
+            "registers": sass["int16x2"][1], "int32_registers": sass["int32"][1],
+            "pm16_peak": peak}
 
 
 def window_compare_phase(gen, tally) -> dict:
@@ -1830,6 +1960,9 @@ def soft16_ablation_phase(card: str, runs: dict):
     return row["ms"], p_ms, 0, row["bound"]
 
 
+GRAPH_CALLS = 100                   # calls a CUDA graph replays (graph_ms)
+
+
 def transpose_phase(card: str, runs: dict):
     """K26: every tiling's transpose of the JAX shape (15,744 x 1,056
     int32) bit-equal to x.t(), the consumer on its output to its plain
@@ -1842,21 +1975,50 @@ def transpose_phase(card: str, runs: dict):
     want = x.t().contiguous()
     for tiling in tb.TILINGS:
         held(f"K26 {tiling}", K26.transpose(tiling, x), want)
-    held("K26 consume", K26.consume(want), tb.consume_torch(want))
+    # the consumer writes its output: the caching allocator hands it a
+    # block that a freed tensor of junk left dirty
+    junk = torch.full((tb.SUM_COLS,), -1, dtype=torch.int32, device="cuda")
+    del junk
+    got, counts = counted(lambda: K26.consume(want))
+    if counts["K26"] != 1:
+        raise AssertionError(f"K26's consumer: {counts['K26']} launches")
+    held("K26 consume", got, tb.consume_torch(want))
+    held("K26 consume against .sum(0)", got,
+         want[:, :tb.SUM_COLS].sum(0, dtype=torch.int32))
     say("33 transpose", f"K26 bit-equal to its plain version: "
         f"{', '.join(tb.TILINGS)} on ({tb.B}, {tb.LW}) int32, the consumer "
-        f"on the ({tb.LW}, {tb.B}) result")
+        f"(one launch, on reused memory) on the ({tb.LW}, {tb.B}) result, "
+        f"equal to .sum(0) too")
     res, counts = probe_run(tb.probe)
     record(runs, counts, 1, ["K26"], "transpose bench")
     bnd = bound(2 * x.numel() * 4)
+    c_bnd = bound(want.shape[0] * tb.SUM_COLS * 4 + tb.SUM_COLS * 4)
     say("33 transpose", f"{card}: " + ", ".join(
         f"{k} {v:.4f}" for k, v in res.items()) +
         f" ms; {share(bnd, res['32x32'])} (32x32); best tiling "
         f"{min(res[t] for t in tb.TILINGS):.4f} against torch "
-        f"{res['torch']:.4f}; consumer bound "
-        f"{bound(want.shape[0] * tb.SUM_COLS * 4)[0]:.6f} ms")
+        f"{res['torch']:.4f}; consumer (one launch) {res['consume']:.4f} ms "
+        f"against x[:, :128].sum(0) {res['torch consume']:.4f} ms, "
+        f"{share(c_bnd, res['consume'])}")
+    # the same two on the card's clock alone: GRAPH_CALLS calls replayed
+    # from a CUDA graph (their capture launches K26 outside the counts)
+    g_ms, g_all, g_out = graph_ms(lambda: K26.consume(want), GRAPH_CALLS,
+                                  tb.REPS)
+    gl_ms, gl_all, gl_out = graph_ms(
+        lambda: want[:, :tb.SUM_COLS].sum(0, dtype=torch.int32),
+        GRAPH_CALLS, tb.REPS)
+    held("K26 consume replayed from a graph", g_out, gl_out)
+    say("33 transpose", f"{card}: replayed from a CUDA graph of "
+        f"{GRAPH_CALLS} calls: consumer {g_ms:.4f} ms a call of "
+        f"{[round(t, 4) for t in g_all]}, x[:, :128].sum(0) {gl_ms:.4f} ms "
+        f"of {[round(t, 4) for t in gl_all]}; {share(c_bnd, g_ms)}")
     p_ms, _, _ = cuda_ms(lambda: tb.transpose_torch(x), 1)
-    return res["32x32"], p_ms, 0, bnd, res["torch"]
+    c_ms, _, _ = cuda_ms(lambda: tb.consume_torch(want), 1)
+    return res["32x32"], p_ms, 0, bnd, res["torch"], {
+        "consume_ms": res["consume"], "consume_plain_ms": c_ms,
+        "consume_library_ms": res["torch consume"],
+        "consume_graph_ms": g_ms, "consume_library_graph_ms": gl_ms,
+        "consume_bound_ms": c_bnd[0], "consume_launches_per_call": 1}
 
 
 def fp32_routes_phase(card: str, runs: dict):
@@ -1956,6 +2118,7 @@ def main() -> int:
     main_path_phase(runs)
     err = max(err, noisy_chain_phase())
     k1_ms, plain_ms, k1_bound = timing_phase(card)
+    k1_ab = k1_ab_phase(card, gen)
     with tempfile.TemporaryDirectory() as tmp:
         serve_phase(Path(tmp), "s8", HEADLINE,
                     [([], "K1"), (["--survivor", "window"], "K3"),
@@ -1965,7 +2128,7 @@ def main() -> int:
     steady = e2e_phase(runs)
     staged_path_phase(runs)
     times.update(kernel_times_phase(card))
-    times["K1"] = (k1_ms, plain_ms, err, k1_bound)
+    times["K1"] = (k1_ms, plain_ms, err, k1_bound, None, k1_ab)
     gen_times, e2e = generator_times_phase(card)
     times.update(gen_times)
     say("12 e2e summary", f"{card}: CLI steady-state lines {steady}; "
@@ -2041,20 +2204,23 @@ def main() -> int:
         fp32_fused_value_probe.RUNS + 1)
     want["K28"] = len(interleave_bench.VARIANTS) * (
         1 + 2 * (interleave_bench.RUNS + 1))
-    rows = [(k.name, str(k.source.relative_to(ROOT))) for k in KERNELS]
+    rows = [(k.name, str(k.source.relative_to(ROOT))) for k in KERNELS
+            if k is not K1_I32]
     rows += [(name, str(K1.source.relative_to(ROOT)))
              for name in ("K10", "K21", "K22", "K24", "K27")]
     rows.sort(key=lambda r: int(r[0][1:]))
     per_call = {name: launches_per_call(runs, name, want.get(name))
                 for name, _ in rows}
-    print(json.dumps({"kernels": [{
+    # a row's extra keys (K1's A/B, K26's consumer) ride in times[name][5]
+    print(json.dumps({"kernels": [dict({
         "name": name, "route": "cuda", "source": source,
         "replaces": REPLACES[name], "launches": per_call[name][0],
         "launches_per_call": per_call[name][1],
         "max_abs_err": max(times[name][2], worst.get(name, 0)),
         "ms": times[name][0], "plain_ms": times[name][1],
         "bound_ms": times[name][3][0], "bound_by": times[name][3][1],
-        "library_ms": times[name][4] if len(times[name]) > 4 else None}
+        "library_ms": times[name][4] if len(times[name]) > 4 else None},
+        **(times[name][5] if len(times[name]) > 5 else {}))
         for name, source in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

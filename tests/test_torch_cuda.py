@@ -1,4 +1,6 @@
-"""Kernels K1-K6 on the card against their plain PyTorch versions, the
+"""Kernels K1-K6 on the card against their plain PyTorch versions (K1's
+int16x2 metrics on extreme fields against the int32 core and its int32
+instances K1_I32 too), the
 staged-input paths (``decode_packed_cuda(fused=False)``,
 ``fp32_words=False``, ``decode_blocks_cuda``) and their launch counts, and
 ViterbiGPU's CUDA path (run, run_stream, streaming); the generator
@@ -9,8 +11,8 @@ ablation, ACS variants, ILP) and K16-K19 (constructs, dtype rates, int16x2
 SWAR, 16-bit ACS) against their plain versions, the generator probe K20
 and the roll-halo decode K23 against theirs, K1's and K3's u/d-word reader,
 the last probes' kernels K25 (SOFT16 ablation), K26 (transpose and its
-consumer) and K28 (interleave) against theirs, and the probes' entry
-points.
+consumer, one launch on reused memory) and K28 (interleave) against
+theirs, and the probes' entry points.
 Every test here needs a CUDA GPU and skips without one; the
 file imports no jax, so it runs on a machine that has only the port's
 dependencies:
@@ -26,6 +28,8 @@ import torch
 
 from tpu_viterbi_torch import ConfigResolutionError, ViterbiGPU, hardware
 from tpu_viterbi_torch.chain import genkernel
+from tpu_viterbi_torch.chain.encode import conv_encode_np
+from tpu_viterbi_torch.chain.quantize import quantize_and_pack
 from tpu_viterbi_torch.chain.quantize import unpack_to_soft
 from tpu_viterbi_torch.config import ChannelIn, DecodeOut, DecoderConfig
 from tpu_viterbi_torch.decoder import core_cuda, core_torch
@@ -42,6 +46,7 @@ from tpu_viterbi_torch.scripts import (acs_variants_bench, bench_profile,
                                        transpose_bench)
 from tpu_viterbi_torch.sharding import simulate
 from tpu_viterbi_torch.utils import timing
+from tpu_viterbi_torch.utils.bits import extreme_field_words
 
 pytestmark = pytest.mark.cuda
 
@@ -93,6 +98,46 @@ def test_k1_rejects_bad_input(gpu):
     with pytest.raises(ConfigResolutionError, match="K2"):
         core_cuda.K1(torch.zeros(600, device=gpu),
                      DecoderConfig(ChannelIn.FP32), plan)
+
+
+@pytest.mark.parametrize("channel", [ChannelIn.HARD, ChannelIn.SOFT8],
+                         ids=lambda c: c.name)
+@pytest.mark.parametrize("out", [DecodeOut.O_B32, DecodeOut.O_B16],
+                         ids=lambda o: o.name)
+@pytest.mark.parametrize("dec_len", [96, 2048, 16384])
+def test_k1_int16_extreme_fields(gpu, rng, channel, out, dec_len):
+    """K1's int16x2 metrics on fields at their extremes (and, for SOFT8,
+    noiseless coded words at +-127, the metrics' fastest growth) equal the
+    int32 core; on SOFT8 K1_I32, the int32 instances, equals both.  Each
+    decode is one launch of its own kernel."""
+    cfg = DecoderConfig(channel, decode_out=out)
+    bpp = cfg.bits_per_pack
+    plan = core_torch.plan_blocks(dec_len * 20 - bpp, bpp, dec_len)
+    n = cfg.get_input_words(2 * (plan.message_len + 64))
+    inputs = [extreme_field_words(rng, n, cfg.enc_data_width)]
+    if channel == ChannelIn.SOFT8:
+        bits = rng.integers(0, 2, size=plan.message_len + 64)
+        coded = conv_encode_np(bits).astype(np.float32) * 254 - 127
+        inputs.append(quantize_and_pack(torch.from_numpy(coded),
+                                        ChannelIn.SOFT8).numpy())
+    for words in inputs:
+        x = torch.from_numpy(words).to(gpu)
+        want = core_torch.decode_blocks_torch(x, cfg, plan)
+        got, n_launch = _launched([core_cuda.K1, core_cuda.K1_I32],
+                                  lambda: core_cuda.K1(x, cfg, plan))
+        assert n_launch == [1, 0] and torch.equal(got, want)
+        if channel == ChannelIn.SOFT8:
+            got, n_launch = _launched(
+                [core_cuda.K1, core_cuda.K1_I32],
+                lambda: core_cuda.K1_I32(x, cfg, plan))
+            assert n_launch == [0, 1] and torch.equal(got, want)
+
+
+def test_k1_i32_takes_soft8_only(gpu):
+    plan = core_torch.plan_blocks(2048, 32)
+    with pytest.raises(ConfigResolutionError, match="SOFT8 only"):
+        core_cuda.K1_I32(torch.zeros(600, dtype=torch.int32, device=gpu),
+                         DecoderConfig(ChannelIn.SOFT4), plan)
 
 
 def test_viterbi_gpu_launches_k1(gpu, rng):
@@ -844,6 +889,34 @@ def test_k26_matches_plain(gpu, shape):
         n += 1
     torch.cuda.synchronize()
     assert tb.K26.launches == before + n
+
+
+def test_k26_consume_writes_reused_memory(gpu):
+    """The consumer writes its 128 sums, one launch and no zeroing: on the
+    block a freed tensor of junk left in the caching allocator it still
+    equals its plain version and torch's sum."""
+    tb = transpose_bench
+    t = tb.probe_input(gpu, 1056, 15744 // 4, seed=27)
+    want = tb.consume_torch(t)
+    for _ in range(3):
+        junk = torch.full((tb.SUM_COLS,), -1, dtype=torch.int32, device=gpu)
+        del junk
+        got, n = _launched([tb.K26], lambda: tb.K26.consume(t))
+        assert n == [1] and torch.equal(got, want)
+        assert torch.equal(got, t[:, :tb.SUM_COLS].sum(0, dtype=torch.int32))
+
+
+def test_graph_ms_replays_k26_consume(gpu):
+    """timing.graph_ms captures the consumer's calls into one CUDA graph
+    (each wrapper call counted once, at capture) and replays them: a
+    positive time a call and the right sums."""
+    tb = transpose_bench
+    t = tb.probe_input(gpu, 1056, 256, seed=28)
+    before = tb.K26.launches
+    ms, all_ms, got = timing.graph_ms(lambda: tb.K26.consume(t), 10, 3)
+    assert tb.K26.launches == before + 10
+    assert ms > 0 and len(all_ms) == 3
+    assert torch.equal(got, tb.consume_torch(t))
 
 
 @pytest.mark.parametrize("reps", [1, 5, 6, 13])

@@ -1,7 +1,29 @@
-// The add-compare-select stage of the decode kernels (K1-K5 in
-// viterbi.cu), shared with the probes that time it on its own: K12's layout
-// A (layout_probe.cu) and K13's ablation (kernel_ablation.cu) run this very
-// stage body, so what they measure is K1's.
+// The add-compare-select stages of the decode kernels in viterbi.cu.
+//   - acs_stage: 64 int32 path metrics, a state a register.  K2-K5 run it,
+//     and K1 on SOFT16 (|bm| reaches 65,536: int16 cannot hold its
+//     metrics, as the JAX package's options_valid forbids M_B16 there).  So
+//     do the probes that time it on its own, K12's layout A
+//     (layout_probe.cu) and K13's ablation (kernel_ablation.cu), which keep
+//     measuring the int32 stage of their JAX scripts, and K23 and K25; K14
+//     and K16 take its wrapping add and sub.
+//   - acs_stage16: 32 int16x2 words of path metrics, two neighbouring
+//     states a register.  K1 runs it on HARD, SOFT4, SOFT8 and the FP32
+//     channel's u/d words, at bpp 32 and 16, whatever the metric mode: the
+//     metric's width never changes a decision while no metric wraps
+//     (tests/test_metric_equiv.py holds that invariant on the JAX side).
+//
+// The no-wrap bound of acs_stage16.  Let M be the largest |bm| of the
+// channel (256 for SOFT8: u = a0 + a1 of two 8-bit fields; 128 for the u/d
+// words, 16 for SOFT4, 2 for HARD).  Every state reaches every other in 6
+// stages, so 6 stages after any stage t every metric is at least t's best
+// less 6M (the path from t's best state) and at most t's best plus 6M:
+// the metrics' spread is at most 12M (3,072 for SOFT8; from the zero start
+// it grows by at most 2M a stage).  K1 subtracts state 0's metric from all
+// 64 once a pack (renorm16), so a pack starts with |pm| <= 12M and each of
+// its bpp stages moves a metric by at most M: every candidate of the pack
+// has |c| <= (12 + bpp) M, at most (12 + 32) * 256 = 11,264 < 32,767
+// (kPm16Bound).  tests/test_torch_k1_int16.py checks the largest |c| of the
+// plain version, core_torch.decode_blocks_i16_torch, against it.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -89,6 +111,96 @@ __device__ __forceinline__ void acs_stage(const int (&pm)[kStates],
     pp_out[2 * q] = de ? from_hi : from_lo;
     pp_out[2 * q + 1] = dodd ? from_hi : from_lo;
   }
+}
+
+// --- int16x2 path metrics (K1) ---
+
+// The largest |candidate metric| of acs_stage16 with renorm16 once a pack
+// of 32 stages on SOFT8, the widest channel that takes it (the header's
+// bound); core_torch.PM16_BOUND is the same number.
+constexpr int kPm16Bound = (12 + 32) * 256;
+static_assert(kPm16Bound <= 32767, "int16 metrics would wrap");
+
+// Which of u, nu, d, nd (0..3) is butterfly q's bm (acs_stage's choice).
+__host__ __device__ constexpr int bm_code(int q) {
+  return sign0(q) == sign1(q) ? (sign0(q) > 0 ? 0 : 1)
+                              : (sign0(q) > 0 ? 2 : 3);
+}
+
+// The int16x2 pair (bm(2j), bm(2j + 1)) of word pair j is one of four:
+// 0 (nu, d), 1 (u, nd), 2 (nd, u), 3 (d, nu); pair k ^ 1 is pair k's
+// negation.  -1 where it is none of them (the static_assert below rules
+// that out for this code).
+__host__ __device__ constexpr int bm_pair(int j) {
+  const int lo = bm_code(2 * j), hi = bm_code(2 * j + 1);
+  return lo == 1 && hi == 2   ? 0
+         : lo == 0 && hi == 3 ? 1
+         : lo == 3 && hi == 0 ? 2
+         : lo == 2 && hi == 1 ? 3
+                              : -1;
+}
+__host__ __device__ constexpr bool bm_pairs_closed() {
+  for (int j = 0; j < kStates / 4; ++j)
+    if (bm_pair(j) < 0) return false;
+  return true;
+}
+static_assert(bm_pairs_closed(), "a word pair's bm is not one of four pairs");
+
+// (lo, hi) -> the int16x2 word of their low halves.
+__device__ __forceinline__ uint32_t pair16(int lo, int hi) {
+  return __byte_perm(static_cast<uint32_t>(lo), static_cast<uint32_t>(hi),
+                     0x5410);
+}
+
+// One ACS stage on int16x2 metrics: pm[k] holds states (2k, 2k + 1), so
+// for word pair j = 0..15, L = pm[j] holds the lo predecessors of
+// butterflies q = 2j, 2j + 1 and H = pm[16 + j] their hi ones, and with B
+// the pair bm_pair(j) (its negation nB):
+//   E = max(L + B, H + nB): children 2q of q = 2j (low half), 2j + 1 (high)
+//   O = max(L + nB, H + B): children 2q + 1
+// each add one VIADD.16x2, each max one VIMNMX.S16x2 that also gives c0 >=
+// c1 per half, the negation of acs_stage's strict c1 > c0, so the j=0
+// branch keeps winning ties.  The children of q = 2j are states 4j, 4j + 1
+// and of 2j + 1 states 4j + 2, 4j + 3: the next words are the low halves
+// and the high halves of (E, O), one PRMT each (the JAX merge interleave).
+// Survivors stay 64 uint32 registers, selected as acs_stage selects them.
+// The adds wrap in int16: the caller keeps the metrics under kPm16Bound.
+__device__ __forceinline__ void acs_stage16(const uint32_t (&pm)[kStates / 2],
+                                            const uint32_t (&pp)[kStates],
+                                            uint32_t (&pm_out)[kStates / 2],
+                                            uint32_t (&pp_out)[kStates],
+                                            const Bm& m) {
+  const uint32_t pair[4] = {pair16(m.nu, m.d), pair16(m.u, m.nd),
+                            pair16(m.nd, m.u), pair16(m.d, m.nu)};
+#pragma unroll
+  for (int j = 0; j < kStates / 4; ++j) {
+    const uint32_t b = pair[bm_pair(j)], nb = pair[bm_pair(j) ^ 1];
+    const uint32_t l = pm[j], h = pm[kStates / 4 + j];
+    bool ge_e1, ge_e0, ge_o1, ge_o0;  // c0 >= c1 of q = 2j + 1, 2j
+    const uint32_t e =
+        __vibmax_s16x2(__vadd2(l, b), __vadd2(h, nb), &ge_e1, &ge_e0);
+    const uint32_t o =
+        __vibmax_s16x2(__vadd2(l, nb), __vadd2(h, b), &ge_o1, &ge_o0);
+    pm_out[2 * j] = __byte_perm(e, o, 0x5410);
+    pm_out[2 * j + 1] = __byte_perm(e, o, 0x7632);
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int q = 2 * j + k;
+      const bool ge_e = k ? ge_e1 : ge_e0, ge_o = k ? ge_o1 : ge_o0;
+      const uint32_t from_lo = pp[q] << 1;
+      const uint32_t from_hi = (pp[q + 32] << 1) | 1u;
+      pp_out[2 * q] = ge_e ? from_lo : from_hi;
+      pp_out[2 * q + 1] = ge_o ? from_lo : from_hi;
+    }
+  }
+}
+
+// Subtract state 0's metric from all 64 (decision-invariant): 1 PRMT and
+// 32 VIADD.16x2 a pack.
+__device__ __forceinline__ void renorm16(uint32_t (&pm)[kStates / 2]) {
+  const uint32_t neg0 = __byte_perm(0u - pm[0], 0u, 0x1010);  // (-pm0, -pm0)
+#pragma unroll
+  for (int k = 0; k < kStates / 2; ++k) pm[k] = __vadd2(pm[k], neg0);
 }
 
 __device__ __forceinline__ void int_bm(int a0, int a1, Bm& m) {

@@ -13,10 +13,17 @@
 //   2 slab    32 whole rows (the JAX 128 x 1056's full width) in a 32 x
 //             (cols | 1) padded slab of dynamic shared memory, 1024 threads:
 //             a warp writes 32 neighbouring words of each output row
-//   3 consume out[j] += sum over rows of t[r][j], j < 128, int32 wrapping
-//             (the caller zeroes out): 128 threads a block, 16 rows a block,
-//             one atomicAdd a column a block (integer addition mod 2^32
-//             does not depend on the order)
+//   3 consume out[j] = sum over rows of t[r][j], j < 128, int32 wrapping
+//             (integer addition mod 2^32 does not depend on the order): one
+//             launch of one thread-block cluster of 8 CTAs of 1,024 threads
+//             that writes out, so the caller allocates it with torch.empty
+//             and no zeroing launch runs before it.  CTA k sums the k-th
+//             eighth of the rows, 8 row groups of 128 columns, reduces its
+//             groups in shared memory, and CTA 0 adds the 8 CTAs' sums
+//             through distributed shared memory (map_shared_rank) and writes
+//             the 128 results: no atomics.  A cluster rather than one CTA
+//             of 1,024 threads, so that the loads of eight SMs, not one,
+//             share the 540 KB of the JAX shape.
 // The plain PyTorch versions are transpose_torch and consume_torch in
 // tpu_viterbi_torch/scripts/transpose_bench.py; each variant agrees with
 // them bit for bit.
@@ -27,19 +34,25 @@
 // and the writes (along an output row) are whole 128-byte lines a warp; the
 // padding column keeps the column-wise shared accesses free of bank
 // conflicts (odd pitch).  The consumer reads 128 columns a row, 512 bytes,
-// coalesced.
+// coalesced: 540 KB at the JAX shape, 0.0002 ms of bytes, so the launch is
+// its floor.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 namespace viterbi_transpose {
 
+namespace cg = cooperative_groups;
+
 constexpr int kRowsAPass = 8;
 constexpr int kSlabRows = 32;
 constexpr int kSlabThreads = 1024;
 constexpr int kSumCols = 128;
-constexpr int kSumRows = 16;
+constexpr int kSumCluster = 8;                     // CTAs of the consumer
+constexpr int kSumThreads = 1024;
+constexpr int kSumGroups = kSumThreads / kSumCols;  // row groups a CTA
 
 template <int TILE>
 __global__ void __launch_bounds__(TILE * kRowsAPass)
@@ -81,16 +94,35 @@ slab_transpose_kernel(const int* __restrict__ in, int* __restrict__ out,
     out[static_cast<size_t>(c) * rows + r] = slab[lane * pitch + c];
 }
 
-__global__ void __launch_bounds__(kSumCols)
+__global__ void __cluster_dims__(kSumCluster, 1, 1)
+    __launch_bounds__(kSumThreads)
 consume_kernel(const int* __restrict__ t, int* __restrict__ out, int rows,
                int cols) {
-  const int r0 = blockIdx.x * kSumRows;
-  const int r1 = min(rows, r0 + kSumRows);
+  __shared__ uint32_t part[kSumGroups][kSumCols];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int col = threadIdx.x % kSumCols, g = threadIdx.x / kSumCols;
+  const int share = (rows + kSumCluster - 1) / kSumCluster;
+  const int r1 = min(rows, (rank + 1) * share);
   uint32_t acc = 0u;
-  for (int r = r0; r < r1; ++r)
-    acc += static_cast<uint32_t>(t[static_cast<size_t>(r) * cols +
-                                   threadIdx.x]);
-  atomicAdd(reinterpret_cast<unsigned int*>(out) + threadIdx.x, acc);
+#pragma unroll 4
+  for (int r = rank * share + g; r < r1; r += kSumGroups)
+    acc += static_cast<uint32_t>(__ldg(t + static_cast<size_t>(r) * cols +
+                                       col));
+  part[g][col] = acc;
+  __syncthreads();
+  if (g == 0) {
+    for (int k = 1; k < kSumGroups; ++k) acc += part[k][col];
+    part[0][col] = acc;
+  }
+  cluster.sync();  // every CTA's part[0] is written and visible to CTA 0
+  if (rank == 0 && g == 0) {
+    uint32_t sum = 0u;
+    for (int k = 0; k < kSumCluster; ++k)
+      sum += cluster.map_shared_rank(&part[0][0], k)[col];
+    out[col] = static_cast<int>(sum);
+  }
+  cluster.sync();  // no CTA exits while CTA 0 still reads its shared memory
 }
 
 size_t slab_bytes(int cols) {
@@ -102,7 +134,7 @@ size_t slab_bytes(int cols) {
 using namespace viterbi_transpose;
 
 // Launch variant `variant` (0 32x32, 1 64x64, 2 slab: out (cols, rows) =
-// in (rows, cols) transposed; 3 consume: out (128,) += the column sums of
+// in (rows, cols) transposed; 3 consume: out (128,) = the column sums of
 // in's first 128 columns, cols >= 128) on int32 arrays.  The slab needs
 // cols | 1 <= 1816 (32 rows of it in 227 KB).  Returns the cudaError_t of
 // the launch (0 = launched).
@@ -140,8 +172,7 @@ extern "C" int viterbi_k26_launch(int variant, const void* in, void* out,
     }
     case 3:
       if (cols < kSumCols) return static_cast<int>(cudaErrorInvalidValue);
-      consume_kernel<<<(rows + kSumRows - 1) / kSumRows, kSumCols, 0, s>>>(
-          x, o, rows, cols);
+      consume_kernel<<<kSumCluster, kSumThreads, 0, s>>>(x, o, rows, cols);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

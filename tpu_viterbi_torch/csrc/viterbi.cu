@@ -14,6 +14,10 @@
 //     _decode_core); with UdReader (width code kUdWidth) the FP32 channel's
 //     u/d words, its ud_mode branch (:600-602), which the JAX package
 //     reaches through _run_kernel_fused(..., ud_mode=True) (:1167-1177).
+//     Path metrics: int16x2 (acs.cuh's acs_stage16, renormalised every
+//     pack) for widths 1, 4, 8 and kUdWidth, int32 (acs_stage) for 16,
+//     chosen at compile time by the width, whatever the metric mode.
+//     viterbi_k1_i32_launch keeps the int32 SOFT8 instances for the A/B.
 //   - K2, viterbi_k2_launch: FloatReader (the FP32 channel's raw interleaved
 //     f32 wire), full store.  Replaces _viterbi_kernel_fused_f32v; its TPU
 //     staging (_body_and_edge's roll halo) is not needed: K2 reads the flat
@@ -51,19 +55,30 @@
 // once; tpu_viterbi_torch/decoder/core_cuda.py builds it at first use and
 // binds the entry points with ctypes).
 //
-// What bounds the decode on an H100: ALU work in the ACS.  Each stage of
-// each block runs 32 butterflies of 4 adds, 2 compares and 4 selects plus
-// the survivor shifts, ~400 integer instructions, against 2..64 bits of
-// channel input a stage and 64 x 4 bytes of survivors per bpp stages.
+// What bounds the decode on an H100: the ACS' instruction issue at one warp
+// a scheduler.  Each stage of each block runs 32 butterflies; with int32
+// metrics that is 4 adds, 2 compares and 4 selects plus the survivor
+// shifts, 398 SASS a stage where the minimal ACS needs 256, against 2..64
+// bits of channel input a stage and 64 x 4 bytes of survivors per bpp
+// stages.  At the 32M-bit headline (dec_len 2048) 15,872 time-blocks make
+// 496 warps for the card's 528 schedulers, so no second warp hides a
+// warp's dependency latency and per-warp issue sets the time.
 //
 // What the design does about it: one thread per time-block (the JAX
-// kernel's blocks-on-lanes layout).  The 64 path metrics and 64 survivor
+// kernel's blocks-on-lanes layout).  The path metrics and 64 survivor
 // registers live in registers, double-buffered and fully unrolled over the
 // 32 butterflies, so the trellis' even/odd interleave is register renaming
 // and the +-1 branch signs fold into add/sub at compile time: no shuffles,
 // no per-stage memory traffic besides the channel input, prefetched ahead.
-// Path metrics start at zero in every block; the per-pack minimum is
-// subtracted only when the plan needs it (renorm flag).
+// K1 keeps two states' metrics in a register (int16x2): one VIADD.16x2
+// adds a branch metric to two states and one VIMNMX.S16x2 takes two maxima
+// and both decisions, so a stage issues fewer instructions; the survivors
+// stay int32.  At SOFT8 b32 the stage loop issues 272 SASS a stage against
+// 395.5 for the int32 instance, in 134 registers against 176, no spills
+// (chip_smoke.py phase 5b reads both from the built library's cubin).
+// Path metrics start at zero in every block; int16x2 metrics subtract
+// state 0's every pack (acs.cuh: no int16 wraps), int32 ones the per-pack
+// minimum only when the plan needs it (renorm flag).
 //
 // K2's f32 work is 2 clamps, 2 adds and 2 conversions a stage against ~400
 // integer instructions; a stage reads 8 bytes of wire (4x SOFT8's), 0.5 GB
@@ -354,13 +369,18 @@ __device__ __forceinline__ uint32_t ring_at(const uint32_t* ring, int slot,
 // as uint32.  n_conv: packs discarded by the traceback; n_slots: the
 // window ring's W slots, in dynamic shared memory of W * 64 * kThreads
 // words.
-template <class Reader, int BPP, bool WINDOW>
+// PM16: int16x2 path metrics (acs_stage16, renorm16 every pack whatever
+// the renorm flag), else int32 (acs_stage, the per-pack minimum subtracted
+// where renorm is set).
+template <class Reader, int BPP, bool WINDOW, bool PM16 = false>
 __global__ void __launch_bounds__(kThreads)
 viterbi_kernel(const Source src, uint32_t* __restrict__ surv,
                int* __restrict__ out, int num_blocks, int n_packs,
                int n_conv, int n_emit, int renorm, int n_slots) {
   constexpr uint32_t kMask = BPP == 32 ? 0xFFFFFFFFu : 0xFFFFu;
   constexpr bool kWrap = Reader::kWrap;
+  constexpr int kPmWords = PM16 ? kStates / 2 : kStates;
+  using pm_t = std::conditional_t<PM16, uint32_t, int>;
   extern __shared__ uint32_t ring[];
   const int blk = blockIdx.x * blockDim.x + threadIdx.x;
   if (blk >= num_blocks) return;
@@ -369,13 +389,12 @@ viterbi_kernel(const Source src, uint32_t* __restrict__ surv,
   const int n_disc = n_slots - 2;                 // window chase depth
   int* const dst_out = out + static_cast<size_t>(blk) * n_emit;
 
-  int pm_a[kStates], pm_b[kStates];
+  pm_t pm_a[kPmWords], pm_b[kPmWords];
   uint32_t pp_a[kStates], pp_b[kStates];
 #pragma unroll
-  for (int s = 0; s < kStates; ++s) {
-    pm_a[s] = 0;
-    pp_a[s] = 0u;
-  }
+  for (int s = 0; s < kPmWords; ++s) pm_a[s] = 0;
+#pragma unroll
+  for (int s = 0; s < kStates; ++s) pp_a[s] = 0u;
 
   Reader reader(src, blk);
   int stage = 0;
@@ -384,9 +403,15 @@ viterbi_kernel(const Source src, uint32_t* __restrict__ surv,
     for (int t = 0; t < BPP; t += 2) {
       Bm m;
       reader.next(stage++, m);
-      acs_stage<kWrap>(pm_a, pp_a, pm_b, pp_b, m);
+      if constexpr (PM16)
+        acs_stage16(pm_a, pp_a, pm_b, pp_b, m);
+      else
+        acs_stage<kWrap>(pm_a, pp_a, pm_b, pp_b, m);
       reader.next(stage++, m);
-      acs_stage<kWrap>(pm_b, pp_b, pm_a, pp_a, m);
+      if constexpr (PM16)
+        acs_stage16(pm_b, pp_b, pm_a, pp_a, m);
+      else
+        acs_stage<kWrap>(pm_b, pp_b, pm_a, pp_a, m);
     }
     if constexpr (WINDOW) {
       // one-pointer circular buffer (core_pallas.py:440-486): dump pack p
@@ -409,7 +434,9 @@ viterbi_kernel(const Source src, uint32_t* __restrict__ surv,
 #pragma unroll
       for (int s = 0; s < kStates; ++s) dst[s * plane] = pp_a[s] & kMask;
     }
-    if (renorm) {  // decision-invariant min-subtract (core_pallas.py:457-466)
+    if constexpr (PM16) {
+      renorm16(pm_a);  // keeps every metric under kPm16Bound (acs.cuh)
+    } else if (renorm) {  // decision-invariant min-subtract (:457-466)
       int mn = pm_a[0];
 #pragma unroll
       for (int s = 1; s < kStates; ++s) mn = min(mn, pm_a[s]);
@@ -451,7 +478,7 @@ viterbi_kernel(const Source src, uint32_t* __restrict__ surv,
 // memory (64 KB at W = 4, 96 KB at W = 6), so it opts in to that much
 // dynamic shared memory first.  At those sizes an SM holds 3 (W = 4) or
 // 2 (W = 6) CUDA blocks; the 32M-bit headline plan needs 2.
-template <class Reader, int BPP, bool WINDOW>
+template <class Reader, int BPP, bool WINDOW, bool PM16 = false>
 cudaError_t launch(const Source& src, uint32_t* surv, int* out,
                    int num_blocks, int n_packs, int n_conv, int n_emit,
                    int renorm, int n_slots, cudaStream_t stream) {
@@ -460,12 +487,12 @@ cudaError_t launch(const Source& src, uint32_t* surv, int* out,
     smem = static_cast<size_t>(n_slots) * kStates * kThreads *
            sizeof(uint32_t);
     const cudaError_t err = cudaFuncSetAttribute(
-        viterbi_kernel<Reader, BPP, WINDOW>,
+        viterbi_kernel<Reader, BPP, WINDOW, PM16>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
   const int grid = (num_blocks + kThreads - 1) / kThreads;
-  viterbi_kernel<Reader, BPP, WINDOW><<<grid, kThreads, smem, stream>>>(
+  viterbi_kernel<Reader, BPP, WINDOW, PM16><<<grid, kThreads, smem, stream>>>(
       src, surv, out, num_blocks, n_packs, n_conv, n_emit, renorm, n_slots);
   return cudaGetLastError();
 }
@@ -523,11 +550,13 @@ using namespace viterbi;
 // for the FP32 channel's u/d words (K1, K3), 0 for f32 values, 32 for int32
 // values (K4); n_slots: the ring's W >= 3 for the
 // window.  Each returns the cudaError_t of the launch (0 = launched).
-#define VITERBI_CASE(W, R, B, WINDOW)                                      \
+#define VITERBI_LAUNCH(W, R, B, WINDOW, PM16)                              \
   if (width == W && bpp == B)                                              \
-    return static_cast<int>(launch<R, B, WINDOW>(                          \
+    return static_cast<int>(launch<R, B, WINDOW, PM16>(                    \
         src, sv, o, num_blocks, n_packs, n_conv, n_emit, renorm, n_slots,  \
         static_cast<cudaStream_t>(stream)));
+// int32 metrics; K1's int16x2 instances are VITERBI_LAUNCH(..., true)
+#define VITERBI_CASE(W, R, B, WINDOW) VITERBI_LAUNCH(W, R, B, WINDOW, false)
 // the four instances of a reader: bpp 32 and 16, window when surv is null
 #define VITERBI_STAGED(W, R)       \
   if (sv == nullptr) {             \
@@ -549,19 +578,32 @@ using namespace viterbi;
     return static_cast<int>(cudaErrorInvalidValue);
 
 #if IN_PART(0)
+// K1: int16x2 metrics on HARD, SOFT4, SOFT8 and the u/d words, int32 on
+// SOFT16 (acs.cuh's header).
 extern "C" int viterbi_k1_launch(VITERBI_ARGS) {
   VITERBI_PROLOGUE
   if (sv == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  VITERBI_CASE(1, IntReader<1>, 32, false)
-  VITERBI_CASE(1, IntReader<1>, 16, false)
-  VITERBI_CASE(4, IntReader<4>, 32, false)
-  VITERBI_CASE(4, IntReader<4>, 16, false)
-  VITERBI_CASE(8, IntReader<8>, 32, false)
-  VITERBI_CASE(8, IntReader<8>, 16, false)
+  VITERBI_LAUNCH(1, IntReader<1>, 32, false, true)
+  VITERBI_LAUNCH(1, IntReader<1>, 16, false, true)
+  VITERBI_LAUNCH(4, IntReader<4>, 32, false, true)
+  VITERBI_LAUNCH(4, IntReader<4>, 16, false, true)
+  VITERBI_LAUNCH(8, IntReader<8>, 32, false, true)
+  VITERBI_LAUNCH(8, IntReader<8>, 16, false, true)
   VITERBI_CASE(16, IntReader<16>, 32, false)
   VITERBI_CASE(16, IntReader<16>, 16, false)
-  VITERBI_CASE(kUdWidth, UdReader, 32, false)
-  VITERBI_CASE(kUdWidth, UdReader, 16, false)
+  VITERBI_LAUNCH(kUdWidth, UdReader, 32, false, true)
+  VITERBI_LAUNCH(kUdWidth, UdReader, 16, false, true)
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K1 with int32 metrics on SOFT8, its earlier arithmetic: the other side of
+// the int16x2 A/B (chip_smoke.py, tests/test_torch_cuda.py); no decode
+// path launches it.
+extern "C" int viterbi_k1_i32_launch(VITERBI_ARGS) {
+  VITERBI_PROLOGUE
+  if (sv == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  VITERBI_CASE(8, IntReader<8>, 32, false)
+  VITERBI_CASE(8, IntReader<8>, 16, false)
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -642,6 +684,7 @@ extern "C" int viterbi_k6_launch(const void* in, long long n, void* out,
 }
 #endif
 
+#undef VITERBI_LAUNCH
 #undef VITERBI_CASE
 #undef VITERBI_STAGED
 #undef VITERBI_ARGS

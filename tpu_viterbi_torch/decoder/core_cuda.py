@@ -1,7 +1,11 @@
 """Kernels K1-K6 on Hopper: build, bind and launch ``csrc/``.
 
 - K1: the integer word channels, full survivor store — the TPU kernel
-  ``_viterbi_kernel_fused``;
+  ``_viterbi_kernel_fused``; int16x2 path metrics on HARD, SOFT4, SOFT8
+  and the u/d words, int32 on SOFT16 (``csrc/acs.cuh``).  ``K1_I32``, K1
+  with int32 metrics on SOFT8 (its earlier arithmetic), is the other side
+  of that A/B for ``chip_smoke.py`` and the GPU tests; no decode path
+  launches it;
 - K2: the FP32 channel's raw f32 wire, full store — the TPU kernel
   ``_viterbi_kernel_fused_f32v``;
 - K3: every channel with the windowed survivor — the ``window=True`` branch
@@ -258,7 +262,20 @@ class TransposeKernel(CudaKernel):
         return out
 
 
+class Int32Kernel(StreamKernel):
+    """K1_I32, bound to ``viterbi_k1_i32_launch``: K1's int32-metric
+    instances on SOFT8, b32 and b16 (the int16x2 A/B).  Its plain version is
+    ``decode_blocks_torch``, as K1's is."""
+
+    def check_config(self, cfg: DecoderConfig) -> None:
+        if cfg.channel_in != ChannelIn.SOFT8:
+            raise ConfigResolutionError(
+                f"kernel {self.name} decodes SOFT8 only, not "
+                f"{cfg.channel_in.name}")
+
+
 K1 = StreamKernel("K1", fp32=False, window=False)
+K1_I32 = Int32Kernel("K1_I32", fp32=False, window=False)
 K2 = StreamKernel("K2", fp32=True, window=False)
 K3 = StreamKernel("K3", fp32=None, window=True)
 K4 = StagedKernel("K4")

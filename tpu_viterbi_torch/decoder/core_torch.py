@@ -17,17 +17,22 @@ computing its kernel's function: ``decode_blocks_torch`` (K1, K2, K3 on
 packed words), ``decode_staged_torch`` (K4 on staged words or values),
 ``decode_planes_torch`` (K5 on two f32 planes), ``stage_transpose``
 (K6) and ``decode_ud_words_torch`` (K1 and K3 on the FP32 channel's u/d
-words of ``fp32_ud_words_torch``); and the values-in entry
+words of ``fp32_ud_words_torch``); ``decode_blocks_i16_torch``, K1's own
+int16 arithmetic, which the tests and ``chip_smoke.py`` hold against the
+int32 decode (no decode path calls it); and the values-in entry
 ``decode_blocks`` with ``gather_blocks``, ``forward_scan`` and
 ``traceback_scan``, as the JAX package exports them.
 The CPU tests hold it bit-exact against ``decode_packed_xla`` and
 ``core_xla.decode_blocks``, and ``chip_smoke.py`` holds the kernels
 against it on the card.  It runs on the CPU or on CUDA tensors.
 
-All metric modes run on int32 path metrics, as the TPU kernel and K1 do
+All metric modes run on int32 path metrics, as the TPU kernel does
 (core_pallas.py:140-148): the reference sizes renorm strides so b16/fp16
 metrics decode identically to int32 (tests/test_metric_equiv.py locks the
-identity on the JAX side).  Survivor registers are int64 masked to 32 bits,
+identity on the JAX side).  K1 runs int16 metrics on every channel but
+SOFT16, renormalised once a pack, which decodes identically for the same
+reason (``decode_blocks_i16_torch``).  Survivor registers are int64 masked
+to 32 bits,
 because torch's uint32 support is partial and ``>>`` on int32 is
 arithmetic.
 """
@@ -481,6 +486,78 @@ def staged_word_mode(staged: torch.Tensor, cfg: DecoderConfig,
         f"K4 takes ({wpb + wph}, {b}) staged words or "
         f"({2 * plan.block_len}, {b}) staged values for this "
         f"{cfg.channel_in.name} plan, got {tuple(staged.shape)}")
+
+
+# K1's int16 path metrics (csrc/acs.cuh, acs_stage16 and renorm16): the
+# largest |bm| of each channel that takes them (the u/d words' fields are
+# read as they are, 8 bits each), and the largest |candidate metric| that
+# renormalising once a pack allows: the spread of the 64 metrics is at most
+# 12 max|bm| (every state reaches every other in 6 stages), and a pack adds
+# at most bpp max|bm|.  PM16_BOUND is acs.cuh's kPm16Bound, SOFT8 at bpp 32.
+PM16_MAX_ABS_BM = {**{c: _MAX_ABS_BM[c] for c in (
+    ChannelIn.HARD, ChannelIn.SOFT4, ChannelIn.SOFT8)}, ChannelIn.FP32: 128}
+
+
+def pm16_bound(max_abs_bm: int, bits_per_pack: int) -> int:
+    """The largest |candidate metric| of K1's int16 stage on a channel of
+    that max|bm| at that pack width."""
+    return (12 + bits_per_pack) * max_abs_bm
+
+
+PM16_BOUND = pm16_bound(PM16_MAX_ABS_BM[ChannelIn.SOFT8], 32)
+
+
+def decode_blocks_i16_torch(packed: torch.Tensor, cfg: DecoderConfig,
+                            plan: BlockPlan, ud: bool = False,
+                            renorm: bool = True, return_peak: bool = False):
+    """K1's int16 arithmetic in plain torch: packed channel words (with
+    ``ud``, the FP32 channel's u/d words and the FP32 ``cfg``) -> (B, n_emit)
+    int32 output packs, full store.  Each candidate metric is computed
+    exactly, then wrapped to int16 as VIADD.16x2 wraps it, and compared in
+    int16 with the same tie rule (the j=0 branch wins ties); once a pack,
+    after the survivor dump, state 0's metric is subtracted from all 64
+    (``renorm``; without it the metrics wrap on long blocks and the decode
+    goes wrong, which the tests show).  With ``return_peak`` it also
+    returns the largest |candidate| before the wrap: while it stays at or
+    under 32,767 nothing wrapped, and the decode equals
+    ``decode_blocks_torch``.  SOFT16 and the FP32 wire raise ValueError: K1
+    keeps int32 metrics there (their |bm| reaches 65,536 and K2 reads the
+    wire)."""
+    if ud != (cfg.channel_in == ChannelIn.FP32) or \
+            cfg.channel_in == ChannelIn.SOFT16:
+        raise ValueError(f"K1 runs int16 metrics on HARD, SOFT4, SOFT8 and "
+                         f"the FP32 channel's u/d words, not "
+                         f"{cfg.channel_in.name}{' u/d words' if ud else ''}")
+    rs = ud_stage_pairs(packed, plan) if ud else \
+        stage_values(packed.to(torch.int32), cfg, plan)
+    b, bpp = plan.num_blocks, plan.bits_per_pack
+    s0 = torch.as_tensor(_SIGN0_NP, device=rs.device)
+    s1 = torch.as_tensor(_SIGN1_NP, device=rs.device)
+    r0, r1 = rs[:, 0, None], rs[:, 1, None]              # (L, 1, B)
+    # (L, 64, B) j=0 branch metrics of every stage (_branch_metrics' rule)
+    bms = s0 * torch.where(s0 == s1, r0, r1) if ud else s0 * r0 + s1 * r1
+    pm = torch.zeros((NUM_STATES, b), dtype=torch.int16, device=rs.device)
+    pp = torch.zeros((NUM_STATES, b), dtype=torch.int64, device=rs.device)
+    surv = torch.empty((plan.n_packs, NUM_STATES, b), dtype=torch.int64,
+                       device=rs.device)
+    peak = torch.zeros((), dtype=torch.int32, device=rs.device)
+    for p in range(plan.n_packs):
+        for t in range(p * bpp, (p + 1) * bpp):
+            c0 = _repeat2(pm[:32]).to(torch.int32) + bms[t]
+            c1 = _repeat2(pm[32:]).to(torch.int32) - bms[t]
+            if return_peak:
+                peak = torch.maximum(peak, torch.maximum(c0.abs().amax(),
+                                                         c1.abs().amax()))
+            c0, c1 = c0.to(torch.int16), c1.to(torch.int16)    # wrap
+            dec = c1 > c0
+            pm = torch.where(dec, c1, c0)
+            pp_sel = torch.where(dec, _repeat2(pp[32:]), _repeat2(pp[:32]))
+            pp = ((pp_sel << 1) | dec.to(torch.int64)) & 0xFFFFFFFF
+        surv[p] = pp & ((1 << bpp) - 1)
+        if renorm:
+            pm = pm - pm[:1]
+    packs = to_int32_bits(traceback_scan(surv, cfg, plan))
+    return (packs, int(peak)) if return_peak else packs
 
 
 def decode_staged_torch(staged: torch.Tensor, cfg: DecoderConfig,

@@ -13,9 +13,10 @@ Lines (the JAX script's, :80-102):
                     32x32 (K6's 32 x 33 tile, for 256 x 256), 64x64 (a 64 x
                     65 tile, for 512 x 512) and slab (32 whole rows, for 128
                     x 1056)
-  consume           K26's consumer alone: the wrapping int32 sums of the
-                    first 128 columns of every row of the transposed array
-                    (``_sum_kernel``), beside ``x[:, :128].sum(0)``
+  consume           K26's consumer alone, one launch: the wrapping int32
+                    sums of the first 128 columns of every row of the
+                    transposed array (``_sum_kernel``), beside
+                    ``x[:, :128].sum(0)``
 A time is the median of REPS CUDA-event launches after one untimed launch;
 GB/s counts the transpose's 2 x B x Lw x 4 bytes.
 """
@@ -92,7 +93,7 @@ class TransposeBenchKernel(ProbeKernel):
                              f"{t.shape[1]}")
         if not self.check_device(t):
             return consume_torch(t)
-        out = torch.zeros(SUM_COLS, dtype=torch.int32, device=t.device)
+        out = torch.empty(SUM_COLS, dtype=torch.int32, device=t.device)
         self.launch(t.device, len(TILINGS), t.data_ptr(), out.data_ptr(),
                     t.shape[0], t.shape[1])
         return out

@@ -16,6 +16,27 @@ import numpy as np
 import torch
 
 
+def extreme_field_words(rng: np.random.Generator, n: int,
+                        width: int) -> np.ndarray:
+    """n int32 channel words whose ``width``-bit fields all sit at their
+    extremes, the worst case of a decoder's path metrics: a quarter all
+    minimum (0x80808080 for 8-bit fields), a quarter all maximum
+    (0x7F7F7F7F), half with each field at its minimum or maximum at random.
+    HARD's 1-bit fields are extreme whatever they are: random words."""
+    if width == 1:
+        return rng.integers(-2 ** 31, 2 ** 31, size=n).astype(np.int32)
+    lo, hi = 1 << (width - 1), (1 << (width - 1)) - 1
+    per = 32 // width
+    fields = np.where(rng.random((n, per)) < 0.5, lo, hi).astype(np.int64)
+    kind = rng.integers(0, 4, size=n)
+    fields[kind == 0] = lo
+    fields[kind == 1] = hi
+    words = np.zeros(n, dtype=np.int64)
+    for j in range(per):                      # MSB = earliest field
+        words = (words << width) | fields[:, j]
+    return (words - ((words >> 31) << 32)).astype(np.int32)
+
+
 def unpack_msb_first(words: np.ndarray, bits_per_pack: int) -> np.ndarray:
     """Packed words -> (n*bpp,) bits, earliest (MSB) first."""
     w = np.asarray(words).astype(np.int64) & ((1 << bits_per_pack) - 1)

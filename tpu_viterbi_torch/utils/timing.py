@@ -59,6 +59,24 @@ def ab_ms(fa: Callable, fb: Callable, runs: int):
             out_b)
 
 
+def graph_ms(fn: Callable, calls: int, runs: int):
+    """Device time of one call of fn without the host's share: ``calls``
+    calls captured into one CUDA graph, one untimed replay, then the
+    CUDA-event times of ``runs`` replays over ``calls``: (median ms a call,
+    all ms a call, the last call's result).  A single event-timed launch
+    of a microsecond kernel reads the host's dispatch; this reads the
+    card's own launch and run.  The calls run on the capture stream and
+    their wrappers count each launch once, at capture."""
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            out = fn()
+    graph.replay()
+    ms, all_ms, _ = cuda_ms(graph.replay, runs)
+    return ms / calls, [t / calls for t in all_ms], out
+
+
 def time_in_graph(fn: Callable, x: torch.Tensor, runs: int = 5) -> float:
     """Seconds per fn(x): the median of ``runs`` CUDA-event timed calls
     after one untimed call, on the current stream of x's device.  A CPU
