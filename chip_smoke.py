@@ -27,7 +27,12 @@ routes: launches of K1, K2 and K3, K28 interleave); phases 16 and 19 cover
 K11's relayouts and K13's bisect traceback.  Phase 5b times K1's int16x2
 path metrics against K1_I32, its int32 instances kept for that A/B (never
 launched by a main path), in turns on the same words, with the SASS a
-stage and the registers of each; phase 33 checks that K26's consumer is
+stage and the registers of each; phase 11b holds K7 and K8 against
+K7_OLD/K8_OLD, the first design's draws (every thread drawing its window's
+two bit packs; kept for that A/B, never launched by a main path), and
+times them in turns at the headline with the threefry calls each design
+draws by its count, the SASS a pair and the registers; phase 33 checks
+that K26's consumer is
 one launch and writes its output.
 
     python3 chip_smoke.py
@@ -91,8 +96,9 @@ from tpu_viterbi_torch.scripts import (  # noqa: E402
     kernel_ablation, kernel_microbench, layout_probe, op_cost_probe,
     opt_bench, soft16_ablation, soft16_pieces, staging_cost, swar_probe,
     transpose_bench)
-from tpu_viterbi_torch.scripts.common import (PIECE_RUNS,  # noqa: E402
-                                              sass_table)
+from tpu_viterbi_torch.scripts.common import (  # noqa: E402
+    PIECE_RUNS, cubin_listings, describe_mix, kernel_opcodes, pick,
+    sass_table)
 from tpu_viterbi_torch.sharding.simulate import (  # noqa: E402
     DEFAULT_SCALES, build_sharded_simulation, count_errors)
 from tpu_viterbi_torch.utils import timing  # noqa: E402
@@ -111,6 +117,7 @@ K1, K2, K3 = core_cuda.K1, core_cuda.K2, core_cuda.K3
 K1_I32 = core_cuda.K1_I32           # K1's int32 metrics: the A/B's other side
 K4, K5, K6 = core_cuda.K4, core_cuda.K5, core_cuda.K6
 K7, K8 = genkernel.K7, genkernel.K8
+K7_OLD, K8_OLD = genkernel.K7_OLD, genkernel.K8_OLD  # K7/K8's first design
 K9, K11 = hardware.K9, op_cost_probe.K11
 K12, K13 = layout_probe.K12, kernel_ablation.K13
 K14, K15 = acs_variants_bench.K14, ilp_probe.K15
@@ -119,7 +126,8 @@ K18, K19 = swar_probe.K18, opt_bench.K19
 K20, K23 = genkernel_probe.K20, staging_cost.K23
 K25, K26 = soft16_ablation.K25, transpose_bench.K26
 K28 = interleave_bench.K28
-KERNELS = core_cuda.KERNELS + (K1_I32,) + genkernel.KERNELS + (
+AB_ONLY = (K1_I32, K7_OLD, K8_OLD)  # the A/Bs' other sides, no main path's
+KERNELS = core_cuda.KERNELS + genkernel.KERNELS + AB_ONLY + (
     K9, K11, K12, K13, K14, K15, K16, K17, K18, K19, K20, K23, K25, K26, K28)
 GEN_ROUNDS_K7 = genkernel.GEN_ROUNDS
 REPLACES = {"K1": "tpu_viterbi/decoder/core_pallas.py:638",
@@ -354,9 +362,10 @@ def drive(argv, main=None):
         rc = cli.main(argv) if main is None else main()
     torch.cuda.synchronize()
     counts = {k.name: k.launches for k in KERNELS}
-    if counts[K1_I32.name]:
-        raise AssertionError(f"a main path launched {K1_I32.name}, the int32 "
-                             f"K1 kept for the A/B only")
+    for k in AB_ONLY:
+        if counts[k.name]:
+            raise AssertionError(f"a main path launched {k.name}, kept for "
+                                 f"an A/B only")
     text = buf.getvalue()
     for line in text.splitlines():
         if line.strip():
@@ -862,7 +871,9 @@ def e2e_phase(runs: dict):
 def generator_times_phase(card: str):
     """K7 (SOFT8) and K8 at the headline (32M bits, 5.5 dB, the CLI's scale)
     beside their plain version, CUDA events; then the in-graph simulation
-    end to end per call with each generator."""
+    end to end per call: SOFT8 and FP32 generated by K7/K8, each in turns
+    with their first design (AB_RUNS samples a side), and SOFT8 generated
+    by the element chain."""
     times = {}
     sigma = snr_to_sigma(5.5)
     for kernel, cfg in ((K7, HEADLINE), (K8, FP32)):
@@ -886,20 +897,164 @@ def generator_times_phase(card: str):
             f"{p_ms:.1f} ms of {[round(t, 1) for t in p_all]} "
             f"({p_ms / k_ms:.0f}x); bound {bnd[0]:.4f} ms by {bnd[1]}")
     e2e = {}
-    for generator in ("cuda", "torch"):
-        fn, m = build_sharded_simulation(HEADLINE, HEADLINE_BITS, snr_db=5.5,
+    for cfg, generator in ((HEADLINE, "cuda"), (FP32, "cuda"),
+                           (HEADLINE, "torch")):
+        fn, m = build_sharded_simulation(cfg, HEADLINE_BITS, snr_db=5.5,
                                          scale=CLI_SCALE, generator=generator,
                                          device="cuda")
         fn(SEED)
-        ms, all_ms, ben = cuda_ms(lambda: fn(SEED + 1), 5)
+        tag = f"{cfg.channel_in.name} {generator}"
+        ab = ""
+        if generator == "torch":
+            ms, all_ms, ben = cuda_ms(lambda: fn(SEED + 1), 5)
+        else:
+            def first_design_call():
+                with first_design():
+                    return fn(SEED + 1)
+            first_design_call()                              # warm-up
+            new, old = (K8, K8_OLD) if cfg is FP32 else (K7, K7_OLD)
+            for k in (K7, K8, K7_OLD, K8_OLD):
+                k.launches = 0
+            ms, o_ms, all_ms, o_all, ben, o_ben = ab_ms(
+                lambda: fn(SEED + 1), first_design_call, AB_RUNS)
+            launched = [k.launches for k in (K7, K8, K7_OLD, K8_OLD)]
+            if (new.launches, old.launches, sum(launched)) != (
+                    AB_RUNS, AB_RUNS, 2 * AB_RUNS):
+                raise AssertionError(
+                    f"e2e {tag} A/B: {AB_RUNS} calls a side launched K7, K8, "
+                    f"K7_OLD, K8_OLD {launched} times, not {new.name} and "
+                    f"{old.name} once a call each")
+            if int(o_ben) != 0:
+                raise AssertionError(f"e2e {tag} on the first design: BEN "
+                                     f"{int(o_ben)}")
+            e2e[f"{tag} first design"] = o_ms
+            ab = (f"; in turns with {old.name} generating ({old.launches} "
+                  f"launches, {new.name} {new.launches}): median "
+                  f"{o_ms:.4f} ms of {[round(t, 4) for t in o_all]}, "
+                  f"ratio {ms / o_ms:.3f}")
         if int(ben) != 0:
-            raise AssertionError(f"e2e generator {generator}: BEN {int(ben)}")
-        e2e[generator] = ms
+            raise AssertionError(f"e2e {tag}: BEN {int(ben)}")
+        e2e[tag] = ms
         say("11 e2e", f"{card}: in-graph simulation, generator {generator}, "
-            f"SOFT8 b32 {HEADLINE_BITS} bits 5.5 dB: median {ms:.4f} ms of "
-            f"{[round(t, 4) for t in all_ms]} per call = "
-            f"{m / ms / 1e6:.3f} Gb/s e2e; BEN 0")
+            f"{cfg.channel_in.name} b32 {HEADLINE_BITS} bits 5.5 dB: median "
+            f"{ms:.4f} ms of {[round(t, 4) for t in all_ms]} per call = "
+            f"{m / ms / 1e6:.3f} Gb/s e2e; BEN 0{ab}")
     return times, e2e
+
+
+@contextlib.contextmanager
+def first_design():
+    """packed_workload_cuda generates with K7_OLD / K8_OLD inside the block
+    (it looks K7 and K8 up in the module at each call; phase 11 checks the
+    launch counts): the in-graph A/B of phase 11 only."""
+    saved = genkernel.K7, genkernel.K8
+    genkernel.K7, genkernel.K8 = K7_OLD, K8_OLD
+    try:
+        yield
+    finally:
+        genkernel.K7, genkernel.K8 = saved
+
+
+def gen_sass() -> dict:
+    """{(channel, shared): (SASS a pair, registers, stack bytes, opcode
+    mix)} of csrc/genkernel.cu's instances (K7 a width, K8; shared = the
+    pack-table design, else the first design's draws): a kernel's static
+    instructions, padding NOPs left out, over the noise pairs a thread
+    draws (K7: its word's stages; K8: 1)."""
+    sass, res = cubin_listings("gen_words_kernel")
+    mixes = kernel_opcodes(sass)
+    table = {}
+    for ch in ChannelIn:
+        for shared in (True, False):
+            if ch == ChannelIn.FP32:
+                part, pairs = f"gen_values_kernelILb{int(shared)}E", 1
+            else:
+                width, vpw, _ = genkernel.word_format(ch)
+                part = f"gen_words_kernelILi{width}ELb{int(shared)}E"
+                pairs = vpw // 2
+            mix, use = pick(mixes, part), pick(res, part)
+            table[ch, shared] = (sum(mix.values()) / pairs, use.get("REG"),
+                                 use.get("STACK"), mix)
+    return table
+
+
+def gen_ab_phase(card: str) -> dict:
+    """K7 (every width) and K8 against K7_OLD / K8_OLD, the first design's
+    draws, on the same card: bit packs and noiseless streams equal, noisy
+    streams equal or within phase 9's tolerance, at the ragged size from
+    base 0, one pack and two packs (a CTA span starting on pack -1, an
+    even and an odd pack) and at the headline; then K7 (SOFT8) and K8 at
+    the headline
+    (32M bits, 5.5 dB, the CLI's scale) timed in turns, AB_RUNS CUDA-event
+    samples a side, with the threefry calls each design draws by its count
+    (genkernel.threefry_calls, not a measurement), SASS a pair, registers
+    and share of bound.  Returns K7's and K8's extra keys of the kernels
+    line."""
+    cases = identical = 0
+    for ch in ChannelIn:
+        new, old = (K8, K8_OLD) if ch == ChannelIn.FP32 else (K7, K7_OLD)
+        scale = DEFAULT_SCALES[ch]
+        quantum = 64 if ch == ChannelIn.FP32 else \
+            genkernel.word_format(ch)[2]
+        for n, snr, base in ((GEN_SMALL, math.inf, 0),
+                             (GEN_SMALL, 1.125, quantum),
+                             (GEN_SMALL, 5.5, 2 * quantum),
+                             (HEADLINE_BITS, math.inf, 0),
+                             (HEADLINE_BITS, 5.5, 0)):
+            sigma = 0.0 if math.isinf(snr) else snr_to_sigma(snr)
+            got = generate(new, False, n, ch, sigma, scale, base)
+            want = generate(old, False, n, ch, sigma, scale, base)
+            check_generated(new, ch, scale, sigma, got, want,
+                            f"{ch.name} n {n} at {snr} dB from base {base} "
+                            f"against {old.name}")
+            identical += torch.equal(got[1], want[1])
+            cases += 1
+    say("11b generator A/B", f"K7 (HARD/SOFT4/SOFT8/SOFT16) and K8 against "
+        f"K7_OLD/K8_OLD on {cases} cases (n {GEN_SMALL} from base 0, one and "
+        f"two packs; n {HEADLINE_BITS}; noiseless, 5.5 and 1.125 dB): bit "
+        f"packs and noiseless streams equal; streams bit-identical in "
+        f"{identical} of {cases} cases, the rest within phase 9's tolerance")
+    sass = gen_sass()
+    sigma = snr_to_sigma(5.5)
+    extra = {}
+    for new, old, cfg in ((K7, K7_OLD, HEADLINE), (K8, K8_OLD, FP32)):
+        ch = cfg.channel_in
+
+        def run(kernel):
+            return generate(kernel, False, HEADLINE_BITS, ch, sigma,
+                            CLI_SCALE)
+        run(new)                                             # warm-up
+        run(old)
+        a_ms, b_ms, a_all, b_all, a_out, b_out = ab_ms(
+            lambda: run(new), lambda: run(old), AB_RUNS)
+        check_generated(new, ch, CLI_SCALE, sigma, a_out, b_out,
+                        f"headline against {old.name}")
+        bnd = gen_bound(HEADLINE_BITS, *a_out)
+        calls = {d: genkernel.threefry_calls(HEADLINE_BITS, ch, shared=d)
+                 for d in (True, False)}
+        (pair, regs, stack, mix), (o_pair, o_regs, o_stack, o_mix) = \
+            sass[ch, True], sass[ch, False]
+        say("11b generator A/B", f"{card}: {new.name} at {HEADLINE_BITS} bits "
+            f"{ch.name} 5.5 dB: median {a_ms:.4f} ms of "
+            f"{[round(t, 4) for t in a_all]}; {old.name} median {b_ms:.4f} ms "
+            f"of {[round(t, 4) for t in b_all]}; ratio {a_ms / b_ms:.3f}; "
+            f"threefry-{GEN_ROUNDS_K7} calls by the designs' count "
+            f"{calls[True]} against {calls[False]}; {share(bnd, a_ms)} "
+            f"against {bnd[0] / b_ms:.0%} of it for {old.name}")
+        say("11b generator A/B", f"{new.name} static SASS a pair {pair:g}, "
+            f"{regs} registers, stack {stack} B ({describe_mix(mix)}); "
+            f"{old.name} {o_pair:g}, {o_regs} registers, stack {o_stack} B "
+            f"({describe_mix(o_mix)})")
+        extra[new.name] = {
+            "old_ms": b_ms, "ab_ms": a_ms, "sass_per_pair": pair,
+            "old_sass_per_pair": o_pair, "registers": regs,
+            "old_registers": o_regs}
+    say("11b generator A/B", "static SASS a pair, registers, stack by width: "
+        + "; ".join(f"{ch.name} {sass[ch, True][0]:g} / {sass[ch, True][1]} / "
+                    f"{sass[ch, True][2]} B (first design "
+                    f"{sass[ch, False][0]:g} / {sass[ch, False][1]} / "
+                    f"{sass[ch, False][2]} B)" for ch in ChannelIn))
+    return extra
 
 
 def random_values(cfg, plan, gen):
@@ -1718,10 +1873,18 @@ def genkernel_probe_phase(card: str, runs: dict):
             f"{share(r['bound'], r['ms'])}")
     k13 = next(r for r in res["rates"] if r["rounds"] == GEN_ROUNDS_K7
                and r["reps"] == max(gp.REPS_LIST))
-    k7_calls = -(-HEADLINE_BITS // 64) + HEADLINE_BITS
-    say("26 genkernel probe", f"{card}: K7 at the headline draws {k7_calls} "
-        f"threefry-{GEN_ROUNDS_K7} calls: {k7_calls / k13['calls_per_ns'] / 1e6:.4f}"
-        f" ms at this rate")
+    rate = k13["calls_per_ns"] * 1e6            # calls a ms
+    drawn = []
+    for ch in ChannelIn:
+        new, old = (genkernel.threefry_calls(HEADLINE_BITS, ch, shared=d)
+                    for d in (True, False))
+        drawn.append(f"{'K8' if ch == ChannelIn.FP32 else 'K7'} {ch.name} "
+                     f"{new} = {new / rate:.4f} ms (first design {old} = "
+                     f"{old / rate:.4f} ms)")
+    say("26 genkernel probe", f"{card}: threefry-{GEN_ROUNDS_K7} calls each "
+        f"generator design draws at the {HEADLINE_BITS}-bit headline, by the "
+        f"designs' count (genkernel.threefry_calls), and their ms at this "
+        f"measured rate: {'; '.join(drawn)}")
     row = next(r for r in res["rates"] if r["rounds"] == gp.ROUNDS
                and r["reps"] == max(gp.REPS_LIST))
     p_ms, _, _ = cuda_ms(lambda: gp.many_torch(c, *gp.MANY_KEY, row["reps"],
@@ -2130,7 +2293,11 @@ def main() -> int:
     times.update(kernel_times_phase(card))
     times["K1"] = (k1_ms, plain_ms, err, k1_bound, None, k1_ab)
     gen_times, e2e = generator_times_phase(card)
-    times.update(gen_times)
+    gen_ab = gen_ab_phase(card)
+    for k, ch in (("K7", "SOFT8"), ("K8", "FP32")):
+        gen_ab[k].update(in_graph_ms=e2e[f"{ch} cuda"],
+                         old_in_graph_ms=e2e[f"{ch} cuda first design"])
+    times.update({k: (*t, None, gen_ab[k]) for k, t in gen_times.items()})
     say("12 e2e summary", f"{card}: CLI steady-state lines {steady}; "
         f"simulate() medians {e2e} ms")
     staged_times = staged_times_phase(card)
@@ -2205,7 +2372,7 @@ def main() -> int:
     want["K28"] = len(interleave_bench.VARIANTS) * (
         1 + 2 * (interleave_bench.RUNS + 1))
     rows = [(k.name, str(k.source.relative_to(ROOT))) for k in KERNELS
-            if k is not K1_I32]
+            if k not in AB_ONLY]
     rows += [(name, str(K1.source.relative_to(ROOT)))
              for name in ("K10", "K21", "K22", "K24", "K27")]
     rows.sort(key=lambda r: int(r[0][1:]))

@@ -355,3 +355,16 @@ def test_stage_loop_opcodes():
     assert list(mix)[0] == "VIADD.16x2"
     assert sum(mix.values()) == common.stage_loop_instructions(SASS)[name]
     assert common.describe_mix(mix, 2) == "VIADD.16x2 2, PRMT 1"
+
+
+def test_kernel_opcodes():
+    """Every instruction of a kernel, predicates dropped and the NOPs that
+    pad it left out: the static SASS of a kernel without a stage loop (the
+    generator kernels K7 and K8)."""
+    from tpu_viterbi_torch.scripts import common
+    name = "_ZN12viterbi_swar11swar_kernelILi1EEEvPKiPiii"
+    listing = SASS + "        /*00a0*/                   NOP ;\n"
+    mix = common.kernel_opcodes(listing)[name]
+    assert mix == {"VIADD.16x2": 2, "BRA": 2, "LDC": 1, "PRMT": 1,
+                   "VIMNMX.S16x2": 1, "SEL": 1, "STG.E": 1, "EXIT": 1}
+    assert list(mix)[:2] == ["VIADD.16x2", "BRA"]

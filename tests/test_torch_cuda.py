@@ -439,6 +439,65 @@ def test_generator_kernel_matches_plain(gpu, channel, snr_db):
     assert torch.equal(bits_b, bits[base // quantum:])
 
 
+GEN_RAGGED = 5 * 4096 + 77   # ends mid-CTA and mid-pack for every width
+
+
+def _quantum(channel):
+    """Words (FP32: values) a bit pack takes: the step of ``base``."""
+    return 64 if channel == ChannelIn.FP32 else \
+        genkernel.word_format(channel)[2]
+
+
+def _generate(kernel, channel, sigma, base, device):
+    scale = simulate.DEFAULT_SCALES[channel]
+    return kernel(0, 9, GEN_RAGGED, channel, sigma, scale, base, device)
+
+
+@pytest.mark.parametrize("channel", list(ChannelIn), ids=lambda c: c.name)
+@pytest.mark.parametrize("packs", [0, 1, 2], ids=["base0", "even", "odd"])
+@pytest.mark.parametrize("snr_db", [math.inf, 3.0])
+def test_generator_pack_table_matches_plain(gpu, channel, packs, snr_db):
+    """K7 (each width) and K8 from base 0 (the first CTA's span starts at
+    pack -1), one pack (its CTAs' spans start on an even pack) and two
+    packs (an odd pack), at a length that ends mid-CTA and mid-pack:
+    equal to the plain version's slice (noisy: within tolerance)."""
+    kernel = genkernel.K8 if channel == ChannelIn.FP32 else genkernel.K7
+    sigma = 0.0 if math.isinf(snr_db) else 10.0 ** (-snr_db / 5.0)
+    base = packs * _quantum(channel)
+    bits, got = _generate(kernel, channel, sigma, base, gpu)
+    want_bits, want = _generate(kernel, channel, sigma, base, "cpu")
+    assert torch.equal(bits.cpu(), want_bits)
+    assert got.shape == want.shape
+    if math.isinf(snr_db):
+        assert torch.equal(got.cpu(), want)
+    else:
+        _assert_generated_close(channel, got, want)
+
+
+@pytest.mark.parametrize("channel", list(ChannelIn), ids=lambda c: c.name)
+@pytest.mark.parametrize("snr_db", [math.inf, 3.0])
+def test_generator_matches_first_design(gpu, channel, snr_db):
+    """The pack-table design against K7_OLD / K8_OLD, the first design, on
+    the card from base 0 and two packs: bit packs and noiseless streams
+    equal, noisy streams within the plain version's tolerance.  The first
+    design's wrappers count their own launches."""
+    new, old = ((genkernel.K8, genkernel.K8_OLD)
+                if channel == ChannelIn.FP32 else
+                (genkernel.K7, genkernel.K7_OLD))
+    sigma = 0.0 if math.isinf(snr_db) else 10.0 ** (-snr_db / 5.0)
+    for base in (0, 2 * _quantum(channel)):
+        before = (new.launches, old.launches)
+        bits, got = _generate(new, channel, sigma, base, gpu)
+        old_bits, want = _generate(old, channel, sigma, base, gpu)
+        torch.cuda.synchronize()
+        assert (new.launches, old.launches) == (before[0] + 1, before[1] + 1)
+        assert torch.equal(bits, old_bits)
+        if math.isinf(snr_db):
+            assert torch.equal(got, want)
+        else:
+            _assert_generated_close(channel, got, want)
+
+
 @pytest.mark.parametrize("generator", ["cuda", "torch"])
 @pytest.mark.parametrize("cfg,survivor", [
     (DecoderConfig(ChannelIn.SOFT8), "auto"),

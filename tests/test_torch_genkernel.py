@@ -189,3 +189,85 @@ def test_cpu_calls_run_the_plain_version_uncounted():
     want = gen.gen_values_torch(0, 5, 1000, 0.5, 4.0)
     assert torch.equal(bits, want[0]) and torch.equal(vals, want[1])
     assert (gen.K7.launches, gen.K8.launches) == before
+
+
+def _pack_table_words(spt):
+    """The words of a CTA's shared pack table that csrc/genkernel.cu's
+    PackTable<spt>::kWords allots: the packs its GEN_THREADS windows cover
+    over every alignment of its first stage, rounded out to whole threefry
+    calls."""
+    return ((gen.GEN_THREADS - 1) * spt + 31) // 32 + 4
+
+
+def _brute_calls(n, channel, base, shared, noisy=True):
+    """threefry calls of a K7/K8 launch counted thread by thread: the
+    distinct non-negative calls p >> 1 of the window packs p of each CTA's
+    GEN_THREADS threads (shared), or two a thread of n_out, less the
+    negative packs (the first design); plus spt noise calls a thread of
+    n_out.  Also the largest table a CTA fills (2 words a call, negative
+    calls included)."""
+    if channel == ChannelIn.FP32:
+        spt, first, n_out = 1, base // 2, n - base // 2
+    else:
+        vpw = gen.word_format(channel)[1]
+        spt, first, n_out = vpw // 2, base * (vpw // 2), -(-2 * n // vpw) - base
+    calls, table = 0, 0
+    for cta in range(-(-n_out // gen.GEN_THREADS)):
+        threads = range(cta * gen.GEN_THREADS, (cta + 1) * gen.GEN_THREADS)
+        packs = set()
+        for t in threads:
+            if shared or t < n_out:
+                pk = (first + spt * t - 6) >> 5
+                packs |= {pk, pk + 1}
+        if shared:
+            qs = {p >> 1 for p in packs}
+            calls += sum(q >= 0 for q in qs)
+            table = max(table, 2 * (max(qs) - min(qs) + 1))
+        else:
+            for t in threads:
+                if t < n_out:
+                    pk = (first + spt * t - 6) >> 5
+                    calls += (pk >= 0) + (pk + 1 >= 0)
+    return calls + (n_out * spt if noisy else 0), table
+
+
+@pytest.mark.parametrize("channel", CHANNELS, ids=lambda c: c.name)
+@pytest.mark.parametrize("n", [300, N, 3 * 256 * 16 + 5])
+def test_threefry_calls_and_table_match_a_brute_force_count(channel, n):
+    """threefry_calls and the table's size against a thread-by-thread
+    count of each CTA's window packs, from base 0 (the first CTA's pack -1),
+    a base whose CTAs start on an even pack and one whose start on an odd
+    pack; and each design's calls at the 32M-bit headline."""
+    quantum = 64 if channel == ChannelIn.FP32 else \
+        gen.word_format(channel)[2]
+    spt = 1 if channel == ChannelIn.FP32 else \
+        gen.word_format(channel)[1] // 2
+    n_out = 2 * n if channel == ChannelIn.FP32 else \
+        -(-2 * n // gen.word_format(channel)[1])
+    for base in (0, quantum, 2 * quantum):
+        if base >= n_out:
+            continue
+        for shared in (True, False):
+            want, table = _brute_calls(n, channel, base, shared)
+            assert gen.threefry_calls(n, channel, base, shared) == want
+            assert gen.threefry_calls(n, channel, base, shared,
+                                      noisy=False) == \
+                _brute_calls(n, channel, base, shared, noisy=False)[0]
+            if shared:
+                assert table <= _pack_table_words(spt)
+    # the bound is reached: some alignment fills the whole table
+    assert max(_brute_calls(2 ** 16, channel, b * quantum, True)[1]
+               for b in range(4)) >= _pack_table_words(spt) - 2
+
+
+def test_threefry_calls_at_the_headline():
+    """32M bits: the first design draws two window calls a thread (K7
+    SOFT8 64M, K8 96M with the noise), the shared tables about one a CTA's
+    pack pair: both under 33.6M."""
+    n = 32_000_000
+    assert gen.threefry_calls(n, ChannelIn.SOFT8, shared=False) == \
+        2 * (n // 2) - 3 + n
+    assert gen.threefry_calls(n, ChannelIn.FP32, shared=False) == \
+        2 * n - 6 + n
+    for channel in CHANNELS:
+        assert n < gen.threefry_calls(n, channel) < 33_600_000

@@ -4,7 +4,11 @@
 
 Kernels K7 (the four integer channels) and K8 (the FP32 wire) are CUDA C++
 in ``csrc/genkernel.cu``, built into the package's one library
-(``library.load_library``).  Beside them, their plain PyTorch
+(``library.load_library``).  Their CTAs draw each message-bit pack once,
+into shared memory: ``threefry_calls`` counts the draws of each design on
+the host.  ``K7_OLD`` and ``K8_OLD`` draw as the first design did (every
+thread draws its window's two packs), kept for an A/B on the card and
+launched by no main path.  Beside them, their plain PyTorch
 version over flat index tensors: ``gen_words_torch`` (the body of the TPU
 kernel's ``_gen_kernel``, naive window branch) and ``gen_values_torch``
 (``_gen_kernel_f32``).  A wrapper runs the plain version for a CPU device
@@ -41,6 +45,7 @@ from .quantize import _QUANT_PARAMS
 
 M32 = 0xFFFFFFFF
 GEN_ROUNDS = 13          # the BigCrush-passing minimum (genkernel.py:78-85)
+GEN_THREADS = 256        # a CTA of K7/K8 (csrc/genkernel.cu kGenThreads)
 _ROTS = (13, 15, 26, 6, 17, 29, 16, 24)
 _BITS_TAG = 1            # threefry c1 of the message-bit draws
 _NOISE_TAG = 2           # threefry c1 base of the noise draws
@@ -146,6 +151,33 @@ def _f32_scales(scale: float, sigma: float):
     """scale and scale * sigma rounded once to f32 (the product taken in
     float64, genkernel.py:265), as the kernels receive them."""
     return float(np.float32(scale)), float(np.float32(scale * sigma))
+
+
+def threefry_calls(n: int, channel_in: ChannelIn, base: int = 0,
+                   shared: bool = True, noisy: bool = True) -> int:
+    """threefry calls a K7/K8 launch draws for message length ``n`` from
+    word ``base`` (FP32: value) on: each CTA's window packs, one call a
+    pair of packs from its first thread's first pack to its last thread's
+    second (``shared``, csrc/genkernel.cu's ``fill_packs``), or two a
+    thread (the first design, K7_OLD/K8_OLD), no call for a negative
+    pack; plus one noise call a stage of every thread when ``noisy``."""
+    if channel_in == ChannelIn.FP32:
+        spt, first, n_out = 1, base // 2, n - base // 2
+    else:
+        vpw = word_format(channel_in)[1]
+        spt, n_out = vpw // 2, -(-2 * n // vpw) - base
+        first = base * spt
+    hist = CONST_LEN - 1
+    noise = n_out * spt if noisy else 0
+    if not shared:      # only a first stage below 6 has a negative pack
+        negative = min(n_out, max(0, -(-(hist - first) // spt)))
+        return 2 * n_out - negative + noise
+    cta = first + spt * GEN_THREADS * np.arange(-(-n_out // GEN_THREADS),
+                                                dtype=np.int64)
+    even = ((cta - hist) >> 5) & ~1
+    hi = ((cta + (GEN_THREADS - 1) * spt - hist) >> 5) + 1
+    q_first = np.maximum(even >> 1, 0)
+    return int(np.maximum((hi >> 1) - q_first + 1, 0).sum()) + noise
 
 
 def word_format(channel_in: ChannelIn):
@@ -295,6 +327,10 @@ class GenKernel:
 K7 = GenKernel("K7", fp32=False)
 K8 = GenKernel("K8", fp32=True)
 KERNELS = (K7, K8)
+# the first design's draws (each thread draws its two window packs): for
+# the A/B on the card only, never launched by a main path
+K7_OLD = GenKernel("K7_OLD", fp32=False)
+K8_OLD = GenKernel("K8_OLD", fp32=True)
 
 
 def key_data(seed: int):

@@ -238,6 +238,29 @@ def stage_loop_instructions(sass: str) -> Dict[str, int]:
             for name, spans in loop_spans(sass).items()}
 
 
+def _opcode(instruction: str) -> str:
+    """The opcode, with its modifiers, of one SASS instruction (after its
+    predicate, if any)."""
+    words = instruction.split()
+    return words[1] if words[0].startswith("@") else words[0]
+
+
+def kernel_opcodes(sass: str) -> Dict[str, Dict[str, int]]:
+    """{mangled kernel name: {opcode with its modifiers: count}} of all its
+    instructions but the NOPs that pad it, most frequent first: the static
+    SASS of a kernel without a stage loop (its sum)."""
+    mixes = {}
+    pieces = _FUNCTION.split(sass)
+    for name, body in zip(pieces[1::2], pieces[2::2]):
+        counts = Counter()
+        for m in _INSTR.finditer(body):
+            op = _opcode(m.group(2))
+            if op != "NOP":
+                counts[op] += 1
+        mixes[name] = dict(counts.most_common())
+    return mixes
+
+
 def stage_loop_opcodes(sass: str) -> Dict[str, Dict[str, int]]:
     """{mangled kernel name: {opcode with its modifiers, e.g.
     "VIADD.16x2": count}} of the instructions of its stage loop, most
@@ -252,9 +275,7 @@ def stage_loop_opcodes(sass: str) -> Dict[str, Dict[str, int]]:
         counts = Counter()
         for m in _INSTR.finditer(body):
             if first <= int(m.group(1), 16) <= last:
-                words = m.group(2).split()
-                counts[words[1] if words[0].startswith("@") else
-                       words[0]] += 1
+                counts[_opcode(m.group(2))] += 1
         mixes[name] = dict(counts.most_common())
     return mixes
 
