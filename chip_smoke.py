@@ -27,7 +27,10 @@ routes: launches of K1, K2 and K3, K28 interleave); phases 16 and 19 cover
 K11's relayouts and K13's bisect traceback.  Phase 5b times K1's int16x2
 path metrics against K1_I32, its int32 instances kept for that A/B (never
 launched by a main path), in turns on the same words, with the SASS a
-stage and the registers of each; phase 11b holds K7 and K8 against
+stage and the registers of each; phases 5c and 5d do the same for K2 (the
+FP32 wire) and K3 (the window) against K2_I32 and K3_I32, and time the
+in-graph FP32 and window calls decoding with each in turns; phase 11b
+holds K7 and K8 against
 K7_OLD/K8_OLD, the first design's draws (every thread drawing its window's
 two bit packs; kept for that A/B, never launched by a main path), and
 times them in turns at the headline with the threefry calls each design
@@ -84,11 +87,12 @@ from tpu_viterbi_torch.config import (ChannelIn, DecodeOut,  # noqa: E402
                                       DecoderConfig)
 from tpu_viterbi_torch.decoder import core_cuda  # noqa: E402
 from tpu_viterbi_torch.decoder.core_torch import (  # noqa: E402
-    PM16_BOUND, assemble_output, clamp_split, decode_blocks,
+    PM16_MAX_ABS_BM, assemble_output, clamp_split, decode_blocks,
     decode_blocks_i16_torch, decode_blocks_torch, decode_packed_torch,
     decode_planes_torch, decode_staged_torch,
     decode_ud_words_torch, fp32_ud_words_torch, gather_blocks,
-    needs_int32_renorm, plan_blocks, stage_transpose, stage_words,
+    needs_int32_renorm, plan_blocks, pm16_bound, pm16_input,
+    stage_transpose, stage_words,
     traceback_shape, words_per_block)
 from tpu_viterbi_torch.scripts import (  # noqa: E402
     acs_variants_bench, bench_profile, bench_split, dtype_throughput,
@@ -104,7 +108,7 @@ from tpu_viterbi_torch.sharding.simulate import (  # noqa: E402
 from tpu_viterbi_torch.utils import timing  # noqa: E402
 from tpu_viterbi_torch.utils.bits import (count_bit_errors,  # noqa: E402
                                           extreme_field_words,
-                                          pack_msb_first)
+                                          extreme_wire, pack_msb_first)
 from tpu_viterbi_torch.utils.timing import (ab_ms, cuda_ms,  # noqa: E402
                                             graph_ms)
 
@@ -114,7 +118,8 @@ FP32 = DecoderConfig(ChannelIn.FP32)
 DEC_LEN = 2048                      # ViterbiGPU.DEFAULT_DEC_LEN
 SEED = 7
 K1, K2, K3 = core_cuda.K1, core_cuda.K2, core_cuda.K3
-K1_I32 = core_cuda.K1_I32           # K1's int32 metrics: the A/B's other side
+# K1's, K2's and K3's int32 metrics: the other sides of the int16x2 A/Bs
+K1_I32, K2_I32, K3_I32 = core_cuda.K1_I32, core_cuda.K2_I32, core_cuda.K3_I32
 K4, K5, K6 = core_cuda.K4, core_cuda.K5, core_cuda.K6
 K7, K8 = genkernel.K7, genkernel.K8
 K7_OLD, K8_OLD = genkernel.K7_OLD, genkernel.K8_OLD  # K7/K8's first design
@@ -126,7 +131,8 @@ K18, K19 = swar_probe.K18, opt_bench.K19
 K20, K23 = genkernel_probe.K20, staging_cost.K23
 K25, K26 = soft16_ablation.K25, transpose_bench.K26
 K28 = interleave_bench.K28
-AB_ONLY = (K1_I32, K7_OLD, K8_OLD)  # the A/Bs' other sides, no main path's
+# the A/Bs' other sides, no main path's
+AB_ONLY = (K1_I32, K2_I32, K3_I32, K7_OLD, K8_OLD)
 KERNELS = core_cuda.KERNELS + genkernel.KERNELS + AB_ONLY + (
     K9, K11, K12, K13, K14, K15, K16, K17, K18, K19, K20, K23, K25, K26, K28)
 GEN_ROUNDS_K7 = genkernel.GEN_ROUNDS
@@ -170,6 +176,9 @@ CLI_SCALE = 40000.0                 # the CLI's channel scale (main.cpp:137)
 PEAK_BYTES_PER_S = 3.35e12
 SFU_PER_SM_CLOCK = 16
 ACS_OPS = 256           # a block-stage: 64 states x (2 adds, 1 max, 1 select)
+# the same at int16x2 (acs.cuh's acs_stage16): the 128 adds and 64 maxima
+# two to a lane-instruction (VIADD.16x2, VIMNMX.S16x2), the 64 selects one
+ACS_OPS16 = 160
 THREEFRY_OPS = 49       # threefry2x32-13: 13 x (add, rotl, xor), 5 x 2 key adds
 BOX_MULLER_SFU = 4      # log, sqrt, sin, cos per normal pair
 
@@ -190,13 +199,20 @@ def bound(nbytes: float, ops: float = 0.0, sfu: float = 0.0):
         ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def decode_bound(in_bytes: int, cfg, plan):
+def runs_pm16(kernel, cfg) -> bool:
+    """Whether ``kernel`` decodes ``cfg`` on int16x2 path metrics: K1, K2
+    and K3 on every channel but SOFT16."""
+    return kernel in (K1, K2, K3) and cfg.channel_in != ChannelIn.SOFT16
+
+
+def decode_bound(in_bytes: int, cfg, plan, pm16: bool = False):
     """A decode's bound: its input and its (B, n_emit) int32 packs, the
-    ACS of every stage of every block (the full store is an intermediate
-    and not counted)."""
+    ACS of every stage of every block, int16x2 where ``pm16`` (the full
+    store is an intermediate and not counted)."""
     n_emit = traceback_shape(cfg, plan)[1]
     return bound(in_bytes + plan.num_blocks * n_emit * 4,
-                 ACS_OPS * plan.num_blocks * plan.block_len)
+                 (ACS_OPS16 if pm16 else ACS_OPS) * plan.num_blocks *
+                 plan.block_len)
 
 
 def gen_bound(n: int, bits, out):
@@ -244,15 +260,27 @@ def build_phase():
                    f"{spills or '-'})")
 
 
+def seeded_rng(gen) -> np.random.Generator:
+    """A numpy generator seeded from the torch generator ``gen``."""
+    return np.random.default_rng(int(torch.randint(
+        0, 2 ** 31, (1,), generator=gen, device=gen.device)))
+
+
 def extreme_words(cfg, plan, gen):
     """Integer channel words for the plan whose fields all sit at their
     extremes (utils.bits.extreme_field_words, seeded from ``gen``), on the
     card."""
-    rng = np.random.default_rng(int(torch.randint(
-        0, 2 ** 31, (1,), generator=gen, device=gen.device)))
     n = cfg.get_input_words(2 * (plan.message_len + 64))
     return torch.from_numpy(extreme_field_words(
-        rng, n, cfg.enc_data_width)).to(gen.device)
+        seeded_rng(gen), n, cfg.enc_data_width)).to(gen.device)
+
+
+def extreme_wire_values(cfg, plan, gen):
+    """An FP32 wire for the plan at and past the [-8, 7] clamp, NaN and
+    +-inf among it (utils.bits.extreme_wire, seeded from ``gen``), on the
+    card."""
+    n = cfg.get_input_words(2 * (plan.message_len + 64))
+    return torch.from_numpy(extreme_wire(seeded_rng(gen), n)).to(gen.device)
 
 
 def noiseless_words(plan, gen):
@@ -467,7 +495,8 @@ def timing_phase(card: str):
                              f"(max |diff| {err})")
     threads = plan.num_blocks
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    bnd = decode_bound(packed.numel() * 4, HEADLINE, plan)
+    bnd = decode_bound(packed.numel() * 4, HEADLINE, plan,
+                       runs_pm16(K1, HEADLINE))
     say("5 times", f"{card}: headline {plan.message_len} bits SOFT8 b32 "
         f"dec_len {plan.dec_len} ({threads} blocks = threads, "
         f"{-(-threads // 64)} CUDA blocks of 64 on {sms} SMs): K1 median "
@@ -480,82 +509,169 @@ def timing_phase(card: str):
 
 
 AB_RUNS = 10                        # CUDA-event samples a side of the A/B
-# K1's SOFT8 b32 full-store instances in viterbi.cu's cubin (mangled
-# template arguments: IntReader<8, false, false>, BPP 32, WINDOW false,
-# PM16 true / false): the int16x2 stage and the int32 one
-K1_SASS = {"int16x2": "viterbi_kernelINS_9IntReaderILi8ELb0ELb0EEELi32ELb0ELb1E",
-           "int32": "viterbi_kernelINS_9IntReaderILi8ELb0ELb0EEELi32ELb0ELb0E"}
+# The readers of the A/Bs' b32 instances in viterbi.cu's cubin, as mangled
+# template arguments (IntReader<8, false, false>, FloatReader)
+READERS = {ChannelIn.SOFT8: "9IntReaderILi8ELb0ELb0EEE",
+           ChannelIn.FP32: "11FloatReaderE"}
 
 
-def k1_sass() -> dict:
-    """{side: (SASS a stage, registers, stack bytes)} of K1's two SOFT8 b32
-    instances: the stage loop runs two stages a pass."""
-    table = sass_table(K1_SASS["int16x2"],
-                       {side: (name,) for side, name in K1_SASS.items()})
-    return {side: (loop / 2, res.get("REG"), res.get("STACK"))
-            for side, (loop, res, _) in table.items()}
+def decode_instance(cfg, window: bool, pm16: bool) -> str:
+    """The mangled name of viterbi_kernel<reader of cfg, 32, window, pm16>
+    (the int16x2 stage where pm16, the int32 one else)."""
+    return (f"viterbi_kernelINS_{READERS[cfg.channel_in]}Li32ELb{int(window)}"
+            f"ELb{int(pm16)}E")
 
 
-def k1_ab_phase(card: str, gen) -> dict:
-    """K1 with int16x2 metrics against K1_I32, its int32 instances, on the
-    same words in the same call: the 32M-bit SOFT8 transmission at 5.5 dB
-    and extreme-field words of the same plan, AB_RUNS CUDA-event samples
-    each in turns (a, b, b, a, ...), outputs equal; SASS a stage and
-    registers of each; and on 2M bits of extreme fields at dec_len 2048,
-    K1 equal to its int16 plain version (decode_blocks_i16_torch), whose
-    largest candidate metric stays under PM16_BOUND.  Returns K1's extra
-    keys of the kernels line."""
-    packed, plan, _ = headline_packed(HEADLINE, 21)
-    sass = k1_sass()
-    res = {}
+def int16_sass(cfg, window: bool) -> dict:
+    """{side: (SASS a stage, registers, stack bytes, the stage loop's
+    opcode mix)} of the b32 int16x2 and int32 instances of cfg's reader in
+    one survivor mode, each kernel's and its int32 A/B entry's (built in
+    one part, so one cubin): the stage loop runs two stages a pass."""
+    names = {side: decode_instance(cfg, window, side == "int16x2")
+             for side in ("int16x2", "int32")}
+    table = sass_table(names["int16x2"],
+                       {side: (name,) for side, name in names.items()})
+    return {side: (loop / 2, res.get("REG"), res.get("STACK"), mix)
+            for side, (loop, res, mix) in table.items()}
+
+
+@contextlib.contextmanager
+def swapped(module, **kernels):
+    """The module's attributes named in ``kernels`` set to them inside the
+    block: the in-graph A/Bs' other side (the simulation looks its kernels
+    up in the module at each call; in_graph_ab checks the launch counts)."""
+    saved = {name: getattr(module, name) for name in kernels}
+    for name, k in kernels.items():
+        setattr(module, name, k)
+    try:
+        yield
+    finally:
+        for name, k in saved.items():
+            setattr(module, name, k)
+
+
+def in_graph_ab(cfg, survivor: str, swap, new, old, watched):
+    """The in-graph simulation at the headline (32M bits, 5.5 dB, the CLI's
+    scale, K7/K8 generating) as it stands and, in turns, inside ``swap()``
+    (a ``swapped`` block), AB_RUNS CUDA-event samples a side, BEN 0 on
+    both; of the kernels ``watched``, ``new`` and ``old`` each launched
+    once a call and no other: (median ms, the swapped side's median ms,
+    all ms, all the swapped side's ms, message bits)."""
+    fn, m = build_sharded_simulation(cfg, HEADLINE_BITS, snr_db=5.5,
+                                     scale=CLI_SCALE, generator="cuda",
+                                     survivor=survivor, device="cuda")
+
+    def swapped_call():
+        with swap():
+            return fn(SEED + 1)
+    fn(SEED)                                                 # warm-up
+    swapped_call()
+    for k in watched:
+        k.launches = 0
+    ms, o_ms, all_ms, o_all, ben, o_ben = ab_ms(lambda: fn(SEED + 1),
+                                                swapped_call, AB_RUNS)
+    launched = [k.launches for k in watched]
+    if (new.launches, old.launches, sum(launched)) != (
+            AB_RUNS, AB_RUNS, 2 * AB_RUNS):
+        raise AssertionError(
+            f"in-graph A/B: {AB_RUNS} calls a side launched "
+            f"{', '.join(k.name for k in watched)} {launched} times, not "
+            f"{new.name} and {old.name} once a call each")
+    if int(ben) or int(o_ben):
+        raise AssertionError(f"in-graph A/B: BEN {int(ben)} ({new.name}), "
+                             f"{int(o_ben)} ({old.name})")
+    return ms, o_ms, all_ms, o_all, m
+
+
+def int16_ab_phase(tag: str, card: str, gen, new, old, cfg, window: bool,
+                   extreme, survivor: str = None) -> dict:
+    """``new`` with int16x2 metrics against ``old``, its int32 instances,
+    on the same input in the same call: the 32M-bit transmission at 5.5 dB
+    and extreme input of the same plan (``extreme(cfg, plan, gen)``),
+    AB_RUNS CUDA-event samples each in turns (a, b, b, a, ...), outputs
+    equal to each other, to the int32 plain version (decode_blocks_torch)
+    and to the int16 one (decode_blocks_i16_torch), whose largest candidate
+    metric stays under the input's bound; SASS a stage and registers of
+    each; on DECODE_CHECK_BITS of extreme input at dec_len 2048, ``new``
+    equal to the int16 plain version under the bound; with ``survivor``,
+    the in-graph simulation decoding with each in turns (in_graph_ab).
+    Returns ``new``'s extra keys of the kernels line."""
+    packed, plan, _ = headline_packed(cfg, 21)
+    bound16 = pm16_bound(PM16_MAX_ABS_BM[pm16_input(cfg)], cfg.bits_per_pack)
+    what = f"{cfg.channel_in.name} b32 dec_len {plan.dec_len}" + \
+        (" window" if window else "")
+    sass = int16_sass(cfg, window)
+    res, peaks = {}, []
     for label, x in (("coded 5.5 dB", packed),
-                     ("extreme fields", extreme_words(HEADLINE, plan, gen))):
-        K1(x, HEADLINE, plan)                                # warm-up
-        K1_I32(x, HEADLINE, plan)
+                     ("extreme", extreme(cfg, plan, gen))):
+        new(x, cfg, plan)                                    # warm-up
+        old(x, cfg, plan)
         a_ms, b_ms, a_all, b_all, a_out, b_out = ab_ms(
-            lambda: K1(x, HEADLINE, plan), lambda: K1_I32(x, HEADLINE, plan),
-            AB_RUNS)
+            lambda: new(x, cfg, plan), lambda: old(x, cfg, plan), AB_RUNS)
         if not torch.equal(a_out, b_out):
-            raise AssertionError(f"K1 A/B on {label}: int16x2 and int32 "
-                                 f"outputs differ")
+            raise AssertionError(f"{new.name} A/B on {label}: int16x2 and "
+                                 f"int32 outputs differ")
+        plain16, peak = decode_blocks_i16_torch(x, cfg, plan, window=window,
+                                                return_peak=True)
+        held(f"{new.name} on {label} against decode_blocks_i16_torch", a_out,
+             plain16)
+        held(f"{new.name} on {label} against decode_blocks_torch", a_out,
+             decode_blocks_torch(x, cfg, plan, window))
+        peaks.append(peak)
         res[label] = (a_ms, b_ms)
         gbps = plan.message_len / 1e6
-        say("5b K1 A/B", f"{card}: {plan.message_len} bits SOFT8 b32 dec_len "
-            f"{plan.dec_len}, {label}: int16x2 median {a_ms:.4f} ms of "
-            f"{[round(t, 4) for t in a_all]} = {gbps / a_ms:.2f} Gb/s; int32 "
-            f"(K1_I32) median {b_ms:.4f} ms of {[round(t, 4) for t in b_all]}"
-            f" = {gbps / b_ms:.2f} Gb/s; ratio {a_ms / b_ms:.3f}; outputs "
-            f"bit-equal")
-    say("5b K1 A/B", "SASS a stage (stage loop / 2), registers, stack: " +
-        "; ".join(f"{side} {n:g}, {regs} registers, stack {stack} B"
-                  for side, (n, regs, stack) in sass.items()))
+        say(tag, f"{card}: {plan.message_len} bits {what}, {label}: int16x2 "
+            f"median {a_ms:.4f} ms of {[round(t, 4) for t in a_all]} = "
+            f"{gbps / a_ms:.2f} Gb/s; int32 ({old.name}) median {b_ms:.4f} ms "
+            f"of {[round(t, 4) for t in b_all]} = {gbps / b_ms:.2f} Gb/s; "
+            f"ratio {a_ms / b_ms:.3f}; outputs bit-equal to each other and to "
+            f"both plain versions; largest |candidate metric| {peak}")
+    say(tag, "SASS a stage (stage loop / 2), registers, stack, the loop's "
+        "opcodes (two stages): " +
+        "; ".join(f"{side} {n:g}, {regs} registers, stack {stack} B "
+                  f"({describe_mix(mix, 12)})"
+                  for side, (n, regs, stack, mix) in sass.items()))
     small = plan_blocks(DECODE_CHECK_BITS, 32, DEC_LEN)
-    x = extreme_words(HEADLINE, small, gen)
-    got = K1(x, HEADLINE, small)
-    plain16, peak = decode_blocks_i16_torch(x, HEADLINE, small,
+    x = extreme(cfg, small, gen)
+    plain16, peak = decode_blocks_i16_torch(x, cfg, small, window=window,
                                             return_peak=True)
-    held("K1 on extreme fields against decode_blocks_i16_torch", got,
-         plain16)
+    held(f"{new.name} on extreme input against decode_blocks_i16_torch",
+         new(x, cfg, small), plain16)
     held("decode_blocks_i16_torch against decode_blocks_torch", plain16,
-         decode_blocks_torch(x, HEADLINE, small))
-    if peak > PM16_BOUND:
-        raise AssertionError(f"int16 candidate metric {peak} over the bound "
-                             f"{PM16_BOUND}")
-    say("5b K1 A/B", f"K1 == decode_blocks_i16_torch == decode_blocks_torch "
-        f"on {DECODE_CHECK_BITS} bits of extreme SOFT8 fields at dec_len "
-        f"{DEC_LEN}; largest |candidate metric| {peak} <= {PM16_BOUND}")
+         decode_blocks_torch(x, cfg, small, window))
+    peaks.append(peak)
+    if max(peaks) > bound16:
+        raise AssertionError(f"int16 candidate metric {max(peaks)} over the "
+                             f"bound {bound16}")
+    say(tag, f"{new.name} == decode_blocks_i16_torch == decode_blocks_torch "
+        f"on {DECODE_CHECK_BITS} bits of extreme {cfg.channel_in.name} input"
+        f" at dec_len {DEC_LEN}; largest |candidate metric| {peak}, over the "
+        f"phase {max(peaks)} <= {bound16}")
     a_ms, b_ms = res["coded 5.5 dB"]
-    return {"int32_ms": b_ms, "ab_ms": a_ms,
-            "ab_extreme_ms": list(res["extreme fields"]),
-            "sass_per_stage": sass["int16x2"][0],
-            "int32_sass_per_stage": sass["int32"][0],
-            "registers": sass["int16x2"][1], "int32_registers": sass["int32"][1],
-            "pm16_peak": peak}
+    extra = {"int32_ms": b_ms, "ab_ms": a_ms,
+             "ab_extreme_ms": list(res["extreme"]),
+             "sass_per_stage": sass["int16x2"][0],
+             "int32_sass_per_stage": sass["int32"][0],
+             "registers": sass["int16x2"][1],
+             "int32_registers": sass["int32"][1], "pm16_peak": max(peaks)}
+    if survivor is not None:
+        ms, o_ms, all_ms, o_all, _ = in_graph_ab(
+            cfg, survivor, lambda: swapped(core_cuda, K2=K2_I32, K3=K3_I32),
+            new, old, (K1, K2, K3, K1_I32, K2_I32, K3_I32))
+        extra.update(in_graph_ms=ms, int32_in_graph_ms=o_ms)
+        say(tag, f"{card}: in-graph simulation, {cfg.channel_in.name} b32 "
+            f"{HEADLINE_BITS} bits 5.5 dB, survivor {survivor}: {new.name} "
+            f"median {ms:.4f} ms of {[round(t, 4) for t in all_ms]}; in turns "
+            f"with {old.name} decoding {o_ms:.4f} ms of "
+            f"{[round(t, 4) for t in o_all]}; ratio {ms / o_ms:.3f}; BEN 0, "
+            f"one launch a call each")
+    return extra
 
 
 def window_compare_phase(gen, tally) -> dict:
     """K2 (FP32, full store) and K3 (every channel, window) against
-    decode_blocks_torch on the same CUDA tensors, and the staged paths of
+    decode_blocks_torch on the same CUDA tensors (K2_I32 and K3_I32, their
+    int32 instances, too where they have one), and the staged paths of
     the same words against the same plain result (staged_checks; K4 on
     unclamped f32 values against its own).  Random words: the windowed
     decode is held against the plain windowed core, not against the full
@@ -577,6 +693,7 @@ def window_compare_phase(gen, tally) -> dict:
                               True))
     worst = {"K2": 0, "K3": 0}
     n_plans = {"K2": 0, "K3": 0}
+    n_i32 = 0
     for cfg, plan, window in cases:
         x = random_words(cfg, plan, gen)
         k = core_cuda.kernel_for(cfg, window)
@@ -584,6 +701,10 @@ def window_compare_phase(gen, tally) -> dict:
         torch.cuda.synchronize()
         want = decode_blocks_torch(x, cfg, plan, window)
         err = max_abs_diff(got, want)
+        i32 = K3_I32 if window else K2_I32
+        if cfg.channel_in in i32.channels:
+            err = max(err, max_abs_diff(i32(x, cfg, plan), want))
+            n_i32 += 1
         if got.shape != want.shape or err:
             raise AssertionError(
                 f"{k.name} disagrees with its plain version: "
@@ -600,7 +721,8 @@ def window_compare_phase(gen, tally) -> dict:
         f"and 2 % each of +-inf); max |diff| {worst['K2']}")
     say("3c kernel vs plain", f"K3 bit-equal to the plain windowed core on "
         f"{n_plans['K3']} plans (HARD/SOFT4/SOFT8/SOFT16/FP32 x b32/b16 x "
-        f"dec_len 32/96/224/2048, random words); max |diff| "
+        f"dec_len 32/96/224/2048, random words); K2_I32 and K3_I32 equal "
+        f"too on the {n_i32} FP32 and SOFT8 plans; max |diff| "
         f"{worst['K3']}")
     say("3d kernel vs plain", f"staged paths bit-equal to the plain "
         f"decodes of phases 3-3c on the same words, full store (phase 3's "
@@ -714,7 +836,8 @@ def kernel_times_phase(card: str):
         if err:
             raise AssertionError(f"headline shape: {kernel.name} and its "
                                  f"plain version differ (max |diff| {err})")
-        bnd = decode_bound(packed.numel() * 4, cfg, plan)
+        bnd = decode_bound(packed.numel() * 4, cfg, plan,
+                           runs_pm16(kernel, cfg))
         times[kernel.name] = (k_ms, p_ms, err, bnd)
         say("8 times", f"{card}: {kernel.name} at {plan.message_len} bits "
             f"{cfg.channel_in.name} b32 dec_len {plan.dec_len}"
@@ -897,62 +1020,31 @@ def generator_times_phase(card: str):
             f"{p_ms:.1f} ms of {[round(t, 1) for t in p_all]} "
             f"({p_ms / k_ms:.0f}x); bound {bnd[0]:.4f} ms by {bnd[1]}")
     e2e = {}
-    for cfg, generator in ((HEADLINE, "cuda"), (FP32, "cuda"),
-                           (HEADLINE, "torch")):
-        fn, m = build_sharded_simulation(cfg, HEADLINE_BITS, snr_db=5.5,
-                                         scale=CLI_SCALE, generator=generator,
-                                         device="cuda")
-        fn(SEED)
-        tag = f"{cfg.channel_in.name} {generator}"
-        ab = ""
-        if generator == "torch":
-            ms, all_ms, ben = cuda_ms(lambda: fn(SEED + 1), 5)
-        else:
-            def first_design_call():
-                with first_design():
-                    return fn(SEED + 1)
-            first_design_call()                              # warm-up
-            new, old = (K8, K8_OLD) if cfg is FP32 else (K7, K7_OLD)
-            for k in (K7, K8, K7_OLD, K8_OLD):
-                k.launches = 0
-            ms, o_ms, all_ms, o_all, ben, o_ben = ab_ms(
-                lambda: fn(SEED + 1), first_design_call, AB_RUNS)
-            launched = [k.launches for k in (K7, K8, K7_OLD, K8_OLD)]
-            if (new.launches, old.launches, sum(launched)) != (
-                    AB_RUNS, AB_RUNS, 2 * AB_RUNS):
-                raise AssertionError(
-                    f"e2e {tag} A/B: {AB_RUNS} calls a side launched K7, K8, "
-                    f"K7_OLD, K8_OLD {launched} times, not {new.name} and "
-                    f"{old.name} once a call each")
-            if int(o_ben) != 0:
-                raise AssertionError(f"e2e {tag} on the first design: BEN "
-                                     f"{int(o_ben)}")
-            e2e[f"{tag} first design"] = o_ms
-            ab = (f"; in turns with {old.name} generating ({old.launches} "
-                  f"launches, {new.name} {new.launches}): median "
-                  f"{o_ms:.4f} ms of {[round(t, 4) for t in o_all]}, "
-                  f"ratio {ms / o_ms:.3f}")
-        if int(ben) != 0:
-            raise AssertionError(f"e2e {tag}: BEN {int(ben)}")
-        e2e[tag] = ms
-        say("11 e2e", f"{card}: in-graph simulation, generator {generator}, "
+    for cfg, new, old in ((HEADLINE, K7, K7_OLD), (FP32, K8, K8_OLD)):
+        ms, o_ms, all_ms, o_all, m = in_graph_ab(
+            cfg, "auto", lambda: swapped(genkernel, K7=K7_OLD, K8=K8_OLD),
+            new, old, (K7, K8, K7_OLD, K8_OLD))
+        tag = f"{cfg.channel_in.name} cuda"
+        e2e[tag], e2e[f"{tag} first design"] = ms, o_ms
+        say("11 e2e", f"{card}: in-graph simulation, generator cuda, "
             f"{cfg.channel_in.name} b32 {HEADLINE_BITS} bits 5.5 dB: median "
             f"{ms:.4f} ms of {[round(t, 4) for t in all_ms]} per call = "
-            f"{m / ms / 1e6:.3f} Gb/s e2e; BEN 0{ab}")
+            f"{m / ms / 1e6:.3f} Gb/s e2e; BEN 0; in turns with {old.name} "
+            f"generating (one launch a call each): median {o_ms:.4f} ms of "
+            f"{[round(t, 4) for t in o_all]}, ratio {ms / o_ms:.3f}")
+    fn, m = build_sharded_simulation(HEADLINE, HEADLINE_BITS, snr_db=5.5,
+                                     scale=CLI_SCALE, generator="torch",
+                                     device="cuda")
+    fn(SEED)
+    ms, all_ms, ben = cuda_ms(lambda: fn(SEED + 1), 5)
+    if int(ben) != 0:
+        raise AssertionError(f"e2e SOFT8 torch: BEN {int(ben)}")
+    e2e["SOFT8 torch"] = ms
+    say("11 e2e", f"{card}: in-graph simulation, generator torch, SOFT8 b32 "
+        f"{HEADLINE_BITS} bits 5.5 dB: median {ms:.4f} ms of "
+        f"{[round(t, 4) for t in all_ms]} per call = {m / ms / 1e6:.3f} "
+        f"Gb/s e2e; BEN 0")
     return times, e2e
-
-
-@contextlib.contextmanager
-def first_design():
-    """packed_workload_cuda generates with K7_OLD / K8_OLD inside the block
-    (it looks K7 and K8 up in the module at each call; phase 11 checks the
-    launch counts): the in-graph A/B of phase 11 only."""
-    saved = genkernel.K7, genkernel.K8
-    genkernel.K7, genkernel.K8 = K7_OLD, K8_OLD
-    try:
-        yield
-    finally:
-        genkernel.K7, genkernel.K8 = saved
 
 
 def gen_sass() -> dict:
@@ -1941,8 +2033,8 @@ def bench_profile_phase(card: str, runs: dict):
     plan = bp.make_plan(HEADLINE_BITS, dl)
     x = bp.make_inputs(HEADLINE_BITS, plan, "cuda")["x"]
     p_ms, _, _ = cuda_ms(lambda: decode_blocks_torch(x, bp.CFG, plan), 1)
-    return res[dl]["kraw"], p_ms, 0, decode_bound(x.numel() * 4, bp.CFG,
-                                                   plan)
+    return res[dl]["kraw"], p_ms, 0, decode_bound(
+        x.numel() * 4, bp.CFG, plan, runs_pm16(K1, bp.CFG))
 
 
 def bench_split_phase(card: str, runs: dict):
@@ -2039,7 +2131,7 @@ def soft16_pieces_phase(card: str, runs: dict):
     cfg, plan, words = case["cfg"], case["plan"], case["words"]
     p_ms, _, _ = cuda_ms(lambda: decode_blocks_torch(words, cfg, plan), 1)
     return res["soft16/4096"]["kernel-only"], p_ms, 0, decode_bound(
-        words.numel() * 4, cfg, plan)
+        words.numel() * 4, cfg, plan, runs_pm16(K1, cfg))
 
 
 def ud_reader_phase(gen, runs: dict) -> int:
@@ -2220,7 +2312,7 @@ def fp32_routes_phase(card: str, runs: dict):
     x = fp.wire(HEADLINE_BITS, "cuda")
     plan = fp.make_plan(HEADLINE_BITS, 2048)
     label = "fused-value dl=2048 win=False (K2)"
-    bnd = decode_bound(x.numel() * 4, FP32, plan)
+    bnd = decode_bound(x.numel() * 4, FP32, plan, runs_pm16(K2, FP32))
     udw = fp32_ud_words_torch(x)
     say("34 fp32 routes", f"{card}: " + "; ".join(
         f"{k} {v:.4f} ms" for k, v in res.items() if k != "check") +
@@ -2281,7 +2373,12 @@ def main() -> int:
     main_path_phase(runs)
     err = max(err, noisy_chain_phase())
     k1_ms, plain_ms, k1_bound = timing_phase(card)
-    k1_ab = k1_ab_phase(card, gen)
+    k1_ab = int16_ab_phase("5b K1 A/B", card, gen, K1, K1_I32, HEADLINE,
+                           False, extreme_words)
+    k2_ab = int16_ab_phase("5c K2 A/B", card, gen, K2, K2_I32, FP32, False,
+                           extreme_wire_values, "auto")
+    k3_ab = int16_ab_phase("5d K3 A/B", card, gen, K3, K3_I32, HEADLINE,
+                           True, extreme_words, "window")
     with tempfile.TemporaryDirectory() as tmp:
         serve_phase(Path(tmp), "s8", HEADLINE,
                     [([], "K1"), (["--survivor", "window"], "K3"),
@@ -2292,6 +2389,8 @@ def main() -> int:
     staged_path_phase(runs)
     times.update(kernel_times_phase(card))
     times["K1"] = (k1_ms, plain_ms, err, k1_bound, None, k1_ab)
+    times["K2"] += (None, k2_ab)
+    times["K3"] += (None, k3_ab)
     gen_times, e2e = generator_times_phase(card)
     gen_ab = gen_ab_phase(card)
     for k, ch in (("K7", "SOFT8"), ("K8", "FP32")):
@@ -2378,7 +2477,8 @@ def main() -> int:
     rows.sort(key=lambda r: int(r[0][1:]))
     per_call = {name: launches_per_call(runs, name, want.get(name))
                 for name, _ in rows}
-    # a row's extra keys (K1's A/B, K26's consumer) ride in times[name][5]
+    # a row's extra keys (K1's, K2's and K3's A/B, K7's and K8's, K26's
+    # consumer) ride in times[name][5]
     print(json.dumps({"kernels": [dict({
         "name": name, "route": "cuda", "source": source,
         "replaces": REPLACES[name], "launches": per_call[name][0],

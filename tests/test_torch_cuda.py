@@ -1,6 +1,7 @@
-"""Kernels K1-K6 on the card against their plain PyTorch versions (K1's
-int16x2 metrics on extreme fields against the int32 core and its int32
-instances K1_I32 too), the
+"""Kernels K1-K6 on the card against their plain PyTorch versions (the
+int16x2 metrics of K1, K2 and K3 on extreme fields and wires against the
+int32 core, the int16 plain version and their int32 instances K1_I32,
+K2_I32 and K3_I32 too), the
 staged-input paths (``decode_packed_cuda(fused=False)``,
 ``fp32_words=False``, ``decode_blocks_cuda``) and their launch counts, and
 ViterbiGPU's CUDA path (run, run_stream, streaming); the generator
@@ -46,7 +47,7 @@ from tpu_viterbi_torch.scripts import (acs_variants_bench, bench_profile,
                                        transpose_bench)
 from tpu_viterbi_torch.sharding import simulate
 from tpu_viterbi_torch.utils import timing
-from tpu_viterbi_torch.utils.bits import extreme_field_words
+from tpu_viterbi_torch.utils.bits import extreme_field_words, extreme_wire
 
 pytestmark = pytest.mark.cuda
 
@@ -138,6 +139,93 @@ def test_k1_i32_takes_soft8_only(gpu):
     with pytest.raises(ConfigResolutionError, match="SOFT8 only"):
         core_cuda.K1_I32(torch.zeros(600, dtype=torch.int32, device=gpu),
                          DecoderConfig(ChannelIn.SOFT4), plan)
+
+
+def _noiseless(rng, plan, lo, hi):
+    """A noiseless coded stream of the plan's message, each coded bit at
+    ``lo`` (0) or ``hi`` (1): the path metrics' fastest growth."""
+    bits = rng.integers(0, 2, size=plan.message_len + 64)
+    return conv_encode_np(bits).astype(np.float32) * (hi - lo) + lo
+
+
+@pytest.mark.parametrize("out", [DecodeOut.O_B32, DecodeOut.O_B16],
+                         ids=lambda o: o.name)
+@pytest.mark.parametrize("dec_len", [96, 2048, 16384])
+def test_k2_int16extreme_wire(gpu, rng, out, dec_len):
+    """K2's int16x2 metrics on wires of NaN, +-inf and values past the
+    clamp, and on the noiseless coded wire at -8 and 7, equal K2_I32 (its
+    int32 instances), the int16 plain version and the int32 core; each
+    decode is one launch of its own kernel."""
+    cfg = DecoderConfig(ChannelIn.FP32, decode_out=out)
+    bpp = cfg.bits_per_pack
+    plan = core_torch.plan_blocks(dec_len * 20 - bpp, bpp, dec_len)
+    n = cfg.get_input_words(2 * (plan.message_len + 64))
+    for wire in (extreme_wire(rng, n), _noiseless(rng, plan, -8.0, 7.0)):
+        x = torch.from_numpy(wire).to(gpu)
+        want = core_torch.decode_blocks_torch(x, cfg, plan)
+        assert torch.equal(core_torch.decode_blocks_i16_torch(x, cfg, plan),
+                           want)
+        kernels = [core_cuda.K2, core_cuda.K2_I32]
+        for k, launched in ((core_cuda.K2, [1, 0]),
+                            (core_cuda.K2_I32, [0, 1])):
+            got, n_launch = _launched(kernels, lambda: k(x, cfg, plan))
+            assert n_launch == launched and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("inp", [ChannelIn.HARD, ChannelIn.SOFT4,
+                                 ChannelIn.SOFT8, ChannelIn.SOFT16, "UD",
+                                 "WIRE"],
+                         ids=lambda c: c if isinstance(c, str) else c.name)
+@pytest.mark.parametrize("out", [DecodeOut.O_B32, DecodeOut.O_B16],
+                         ids=lambda o: o.name)
+@pytest.mark.parametrize("dec_len", [96, 2048])
+def test_k3_int16_extreme_fields(gpu, rng, inp, out, dec_len):
+    """K3 with the ring at W = 4 (b32) and W = 6 (b16) slots: on fields at
+    their extremes of every int16 input (HARD, SOFT4, SOFT8, the FP32
+    channel's u/d words, its wire with NaN, +-inf and values past the
+    clamp), and on noiseless coded SOFT8 at +-127 and wire at -8 and 7, it
+    equals the int16 plain window and the int32 one, and K3_I32 (its int32
+    instances) on SOFT8 and the wire; SOFT16 runs its int32 stage, equal to
+    the int32 plain window.  Each decode is one launch of its own
+    kernel."""
+    channel = ChannelIn.FP32 if inp in ("UD", "WIRE") else inp
+    cfg = DecoderConfig(channel, decode_out=out)
+    bpp = cfg.bits_per_pack
+    assert core_torch.survivor_window_slots(cfg) == (4 if bpp == 32 else 6)
+    plan = core_torch.plan_blocks(dec_len * 20 - bpp, bpp, dec_len)
+    n = cfg.get_input_words(2 * (plan.message_len + 64))
+    if inp == "WIRE":
+        inputs = [extreme_wire(rng, n), _noiseless(rng, plan, -8.0, 7.0)]
+    elif inp == "UD":
+        wpb, wph = core_torch.ud_words_per_block(plan)
+        inputs = [extreme_field_words(rng, plan.num_blocks * wpb + wph, 8)]
+    else:
+        inputs = [extreme_field_words(rng, n, cfg.enc_data_width)]
+        if channel == ChannelIn.SOFT8:
+            inputs.append(quantize_and_pack(torch.from_numpy(
+                _noiseless(rng, plan, -127.0, 127.0)), channel).numpy())
+    k3, k3_i32 = core_cuda.K3, core_cuda.K3_I32
+    for words in inputs:
+        x = torch.from_numpy(words).to(gpu)
+        if inp == "UD":
+            want = core_torch.assemble_output(core_torch.decode_ud_words_torch(
+                x, cfg, plan, window=True), cfg, plan)
+            plain16 = core_torch.assemble_output(
+                core_torch.decode_blocks_i16_torch(x, cfg, plan, ud=True,
+                                                   window=True), cfg, plan)
+            got, n_launch = _launched([k3, k3_i32], lambda: (
+                core_cuda.decode_ud_words_cuda(x, cfg, plan, window=True)))
+        else:
+            want = core_torch.decode_blocks_torch(x, cfg, plan, window=True)
+            plain16 = want if channel == ChannelIn.SOFT16 else \
+                core_torch.decode_blocks_i16_torch(x, cfg, plan, window=True)
+            got, n_launch = _launched([k3, k3_i32], lambda: k3(x, cfg, plan))
+        assert n_launch == [1, 0] and torch.equal(got, want)
+        assert torch.equal(plain16, want)
+        if channel in k3_i32.channels and inp != "UD":
+            got, n_launch = _launched([k3, k3_i32],
+                                      lambda: k3_i32(x, cfg, plan))
+            assert n_launch == [0, 1] and torch.equal(got, want)
 
 
 def test_viterbi_gpu_launches_k1(gpu, rng):

@@ -152,23 +152,39 @@ def test_renorm_needed_and_bound_held(rng):
 
 
 def test_i16_refuses_int32_channels():
-    """SOFT16 (|bm| to 65,536) and the FP32 wire keep int32 metrics: the
-    plain int16 version refuses them, and K1's int32 A/B wrapper takes
-    SOFT8 only; on CPU tensors it runs its plain version, as K1 does."""
+    """SOFT16 (|bm| to 65,536) keeps int32 metrics: the plain int16 version
+    refuses it, and u/d words on another channel than FP32; the FP32 wire
+    runs int16 metrics in K2 and K3, so the plain int16 version decodes it,
+    equal to decode_blocks_torch.  The int32 A/B wrappers take their own
+    channels only (K1_I32 SOFT8, K2_I32 FP32, K3_I32 SOFT8 and FP32); on
+    CPU tensors each runs its plain version, as its kernel does."""
     plan = core_torch.plan_blocks(256, 32, 128)
     x = torch.zeros(100, dtype=torch.int32)
     for cfg, ud in ((DecoderConfig(ChannelIn.SOFT16), False),
-                    (DecoderConfig(ChannelIn.FP32), False),
                     (DecoderConfig(ChannelIn.SOFT8), True)):
         with pytest.raises(ValueError, match="int16"):
             core_torch.decode_blocks_i16_torch(x, cfg, plan, ud=ud)
-    with pytest.raises(ConfigResolutionError, match="SOFT8 only"):
-        core_cuda.K1_I32(x, DecoderConfig(ChannelIn.HARD), plan)
-    cfg = DecoderConfig(ChannelIn.SOFT8)
-    before = core_cuda.K1_I32.launches
-    assert torch.equal(core_cuda.K1_I32(x, cfg, plan),
-                       core_torch.decode_blocks_torch(x, cfg, plan))
-    assert core_cuda.K1_I32.launches == before
+    fp32 = DecoderConfig(ChannelIn.FP32)
+    wire = torch.linspace(-20.0, 20.0, 2 * (256 + 64))
+    wire[::7] = float("nan")
+    assert torch.equal(core_torch.decode_blocks_i16_torch(wire, fp32, plan),
+                       core_torch.decode_blocks_torch(wire, fp32, plan))
+    for kernel, channel, match in (
+            (core_cuda.K1_I32, ChannelIn.HARD, "SOFT8 only"),
+            (core_cuda.K2_I32, ChannelIn.SOFT8, "FP32 only"),
+            (core_cuda.K3_I32, ChannelIn.SOFT4, "SOFT8 and FP32 only")):
+        with pytest.raises(ConfigResolutionError, match=match):
+            kernel(x, DecoderConfig(channel), plan)
+    for kernel, cfg, words in (
+            (core_cuda.K1_I32, DecoderConfig(ChannelIn.SOFT8), x),
+            (core_cuda.K2_I32, fp32, wire),
+            (core_cuda.K3_I32, DecoderConfig(ChannelIn.SOFT8), x),
+            (core_cuda.K3_I32, fp32, wire)):
+        before = kernel.launches
+        assert torch.equal(kernel(words, cfg, plan),
+                           core_torch.decode_blocks_torch(words, cfg, plan,
+                                                          kernel.window))
+        assert kernel.launches == before
 
 
 def test_k1_entry_routes_pm16_by_width():

@@ -1,29 +1,35 @@
 // The add-compare-select stages of the decode kernels in viterbi.cu.
-//   - acs_stage: 64 int32 path metrics, a state a register.  K2-K5 run it,
-//     and K1 on SOFT16 (|bm| reaches 65,536: int16 cannot hold its
-//     metrics, as the JAX package's options_valid forbids M_B16 there).  So
-//     do the probes that time it on its own, K12's layout A
+//   - acs_stage: 64 int32 path metrics, a state a register.  K4 and K5 run
+//     it, and K1 and K3 on SOFT16 (|bm| reaches 65,536: int16 cannot hold
+//     its metrics, as the JAX package's options_valid forbids M_B16 there);
+//     so do the int32 A/B entries (viterbi_k1_i32_launch, _k2_i32_,
+//     _k3_i32_).  So do the probes that time it on its own, K12's layout A
 //     (layout_probe.cu) and K13's ablation (kernel_ablation.cu), which keep
 //     measuring the int32 stage of their JAX scripts, and K23 and K25; K14
 //     and K16 take its wrapping add and sub.
 //   - acs_stage16: 32 int16x2 words of path metrics, two neighbouring
 //     states a register.  K1 runs it on HARD, SOFT4, SOFT8 and the FP32
-//     channel's u/d words, at bpp 32 and 16, whatever the metric mode: the
-//     metric's width never changes a decision while no metric wraps
-//     (tests/test_metric_equiv.py holds that invariant on the JAX side).
+//     channel's u/d words, K2 on the FP32 wire, and K3 on all five, at bpp
+//     32 and 16, whatever the metric mode: the metric's width never changes
+//     a decision while no metric wraps (tests/test_metric_equiv.py holds
+//     that invariant on the JAX side).
 //
 // The no-wrap bound of acs_stage16.  Let M be the largest |bm| of the
 // channel (256 for SOFT8: u = a0 + a1 of two 8-bit fields; 128 for the u/d
-// words, 16 for SOFT4, 2 for HARD).  Every state reaches every other in 6
-// stages, so 6 stages after any stage t every metric is at least t's best
-// less 6M (the path from t's best state) and at most t's best plus 6M:
-// the metrics' spread is at most 12M (3,072 for SOFT8; from the zero start
-// it grows by at most 2M a stage).  K1 subtracts state 0's metric from all
-// 64 once a pack (renorm16), so a pack starts with |pm| <= 12M and each of
+// words; 16 for the FP32 wire: the clamp gives r0, r1 in [-8, 7], so u and
+// d are trunc of values in [-16, 15], and a NaN truncates to 0; 16 for
+// SOFT4, 2 for HARD).  Every state reaches every other in 6 stages, so 6
+// stages after any stage t every metric is at least t's best less 6M (the
+// path from t's best state) and at most t's best plus 6M: the metrics'
+// spread is at most 12M (3,072 for SOFT8; from the zero start it grows by
+// at most 2M a stage).  The kernels subtract state 0's metric from all 64
+// once a pack (renorm16), so a pack starts with |pm| <= 12M and each of
 // its bpp stages moves a metric by at most M: every candidate of the pack
 // has |c| <= (12 + bpp) M, at most (12 + 32) * 256 = 11,264 < 32,767
-// (kPm16Bound).  tests/test_torch_k1_int16.py checks the largest |c| of the
-// plain version, core_torch.decode_blocks_i16_torch, against it.
+// (kPm16Bound); on the FP32 wire (12 + 32) * 16 = 704 at bpp 32 and
+// (12 + 16) * 16 = 448 at bpp 16.  tests/test_torch_k1_int16.py and
+// tests/test_torch_k2_k3_int16.py check the largest |c| of the plain
+// version, core_torch.decode_blocks_i16_torch, against it.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -113,7 +119,7 @@ __device__ __forceinline__ void acs_stage(const int (&pm)[kStates],
   }
 }
 
-// --- int16x2 path metrics (K1) ---
+// --- int16x2 path metrics (K1, K2, K3) ---
 
 // The largest |candidate metric| of acs_stage16 with renorm16 once a pack
 // of 32 stages on SOFT8, the widest channel that takes it (the header's

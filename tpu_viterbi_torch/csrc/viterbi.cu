@@ -17,17 +17,22 @@
 //     Path metrics: int16x2 (acs.cuh's acs_stage16, renormalised every
 //     pack) for widths 1, 4, 8 and kUdWidth, int32 (acs_stage) for 16,
 //     chosen at compile time by the width, whatever the metric mode.
-//     viterbi_k1_i32_launch keeps the int32 SOFT8 instances for the A/B.
 //   - K2, viterbi_k2_launch: FloatReader (the FP32 channel's raw interleaved
-//     f32 wire), full store.  Replaces _viterbi_kernel_fused_f32v; its TPU
-//     staging (_body_and_edge's roll halo) is not needed: K2 reads the flat
-//     wire.  The u/d-word staging core_xla.fp32_ud_words is
-//     core_torch.fp32_ud_words_torch, plain torch ops as the JAX one is XLA.
+//     f32 wire), full store, int16x2 metrics.  Replaces
+//     _viterbi_kernel_fused_f32v; its TPU staging (_body_and_edge's roll
+//     halo) is not needed: K2 reads the flat wire.  The u/d-word staging
+//     core_xla.fp32_ud_words is core_torch.fp32_ud_words_torch, plain torch
+//     ops as the JAX one is XLA.
 //   - K3, viterbi_k3_launch: K1's and K2's readers with the windowed
-//     survivor ring in shared memory.  Replaces the window=True branch of
+//     survivor ring in shared memory, int16x2 metrics where K1 and K2 run
+//     them (int32 on SOFT16).  Replaces the window=True branch of
 //     _decode_core (:440-486) with its slot count survivor_window_slots
 //     (:295-315), the reference's one-pointer circular buffer
 //     (viterbi.cu:99-100).
+//   - The int32 sides of the int16x2 A/Bs, never launched by a decode path:
+//     viterbi_k1_i32_launch (K1 on SOFT8), viterbi_k2_i32_launch (K2) and
+//     viterbi_k3_i32_launch (K3 on SOFT8 and the FP32 wire), each its
+//     kernel's earlier acs_stage instances.
 //   - K4, viterbi_k4_launch: the decode from STAGED input, full store or
 //     window: IntReader<WIDTH, true> on the (Lw, B) word-major words of K6
 //     (word mode), PlaneReader<int> / UnclampedReader on the (2 *
@@ -70,21 +75,25 @@
 // 32 butterflies, so the trellis' even/odd interleave is register renaming
 // and the +-1 branch signs fold into add/sub at compile time: no shuffles,
 // no per-stage memory traffic besides the channel input, prefetched ahead.
-// K1 keeps two states' metrics in a register (int16x2): one VIADD.16x2
-// adds a branch metric to two states and one VIMNMX.S16x2 takes two maxima
-// and both decisions, so a stage issues fewer instructions; the survivors
-// stay int32.  At SOFT8 b32 the stage loop issues 272 SASS a stage against
-// 395.5 for the int32 instance, in 134 registers against 176, no spills
-// (chip_smoke.py phase 5b reads both from the built library's cubin).
-// Path metrics start at zero in every block; int16x2 metrics subtract
-// state 0's every pack (acs.cuh: no int16 wraps), int32 ones the per-pack
-// minimum only when the plan needs it (renorm flag).
+// K1, K2 and K3 keep two states' metrics in a register (int16x2): one
+// VIADD.16x2 adds a branch metric to two states and one VIMNMX.S16x2 takes
+// two maxima and both decisions, so a stage issues fewer instructions; the
+// survivors stay int32.  At SOFT8 b32 K1's stage loop issues 272 SASS a
+// stage against 395.5 for the int32 instance, in 134 registers against 176,
+// no spills (chip_smoke.py phases 5b-5d read each kernel's two instances
+// from the built library's cubin).  Path metrics start at zero in every
+// block; int16x2 metrics subtract state 0's every pack, after the survivor
+// dump (the window's ring write; acs.cuh: no int16 wraps), int32 ones the
+// per-pack minimum only when the plan needs it (renorm flag).  The ring's
+// chase reads only the survivors, whatever the metrics' width.
 //
-// K2's f32 work is 2 clamps, 2 adds and 2 conversions a stage against ~400
-// integer instructions; a stage reads 8 bytes of wire (4x SOFT8's), 0.5 GB
-// at the 32M-bit headline: far under the card's bandwidth in the ACS' time.
-// K3's per-pack chase adds W - 1 shared loads a pack, and the survivor
-// traffic to device memory (K1's 264 MB at the 32M-bit headline) is gone.
+// K2's f32 work is 2 clamps, 2 adds and 2 conversions a stage against
+// ~270-400 integer instructions; a stage reads 8 bytes of wire (4x
+// SOFT8's), 0.5 GB at the 32M-bit headline: far under the card's bandwidth
+// in the ACS' time.  K3's per-pack chase adds W - 1 shared loads a pack,
+// and the survivor traffic to device memory (K1's 264 MB at the 32M-bit
+// headline) is gone; its ring (64 or 96 KB a CTA of 64 threads) sets the
+// occupancy, not the registers, so int16x2 gains it issue alone.
 // K4/K5 read the same bytes as K1/K2 but coalesced (K1's flat reader loads
 // each block's words at a stride of wpb words); K6 is a copy, bound by
 // device-memory bandwidth: 32x33 tiles in shared memory make both its
@@ -100,10 +109,10 @@
 
 // Build parts: library.load_library compiles this file once per part, all
 // started together, with -DBUILD_PART=<i> for each i below the count on the
-// next line; a part holds the entry points of its group (K1 K2 K6 | K3 |
-// K4's word mode | K4's value mode and K5), so the ptxas work of the ~50
-// decode instances runs on four cores.  Built by hand without the macro,
-// one object holds every entry point.
+// next line; a part holds the entry points of its group (K1 K2 K6 and
+// K1_I32 K2_I32 | K3 K3_I32 | K4's word mode | K4's value mode and K5), so
+// the ptxas work of the ~60 decode instances runs on four cores.  Built by
+// hand without the macro, one object holds every entry point.
 // nvcc parts: 4
 #ifdef BUILD_PART
 #define IN_PART(i) (BUILD_PART == (i))
@@ -555,7 +564,7 @@ using namespace viterbi;
     return static_cast<int>(launch<R, B, WINDOW, PM16>(                    \
         src, sv, o, num_blocks, n_packs, n_conv, n_emit, renorm, n_slots,  \
         static_cast<cudaStream_t>(stream)));
-// int32 metrics; K1's int16x2 instances are VITERBI_LAUNCH(..., true)
+// int32 metrics; the int16x2 instances are VITERBI_LAUNCH(..., true)
 #define VITERBI_CASE(W, R, B, WINDOW) VITERBI_LAUNCH(W, R, B, WINDOW, false)
 // the four instances of a reader: bpp 32 and 16, window when surv is null
 #define VITERBI_STAGED(W, R)       \
@@ -596,9 +605,10 @@ extern "C" int viterbi_k1_launch(VITERBI_ARGS) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// K1 with int32 metrics on SOFT8, its earlier arithmetic: the other side of
-// the int16x2 A/B (chip_smoke.py, tests/test_torch_cuda.py); no decode
-// path launches it.
+// The int32 sides of the int16x2 A/Bs (chip_smoke.py phases 5b-5d,
+// tests/test_torch_cuda.py), each its kernel's earlier arithmetic, built
+// in its kernel's part (one cubin, read by phases 5b-5d); no decode path
+// launches them.  K1_I32: SOFT8, full store.
 extern "C" int viterbi_k1_i32_launch(VITERBI_ARGS) {
   VITERBI_PROLOGUE
   if (sv == nullptr) return static_cast<int>(cudaErrorInvalidValue);
@@ -607,7 +617,17 @@ extern "C" int viterbi_k1_i32_launch(VITERBI_ARGS) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// K2: int16x2 metrics on the FP32 wire (|bm| <= 16, acs.cuh's header).
 extern "C" int viterbi_k2_launch(VITERBI_ARGS) {
+  VITERBI_PROLOGUE
+  if (sv == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  VITERBI_LAUNCH(0, FloatReader, 32, false, true)
+  VITERBI_LAUNCH(0, FloatReader, 16, false, true)
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K2_I32: the FP32 wire, full store.
+extern "C" int viterbi_k2_i32_launch(VITERBI_ARGS) {
   VITERBI_PROLOGUE
   if (sv == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   VITERBI_CASE(0, FloatReader, 32, false)
@@ -617,21 +637,34 @@ extern "C" int viterbi_k2_launch(VITERBI_ARGS) {
 #endif
 
 #if IN_PART(1)
+// K3: int16x2 metrics on the FP32 wire, HARD, SOFT4, SOFT8 and the u/d
+// words, int32 on SOFT16, as K1 chooses.
 extern "C" int viterbi_k3_launch(VITERBI_ARGS) {
   surv = nullptr;
   VITERBI_PROLOGUE
-  VITERBI_CASE(0, FloatReader, 32, true)
-  VITERBI_CASE(0, FloatReader, 16, true)
-  VITERBI_CASE(1, IntReader<1>, 32, true)
-  VITERBI_CASE(1, IntReader<1>, 16, true)
-  VITERBI_CASE(4, IntReader<4>, 32, true)
-  VITERBI_CASE(4, IntReader<4>, 16, true)
-  VITERBI_CASE(8, IntReader<8>, 32, true)
-  VITERBI_CASE(8, IntReader<8>, 16, true)
+  VITERBI_LAUNCH(0, FloatReader, 32, true, true)
+  VITERBI_LAUNCH(0, FloatReader, 16, true, true)
+  VITERBI_LAUNCH(1, IntReader<1>, 32, true, true)
+  VITERBI_LAUNCH(1, IntReader<1>, 16, true, true)
+  VITERBI_LAUNCH(4, IntReader<4>, 32, true, true)
+  VITERBI_LAUNCH(4, IntReader<4>, 16, true, true)
+  VITERBI_LAUNCH(8, IntReader<8>, 32, true, true)
+  VITERBI_LAUNCH(8, IntReader<8>, 16, true, true)
   VITERBI_CASE(16, IntReader<16>, 32, true)
   VITERBI_CASE(16, IntReader<16>, 16, true)
-  VITERBI_CASE(kUdWidth, UdReader, 32, true)
-  VITERBI_CASE(kUdWidth, UdReader, 16, true)
+  VITERBI_LAUNCH(kUdWidth, UdReader, 32, true, true)
+  VITERBI_LAUNCH(kUdWidth, UdReader, 16, true, true)
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K3_I32: SOFT8 and the FP32 wire, window.
+extern "C" int viterbi_k3_i32_launch(VITERBI_ARGS) {
+  surv = nullptr;
+  VITERBI_PROLOGUE
+  VITERBI_CASE(8, IntReader<8>, 32, true)
+  VITERBI_CASE(8, IntReader<8>, 16, true)
+  VITERBI_CASE(0, FloatReader, 32, true)
+  VITERBI_CASE(0, FloatReader, 16, true)
   return static_cast<int>(cudaErrorInvalidValue);
 }
 #endif

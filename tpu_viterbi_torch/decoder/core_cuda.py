@@ -2,14 +2,16 @@
 
 - K1: the integer word channels, full survivor store — the TPU kernel
   ``_viterbi_kernel_fused``; int16x2 path metrics on HARD, SOFT4, SOFT8
-  and the u/d words, int32 on SOFT16 (``csrc/acs.cuh``).  ``K1_I32``, K1
-  with int32 metrics on SOFT8 (its earlier arithmetic), is the other side
-  of that A/B for ``chip_smoke.py`` and the GPU tests; no decode path
-  launches it;
-- K2: the FP32 channel's raw f32 wire, full store — the TPU kernel
-  ``_viterbi_kernel_fused_f32v``;
+  and the u/d words, int32 on SOFT16 (``csrc/acs.cuh``);
+- K2: the FP32 channel's raw f32 wire, full store, int16x2 metrics — the
+  TPU kernel ``_viterbi_kernel_fused_f32v``;
 - K3: every channel with the windowed survivor — the ``window=True`` branch
-  of the TPU kernels' ``_decode_core``;
+  of the TPU kernels' ``_decode_core``; int16x2 metrics as K1 and K2 run
+  them, int32 on SOFT16;
+- ``K1_I32`` (SOFT8), ``K2_I32`` and ``K3_I32`` (SOFT8 and the FP32 wire,
+  window): each kernel with int32 metrics, its earlier arithmetic, the
+  other side of the int16x2 A/B for ``chip_smoke.py`` and the GPU tests;
+  no decode path launches them;
 - K4: the decode from staged input (word mode or value mode), full store or
   window — ``_viterbi_kernel`` through ``_run_kernel``;
 - K5: the FP32 decode from two clamped f32 planes — ``_viterbi_kernel_f32_2s``;
@@ -263,21 +265,29 @@ class TransposeKernel(CudaKernel):
 
 
 class Int32Kernel(StreamKernel):
-    """K1_I32, bound to ``viterbi_k1_i32_launch``: K1's int32-metric
-    instances on SOFT8, b32 and b16 (the int16x2 A/B).  Its plain version is
-    ``decode_blocks_torch``, as K1's is."""
+    """K1_I32, K2_I32, K3_I32, bound to ``viterbi_k<i>_i32_launch``: a
+    kernel's int32-metric instances on ``channels``, b32 and b16 (the
+    int16x2 A/B).  Its plain version is ``decode_blocks_torch``, as its
+    kernel's is."""
+
+    def __init__(self, name: str, window: bool, channels):
+        super().__init__(name, fp32=None, window=window)
+        self.channels = channels
 
     def check_config(self, cfg: DecoderConfig) -> None:
-        if cfg.channel_in != ChannelIn.SOFT8:
+        if cfg.channel_in not in self.channels:
             raise ConfigResolutionError(
-                f"kernel {self.name} decodes SOFT8 only, not "
+                f"kernel {self.name} decodes "
+                f"{' and '.join(c.name for c in self.channels)} only, not "
                 f"{cfg.channel_in.name}")
 
 
 K1 = StreamKernel("K1", fp32=False, window=False)
-K1_I32 = Int32Kernel("K1_I32", fp32=False, window=False)
 K2 = StreamKernel("K2", fp32=True, window=False)
 K3 = StreamKernel("K3", fp32=None, window=True)
+K1_I32 = Int32Kernel("K1_I32", False, (ChannelIn.SOFT8,))
+K2_I32 = Int32Kernel("K2_I32", False, (ChannelIn.FP32,))
+K3_I32 = Int32Kernel("K3_I32", True, (ChannelIn.SOFT8, ChannelIn.FP32))
 K4 = StagedKernel("K4")
 K5 = PlaneKernel("K5")
 K6 = TransposeKernel("K6")

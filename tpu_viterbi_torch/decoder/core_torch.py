@@ -17,9 +17,10 @@ computing its kernel's function: ``decode_blocks_torch`` (K1, K2, K3 on
 packed words), ``decode_staged_torch`` (K4 on staged words or values),
 ``decode_planes_torch`` (K5 on two f32 planes), ``stage_transpose``
 (K6) and ``decode_ud_words_torch`` (K1 and K3 on the FP32 channel's u/d
-words of ``fp32_ud_words_torch``); ``decode_blocks_i16_torch``, K1's own
-int16 arithmetic, which the tests and ``chip_smoke.py`` hold against the
-int32 decode (no decode path calls it); and the values-in entry
+words of ``fp32_ud_words_torch``); ``decode_blocks_i16_torch``, the int16
+arithmetic of K1, K2 and K3 (``Pm16``), which the tests and
+``chip_smoke.py`` hold against the int32 decode (no decode path calls it);
+and the values-in entry
 ``decode_blocks`` with ``gather_blocks``, ``forward_scan`` and
 ``traceback_scan``, as the JAX package exports them.
 The CPU tests hold it bit-exact against ``decode_packed_xla`` and
@@ -29,12 +30,11 @@ against it on the card.  It runs on the CPU or on CUDA tensors.
 All metric modes run on int32 path metrics, as the TPU kernel does
 (core_pallas.py:140-148): the reference sizes renorm strides so b16/fp16
 metrics decode identically to int32 (tests/test_metric_equiv.py locks the
-identity on the JAX side).  K1 runs int16 metrics on every channel but
-SOFT16, renormalised once a pack, which decodes identically for the same
-reason (``decode_blocks_i16_torch``).  Survivor registers are int64 masked
-to 32 bits,
-because torch's uint32 support is partial and ``>>`` on int32 is
-arithmetic.
+identity on the JAX side).  K1, K2 and K3 run int16 metrics on every
+channel but SOFT16, renormalised once a pack, which decodes identically for
+the same reason (``decode_blocks_i16_torch``).  Survivor registers are
+int64 masked to 32 bits, because torch's uint32 support is partial and
+``>>`` on int32 is arithmetic.
 """
 
 from __future__ import annotations
@@ -298,14 +298,45 @@ def _repeat2(x):
     return x[:, None, :].expand(h, 2, b).reshape(2 * h, b)
 
 
-def _acs_stage(pm, pp, bm_a):
+class Pm16:
+    """The int16 path metrics of ``csrc/acs.cuh`` (``acs_stage16`` and
+    ``renorm16``), which K1, K2 and K3 run on every channel but SOFT16: each
+    candidate metric is computed exactly, then wrapped to int16 as
+    VIADD.16x2 wraps it, and compared in int16 with the same tie rule (the
+    j=0 branch wins ties); once a pack, after the survivor dump, state 0's
+    metric is subtracted from all 64 (``renorm``; without it the metrics
+    wrap on long blocks and the decode goes wrong, which the tests show).
+    With ``track_peak``, ``peak`` holds the largest |candidate| before the
+    wrap (a 0-dim int32 tensor, so the scan never waits on the device):
+    while it stays at or under 32,767 nothing wrapped, and the decode
+    equals the int32 one."""
+
+    def __init__(self, renorm: bool = True, track_peak: bool = False):
+        self.renorm = renorm
+        self.track_peak = track_peak
+        self.peak = None
+
+    def wrap(self, cand0, cand1):
+        """The candidates in int16; with ``track_peak`` note their largest
+        exact |c| first."""
+        if self.track_peak:
+            top = torch.maximum(cand0.abs().amax(), cand1.abs().amax())
+            self.peak = top if self.peak is None else torch.maximum(
+                self.peak, top)
+        return cand0.to(torch.int16), cand1.to(torch.int16)
+
+
+def _acs_stage(pm, pp, bm_a, pm16: Pm16 = None):
     """One add-compare-select stage over all 64 states x B blocks.
 
     bm_a is the j=0 branch metric per state; the j=1 metric is exactly -bm_a
     because both generator polynomials tap the dropped bit b_{t-6}, so
-    flipping j flips both coded bits and negates the correlation."""
+    flipping j flips both coded bits and negates the correlation.  With
+    ``pm16`` the metrics are int16 and the candidates wrap (``Pm16``)."""
     cand0 = _repeat2(pm[:32]) + bm_a         # predecessors s >> 1
     cand1 = _repeat2(pm[32:]) - bm_a         # predecessors (s >> 1) + 32
+    if pm16 is not None:
+        cand0, cand1 = pm16.wrap(cand0, cand1)
     dec = cand1 > cand0                      # tie -> j=0 (matches golden)
     pm_new = torch.where(dec, cand1, cand0)
     pp_sel = torch.where(dec, _repeat2(pp[32:]), _repeat2(pp[:32]))
@@ -314,12 +345,13 @@ def _acs_stage(pm, pp, bm_a):
 
 
 def _pack_scan(rs: torch.Tensor, cfg: DecoderConfig, plan: BlockPlan,
-               ud: bool = False):
+               ud: bool = False, pm16: Pm16 = None):
     """ACS over all stages of all blocks from the stage pairs, (n_packs,
     bpp, 2, B) or its (block_len, 2, B) view, as f32 (FP32) or int32; with
     ``ud`` int32 (u, d) pairs (``_branch_metrics``).  Yields each survivor
     pack (64, B) int64, masked to bits_per_pack bits, as its last stage
-    completes."""
+    completes.  Path metrics: int32, the per-pack minimum subtracted where
+    ``needs_int32_renorm``; with ``pm16`` int16 (``Pm16``)."""
     b = rs.shape[-1]
     bpp = plan.bits_per_pack
     is_float = cfg.channel_in == ChannelIn.FP32 and not ud
@@ -328,26 +360,31 @@ def _pack_scan(rs: torch.Tensor, cfg: DecoderConfig, plan: BlockPlan,
     rs = rs.reshape(plan.block_len, 2, b).to(dt)
     s0 = torch.as_tensor(_SIGN0_NP, device=rs.device).to(dt)
     s1 = torch.as_tensor(_SIGN1_NP, device=rs.device).to(dt)
-    pm = torch.zeros((NUM_STATES, b), dtype=torch.int32, device=rs.device)
+    pm = torch.zeros((NUM_STATES, b), device=rs.device,
+                     dtype=torch.int32 if pm16 is None else torch.int16)
     pp = torch.zeros((NUM_STATES, b), dtype=torch.int64, device=rs.device)
     for p in range(plan.n_packs):
         for t in range(p * bpp, (p + 1) * bpp):
             bm_a = _branch_metrics(rs[t, 0], rs[t, 1], s0, s1, is_float, ud)
-            pm, pp = _acs_stage(pm, pp, bm_a)
+            pm, pp = _acs_stage(pm, pp, bm_a, pm16)
         yield pp & ((1 << bpp) - 1)
-        if renorm:
-            # once per pack, as the kernels do (decision-invariant)
+        # once per pack, as the kernels do (decision-invariant)
+        if pm16 is not None:
+            if pm16.renorm:
+                pm = pm - pm[:1]
+        elif renorm:
             pm = pm - pm.min(dim=0, keepdim=True).values
 
 
 def forward_scan_staged(rs: torch.Tensor, cfg: DecoderConfig,
-                        plan: BlockPlan, ud: bool = False) -> torch.Tensor:
+                        plan: BlockPlan, ud: bool = False,
+                        pm16: Pm16 = None) -> torch.Tensor:
     """ACS from the scan-major (n_packs, bpp, 2, B) stage layout (or its
     (block_len, 2, B) view), as core_xla.forward_scan_staged (:394).
     Returns the full survivor store, all packs (n_packs, 64, B) int64."""
     surv = torch.empty((plan.n_packs, NUM_STATES, rs.shape[-1]),
                        dtype=torch.int64, device=rs.device)
-    for p, pack in enumerate(_pack_scan(rs, cfg, plan, ud)):
+    for p, pack in enumerate(_pack_scan(rs, cfg, plan, ud, pm16)):
         surv[p] = pack
     return surv
 
@@ -399,7 +436,8 @@ def _chase(ring: torch.Tensor, slots, b: int, bpp: int) -> torch.Tensor:
 
 
 def window_scan(rs: torch.Tensor, cfg: DecoderConfig,
-                plan: BlockPlan, ud: bool = False) -> torch.Tensor:
+                plan: BlockPlan, ud: bool = False,
+                pm16: Pm16 = None) -> torch.Tensor:
     """The windowed survivor (core_pallas.py:440-486, the reference's
     one-pointer circular buffer): survivor pack p goes to ring slot p mod W
     and, once p - n_disc >= emit_lo, a fresh chase from state 0 through
@@ -417,7 +455,7 @@ def window_scan(rs: torch.Tensor, cfg: DecoderConfig,
     ring = torch.empty((w, NUM_STATES, b), dtype=torch.int64,
                        device=rs.device)
     out = torch.empty((b, n_emit), dtype=torch.int64, device=rs.device)
-    for p, pack in enumerate(_pack_scan(rs, cfg, plan, ud)):
+    for p, pack in enumerate(_pack_scan(rs, cfg, plan, ud, pm16)):
         ring[p % w] = pack
         if p - n_disc >= emit_lo:
             out[:, p - n_disc - emit_lo] = _chase(
@@ -447,12 +485,13 @@ def assemble_output(out_packs: torch.Tensor, cfg: DecoderConfig,
 
 
 def _decode_stages(rs: torch.Tensor, cfg: DecoderConfig, plan: BlockPlan,
-                   window: bool, ud: bool = False) -> torch.Tensor:
+                   window: bool, ud: bool = False,
+                   pm16: Pm16 = None) -> torch.Tensor:
     """Stage pairs ((u, d) pairs with ``ud``) -> (B, n_emit) int32 output
-    packs, full store or window."""
+    packs, full store or window, on int32 metrics or ``pm16``'s."""
     if window:
-        return to_int32_bits(window_scan(rs, cfg, plan, ud))
-    surv = forward_scan_staged(rs, cfg, plan, ud)
+        return to_int32_bits(window_scan(rs, cfg, plan, ud, pm16))
+    surv = forward_scan_staged(rs, cfg, plan, ud, pm16)
     return to_int32_bits(traceback_scan(surv, cfg, plan))
 
 
@@ -488,18 +527,23 @@ def staged_word_mode(staged: torch.Tensor, cfg: DecoderConfig,
         f"{cfg.channel_in.name} plan, got {tuple(staged.shape)}")
 
 
-# K1's int16 path metrics (csrc/acs.cuh, acs_stage16 and renorm16): the
-# largest |bm| of each channel that takes them (the u/d words' fields are
-# read as they are, 8 bits each), and the largest |candidate metric| that
-# renormalising once a pack allows: the spread of the 64 metrics is at most
-# 12 max|bm| (every state reaches every other in 6 stages), and a pack adds
-# at most bpp max|bm|.  PM16_BOUND is acs.cuh's kPm16Bound, SOFT8 at bpp 32.
+# The int16 path metrics (csrc/acs.cuh, acs_stage16 and renorm16): the
+# largest |bm| of each input that takes them, and the largest |candidate
+# metric| that renormalising once a pack allows: the spread of the 64
+# metrics is at most 12 max|bm| (every state reaches every other in 6
+# stages), and a pack adds at most bpp max|bm|.  ChannelIn.FP32 is the
+# channel's u/d words (K1 and K3 in ud mode), their fields read as they
+# are, 8 bits each; FP32_WIRE the raw f32 wire (K2, K3): the clamp to
+# [-8, 7] keeps |u| and |d| at or under 16, a NaN truncates to 0.
+# PM16_BOUND is acs.cuh's kPm16Bound, SOFT8 at bpp 32.
+FP32_WIRE = "FP32 wire"
 PM16_MAX_ABS_BM = {**{c: _MAX_ABS_BM[c] for c in (
-    ChannelIn.HARD, ChannelIn.SOFT4, ChannelIn.SOFT8)}, ChannelIn.FP32: 128}
+    ChannelIn.HARD, ChannelIn.SOFT4, ChannelIn.SOFT8)}, ChannelIn.FP32: 128,
+    FP32_WIRE: _MAX_ABS_BM[ChannelIn.FP32]}
 
 
 def pm16_bound(max_abs_bm: int, bits_per_pack: int) -> int:
-    """The largest |candidate metric| of K1's int16 stage on a channel of
+    """The largest |candidate metric| of the int16 stage on an input of
     that max|bm| at that pack width."""
     return (12 + bits_per_pack) * max_abs_bm
 
@@ -507,57 +551,40 @@ def pm16_bound(max_abs_bm: int, bits_per_pack: int) -> int:
 PM16_BOUND = pm16_bound(PM16_MAX_ABS_BM[ChannelIn.SOFT8], 32)
 
 
+def pm16_input(cfg: DecoderConfig, ud: bool = False):
+    """The key of ``PM16_MAX_ABS_BM`` for this input: the channel, or
+    FP32_WIRE for the FP32 channel's raw wire (``ud`` False)."""
+    if cfg.channel_in == ChannelIn.FP32 and not ud:
+        return FP32_WIRE
+    return cfg.channel_in
+
+
 def decode_blocks_i16_torch(packed: torch.Tensor, cfg: DecoderConfig,
                             plan: BlockPlan, ud: bool = False,
-                            renorm: bool = True, return_peak: bool = False):
-    """K1's int16 arithmetic in plain torch: packed channel words (with
-    ``ud``, the FP32 channel's u/d words and the FP32 ``cfg``) -> (B, n_emit)
-    int32 output packs, full store.  Each candidate metric is computed
-    exactly, then wrapped to int16 as VIADD.16x2 wraps it, and compared in
-    int16 with the same tie rule (the j=0 branch wins ties); once a pack,
-    after the survivor dump, state 0's metric is subtracted from all 64
-    (``renorm``; without it the metrics wrap on long blocks and the decode
-    goes wrong, which the tests show).  With ``return_peak`` it also
-    returns the largest |candidate| before the wrap: while it stays at or
-    under 32,767 nothing wrapped, and the decode equals
-    ``decode_blocks_torch``.  SOFT16 and the FP32 wire raise ValueError: K1
-    keeps int32 metrics there (their |bm| reaches 65,536 and K2 reads the
-    wire)."""
-    if ud != (cfg.channel_in == ChannelIn.FP32) or \
-            cfg.channel_in == ChannelIn.SOFT16:
-        raise ValueError(f"K1 runs int16 metrics on HARD, SOFT4, SOFT8 and "
-                         f"the FP32 channel's u/d words, not "
-                         f"{cfg.channel_in.name}{' u/d words' if ud else ''}")
-    rs = ud_stage_pairs(packed, plan) if ud else \
-        stage_values(packed.to(torch.int32), cfg, plan)
-    b, bpp = plan.num_blocks, plan.bits_per_pack
-    s0 = torch.as_tensor(_SIGN0_NP, device=rs.device)
-    s1 = torch.as_tensor(_SIGN1_NP, device=rs.device)
-    r0, r1 = rs[:, 0, None], rs[:, 1, None]              # (L, 1, B)
-    # (L, 64, B) j=0 branch metrics of every stage (_branch_metrics' rule)
-    bms = s0 * torch.where(s0 == s1, r0, r1) if ud else s0 * r0 + s1 * r1
-    pm = torch.zeros((NUM_STATES, b), dtype=torch.int16, device=rs.device)
-    pp = torch.zeros((NUM_STATES, b), dtype=torch.int64, device=rs.device)
-    surv = torch.empty((plan.n_packs, NUM_STATES, b), dtype=torch.int64,
-                       device=rs.device)
-    peak = torch.zeros((), dtype=torch.int32, device=rs.device)
-    for p in range(plan.n_packs):
-        for t in range(p * bpp, (p + 1) * bpp):
-            c0 = _repeat2(pm[:32]).to(torch.int32) + bms[t]
-            c1 = _repeat2(pm[32:]).to(torch.int32) - bms[t]
-            if return_peak:
-                peak = torch.maximum(peak, torch.maximum(c0.abs().amax(),
-                                                         c1.abs().amax()))
-            c0, c1 = c0.to(torch.int16), c1.to(torch.int16)    # wrap
-            dec = c1 > c0
-            pm = torch.where(dec, c1, c0)
-            pp_sel = torch.where(dec, _repeat2(pp[32:]), _repeat2(pp[:32]))
-            pp = ((pp_sel << 1) | dec.to(torch.int64)) & 0xFFFFFFFF
-        surv[p] = pp & ((1 << bpp) - 1)
-        if renorm:
-            pm = pm - pm[:1]
-    packs = to_int32_bits(traceback_scan(surv, cfg, plan))
-    return (packs, int(peak)) if return_peak else packs
+                            renorm: bool = True, return_peak: bool = False,
+                            window: bool = False):
+    """The int16 arithmetic of K1, K2 and K3 in plain torch (``Pm16``):
+    packed channel words, the FP32 channel's f32 wire, or with ``ud`` its
+    u/d words (and the FP32 ``cfg``) -> (B, n_emit) int32 output packs,
+    full store or ``window``; ``decode_blocks_torch`` (or
+    ``decode_ud_words_torch``) on int16 metrics.  ``renorm``: ``Pm16``'s.
+    With ``return_peak`` it also returns the largest |candidate| before the
+    wrap.  SOFT16 raises ValueError: the kernels keep int32 metrics there
+    (its |bm| reaches 65,536)."""
+    is_float = cfg.channel_in == ChannelIn.FP32
+    if (ud and not is_float) or cfg.channel_in == ChannelIn.SOFT16:
+        raise ValueError(f"the kernels run int16 metrics on HARD, SOFT4, "
+                         f"SOFT8 and the FP32 channel's wire and u/d words, "
+                         f"not {cfg.channel_in.name}"
+                         f"{' u/d words' if ud else ''}")
+    if ud:
+        rs = ud_stage_pairs(packed, plan)
+    else:
+        packed = packed.to(torch.float32 if is_float else torch.int32)
+        rs = stage_values(packed, cfg, plan)
+    pm16 = Pm16(renorm, return_peak)
+    packs = _decode_stages(rs, cfg, plan, window, ud, pm16)
+    return (packs, int(pm16.peak)) if return_peak else packs
 
 
 def decode_staged_torch(staged: torch.Tensor, cfg: DecoderConfig,

@@ -37,6 +37,19 @@ def extreme_field_words(rng: np.random.Generator, n: int,
     return (words - ((words >> 31) << 32)).astype(np.int32)
 
 
+def extreme_wire(rng: np.random.Generator, n: int) -> np.ndarray:
+    """n f32 values of the FP32 channel's wire at and past the decoders'
+    [-8, 7] clamp: noise around -100, 100, 7 and -8, with 10 % NaN and 5 %
+    each of +inf and -inf."""
+    x = (rng.choice([-100.0, 100.0, 7.0, -8.0], size=n) +
+         rng.standard_normal(n)).astype(np.float32)
+    u = rng.random(n)
+    x[u < 0.1] = np.nan
+    x[(u >= 0.1) & (u < 0.15)] = np.inf
+    x[(u >= 0.15) & (u < 0.2)] = -np.inf
+    return x
+
+
 def unpack_msb_first(words: np.ndarray, bits_per_pack: int) -> np.ndarray:
     """Packed words -> (n*bpp,) bits, earliest (MSB) first."""
     w = np.asarray(words).astype(np.int64) & ((1 << bits_per_pack) - 1)
