@@ -36,7 +36,15 @@ two bit packs; kept for that A/B, never launched by a main path), and
 times them in turns at the headline with the threefry calls each design
 draws by its count, the SASS a pair and the registers; phase 33 checks
 that K26's consumer is
-one launch and writes its output.
+one launch and writes its output.  Phases 36-38 drive the multi-rank split
+(tpu_viterbi_torch/sharding/): K1 and K3 reading a tail halo, held against
+their plain version and themselves on the appended stream and timed at
+the one-rank split's shape (the rows "K1 tail_halo" and "K3 tail_halo");
+decode_sharded and the sharded simulation over one rank with nccl, the
+simulation timed in turns with the one-device one; and two worker
+processes sharing the card with gloo (scripts/distributed_worker.py),
+equal to the one rank (they are time-sliced on the card: no time of
+theirs is reported).
 
     python3 chip_smoke.py
 
@@ -57,6 +65,7 @@ import math
 import os
 import re
 import statistics
+import socket
 import subprocess
 import sys
 import tempfile
@@ -105,6 +114,9 @@ from tpu_viterbi_torch.scripts.common import (  # noqa: E402
     sass_table)
 from tpu_viterbi_torch.sharding.simulate import (  # noqa: E402
     DEFAULT_SCALES, build_sharded_simulation, count_errors)
+from tpu_viterbi_torch.sharding import (  # noqa: E402
+    blocks as split_blocks, mesh as split_mesh)
+from tpu_viterbi_torch.sharding.certify import coded_workload  # noqa: E402
 from tpu_viterbi_torch.utils import timing  # noqa: E402
 from tpu_viterbi_torch.utils.bits import (count_bit_errors,  # noqa: E402
                                           extreme_field_words,
@@ -163,7 +175,12 @@ REPLACES = {"K1": "tpu_viterbi/decoder/core_pallas.py:638",
             "K25": "scripts/soft16_ablation.py:87",
             "K26": "scripts/transpose_bench.py:68",
             "K27": "scripts/fp32_fused_value_probe.py:95",
-            "K28": "scripts/interleave_bench.py:76"}
+            "K28": "scripts/interleave_bench.py:76",
+            # decode_packed_pallas's tail_halo (:1128), placed by
+            # _body_and_edge into the last tile's edge row
+            "K1 tail_halo": "tpu_viterbi/decoder/core_pallas.py:857",
+            "K3 tail_halo": "tpu_viterbi/decoder/core_pallas.py:857"}
+HALO_ROWS = ("K1 tail_halo", "K3 tail_halo")
 CLI_SCALE = 40000.0                 # the CLI's channel scale (main.cpp:137)
 
 # Bounds: the least time the card could take for a kernel's work, the
@@ -378,13 +395,30 @@ def compare_phase(gen, tally) -> int:
     return worst
 
 
+def reset_counts() -> None:
+    """Every kernel's launch count, and K1's and K3's tail-halo counts,
+    set to 0."""
+    for k in KERNELS:
+        k.launches = 0
+    K1.halo_launches = K3.halo_launches = 0
+
+
+def read_counts() -> dict:
+    """{kernel name: launches} after a synchronize, the tail-halo launches
+    of K1 and K3 under HALO_ROWS' names."""
+    torch.cuda.synchronize()
+    counts = {k.name: k.launches for k in KERNELS}
+    counts.update({HALO_ROWS[0]: K1.halo_launches,
+                   HALO_ROWS[1]: K3.halo_launches})
+    return counts
+
+
 def drive(argv, main=None):
     """Run the port's CLI (or another entry point ``main``, called with no
     argument) in this process with every kernel's launch count set to 0
     just before, and read the counts just after.  Returns (rc, stdout,
     {kernel name: launches})."""
-    for k in KERNELS:
-        k.launches = 0
+    reset_counts()
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = cli.main(argv) if main is None else main()
@@ -510,9 +544,10 @@ def timing_phase(card: str):
 
 AB_RUNS = 10                        # CUDA-event samples a side of the A/B
 # The readers of the A/Bs' b32 instances in viterbi.cu's cubin, as mangled
-# template arguments (IntReader<8, false, false>, FloatReader)
-READERS = {ChannelIn.SOFT8: "9IntReaderILi8ELb0ELb0EEE",
+# template arguments (IntReader<8, false, false, false>, FloatReader)
+READERS = {ChannelIn.SOFT8: "9IntReaderILi8ELb0ELb0ELb0EEE",
            ChannelIn.FP32: "11FloatReaderE"}
+HALO_READER = "9IntReaderILi8ELb0ELb0ELb1EEE"   # HaloReader<8>
 
 
 def decode_instance(cfg, window: bool, pm16: bool) -> str:
@@ -520,6 +555,14 @@ def decode_instance(cfg, window: bool, pm16: bool) -> str:
     (the int16x2 stage where pm16, the int32 one else)."""
     return (f"viterbi_kernelINS_{READERS[cfg.channel_in]}Li32ELb{int(window)}"
             f"ELb{int(pm16)}E")
+
+
+def halo_sass(window: bool) -> tuple:
+    """(SASS a stage, registers) of K1's (K3's with ``window``) b32 SOFT8
+    tail-halo instance, HaloReader<8>, from its own build part's cubin."""
+    name = (f"viterbi_kernelINS_{HALO_READER}Li32ELb{int(window)}ELb1E")
+    loop, res, _ = sass_table(name, {"halo": (name,)})["halo"]
+    return loop / 2, res.get("REG")
 
 
 def int16_sass(cfg, window: bool) -> dict:
@@ -2360,6 +2403,267 @@ def interleave_phase(card: str, runs: dict):
     return row["ms"], p_ms, 0, row["bound"]
 
 
+# ---- the multi-rank split (sharding/): K1's and K3's tail halo ----------
+
+SPLIT_SIGMA = snr_to_sigma(5.5)      # the split's noisy 32M-bit message
+WORKER_WAIT_S = 600                   # each worker's own wait
+
+
+def halo_split(x, cfg, plan, ragged: int = 0):
+    """(stream, tail halo): the first num_blocks * wpb - ragged words of x
+    (a view) and the wph words after them (a copy)."""
+    wpb, wph = words_per_block(cfg, plan)
+    n = plan.num_blocks * wpb - ragged
+    return x[:n], x[n: n + wph].contiguous()
+
+
+def halo_check(tag: str, kernel, cfg, plan, words, halo, window: bool):
+    """``kernel`` with the tail halo against its plain version with it and
+    the same kernel on the appended stream; -> max |diff|."""
+    got = kernel(words, cfg, plan, tail_halo=halo)
+    cat = kernel(torch.cat([words, halo]), cfg, plan)
+    torch.cuda.synchronize()
+    plain = decode_blocks_torch(words, cfg, plan, window, tail_halo=halo)
+    err = max(max_abs_diff(got, cat), max_abs_diff(got, plain))
+    if got.shape != plain.shape or err:
+        raise AssertionError(f"{tag}: {kernel.name} with tail_halo differs "
+                             f"(max |diff| {err})")
+    return err
+
+
+def tail_halo_phase(card: str, gen):
+    """K1 and K3 reading a tail halo on the card: at the 32M-bit SOFT8
+    headline (5.5 dB) cut as two ranks cut it (rank 0's words and rank 1's
+    first wph words; dec_len 2048, b32 and b16, full store and window), and
+    HARD, SOFT4 and SOFT16 at 409,600 stages (b32, b16, full, window, a
+    ragged stream), each bit-equal to its plain version with the halo and
+    to the same kernel on the appended stream.  Then each timed at the
+    one-rank split's shape (the shard padded to 32,243,712 stages, its own
+    first words as the halo) in turns with the kernel on the appended
+    stream, and its plain version.  Returns the rows of HALO_ROWS."""
+    packed, _, _ = headline_packed(HEADLINE, 21)
+    worst, n_checks = 0, 0
+    for out in (DecodeOut.O_B32, DecodeOut.O_B16):
+        cfg = DecoderConfig(ChannelIn.SOFT8, decode_out=out)
+        sd, dl = split_blocks.shard_stages(cfg, 2 * HEADLINE_BITS, 2,
+                                           DEC_LEN)
+        plan = plan_blocks(sd, cfg.bits_per_pack, dl)
+        words, halo = halo_split(packed, cfg, plan)
+        for kernel, window in ((K1, False), (K3, True)):
+            worst = max(worst, halo_check("headline", kernel, cfg, plan,
+                                          words, halo, window))
+            n_checks += 1
+    for ch in (ChannelIn.HARD, ChannelIn.SOFT4, ChannelIn.SOFT16):
+        for out in (DecodeOut.O_B32, DecodeOut.O_B16):
+            cfg = DecoderConfig(ch, decode_out=out)
+            plan = plan_blocks(DEC_LEN * 200, cfg.bits_per_pack, DEC_LEN)
+            x = random_words(cfg, plan, gen)
+            for ragged in (0, 3):
+                words, halo = halo_split(x, cfg, plan, ragged)
+                for kernel, window in ((K1, False), (K3, True)):
+                    worst = max(worst, halo_check(
+                        f"{ch.name} b{cfg.bits_per_pack}", kernel, cfg,
+                        plan, words, halo, window))
+                    n_checks += 1
+    say("36 tail halo", f"K1 and K3 with tail_halo bit-equal to their plain "
+        f"version and to themselves on the appended stream in {n_checks} "
+        f"cases: the {HEADLINE_BITS}-bit SOFT8 headline as rank 0 of 2 "
+        f"(b32, b16, full, window), HARD/SOFT4/SOFT16 x b32/b16 x aligned/"
+        f"ragged x full/window; max |diff| {worst}")
+    rows = {}
+    sd, dl = split_blocks.shard_stages(HEADLINE, 2 * HEADLINE_BITS, 1,
+                                       DEC_LEN)
+    plan = plan_blocks(sd, 32, dl)
+    lw = sd * 2 // HEADLINE.enc_data_per_pack
+    words = torch.cat([packed, packed.new_zeros(lw - packed.shape[0])])
+    halo = words[: split_blocks.halo_words(HEADLINE)].contiguous()
+    appended = torch.cat([words, halo])
+    for name, kernel, window in ((HALO_ROWS[0], K1, False),
+                                 (HALO_ROWS[1], K3, True)):
+        kernel(words, HEADLINE, plan, tail_halo=halo)        # warm-up
+        ms, app_ms, all_ms, app_all, k_out, a_out = ab_ms(
+            lambda: kernel(words, HEADLINE, plan, tail_halo=halo),
+            lambda: kernel(appended, HEADLINE, plan), AB_RUNS)
+        p_ms, p_all, p_out = cuda_ms(lambda: decode_blocks_torch(
+            words, HEADLINE, plan, window, tail_halo=halo), 3)
+        err = max(max_abs_diff(k_out, a_out), max_abs_diff(k_out, p_out))
+        if err:
+            raise AssertionError(f"{name} at the one-rank split differs "
+                                 f"(max |diff| {err})")
+        bnd = decode_bound((words.numel() + halo.numel()) * 4, HEADLINE,
+                           plan, runs_pm16(kernel, HEADLINE))
+        sass, regs = halo_sass(window)
+        base = int16_sass(HEADLINE, window)["int16x2"]
+        rows[name] = (ms, p_ms, worst, bnd, None, {
+            "appended_ms": app_ms, "all_ms": [round(t, 4) for t in all_ms],
+            "appended_all_ms": [round(t, 4) for t in app_all],
+            "sass_per_stage": sass, "registers": regs,
+            "no_halo_sass_per_stage": base[0], "no_halo_registers": base[1]})
+        say("36b tail halo times", f"{card}: {name} at the one-rank split "
+            f"({sd} stages, dec_len {dl}, {plan.num_blocks} blocks): median "
+            f"{ms:.4f} ms of {[round(t, 4) for t in all_ms]}, in turns with "
+            f"{kernel.name} on the appended stream {app_ms:.4f} ms of "
+            f"{[round(t, 4) for t in app_all]}; plain median {p_ms:.1f} ms; "
+            f"bit-equal; bound {bnd[0]:.4f} ms by {bnd[1]} "
+            f"({bnd[0] / ms:.0%} of it); SOFT8 b32 halo instance {sass} "
+            f"SASS a stage, {regs} registers (without the halo {base[0]}, "
+            f"{base[1]})")
+    return rows
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def source_packs(bits: np.ndarray, cfg, m: int) -> np.ndarray:
+    """The words a decode without error gives: message bits extra_l ..
+    extra_l + m packed MSB first, uint32."""
+    return np.packbits(bits[cfg.extra_l: cfg.extra_l + m]).view(
+        ">u4").astype(np.uint32)
+
+
+def one_rank_split_phase(card: str, runs: dict):
+    """The split at one rank on the card (world size 1, nccl):
+    decode_sharded of the 32M-bit SOFT8 message (certify.coded_workload,
+    scale 32), noiseless byte-equal to the source and BEN 0 at 5.5 dB; the
+    sharded simulation (K7 at its base offset, K1 with the tail halo, the
+    all-reduce) BEN 0 at 5.5 dB, FP32 (K8, K2 on [local, halo]) and the
+    window (K3 with the tail halo) too; each run with the counts set to 0
+    just before and read just after.  Then the split's simulate in turns
+    with the one-device simulate, CUDA events.  Returns (the 5.5 dB
+    decode, the in-graph medians)."""
+    backend = split_mesh.initialize_distributed(f"localhost:{free_port()}",
+                                                1, 0, device="cuda")
+    try:
+        mesh = split_mesh.make_block_mesh("cuda")
+        if (backend, mesh.size, mesh.device.type) != ("nccl", 1, "cuda"):
+            raise AssertionError(f"one-rank split: backend {backend}, "
+                                 f"{mesh.size} ranks on {mesh.device}")
+        decoded = {}
+        for tag, sigma, seed in (("noiseless", 0.0, SEED),
+                                 ("5.5 dB", SPLIT_SIGMA, SEED + 1)):
+            bits, packed = coded_workload(HEADLINE_BITS, sigma, seed,
+                                          ChannelIn.SOFT8, 32.0)
+            reset_counts()
+            out, m = split_blocks.decode_sharded(packed, 2 * HEADLINE_BITS,
+                                                 HEADLINE, mesh, DEC_LEN)
+            counts = read_counts()
+            want = source_packs(bits, HEADLINE, m)
+            ben = popcount_np(out ^ want)
+            if out.shape != want.shape or ben:
+                raise AssertionError(f"one-rank decode_sharded {tag}: BEN "
+                                     f"{ben}")
+            record(runs, counts, 1, ["K1", HALO_ROWS[0]],
+                   f"one-rank decode_sharded {tag}")
+            decoded[tag] = out
+        say("37 one-rank split", f"{card}: decode_sharded of {HEADLINE_BITS}"
+            f" bits SOFT8 b32 over 1 rank ({backend}): noiseless output "
+            f"byte-equal to the source, 5.5 dB BEN 0; K1 with tail_halo "
+            f"once a decode ({counts[HALO_ROWS[0]]}), no copy of the shard")
+        sims = {}
+        for tag, cfg, survivor, kernels in (
+                ("SOFT8", HEADLINE, "auto", ["K7", "K1", HALO_ROWS[0]]),
+                ("FP32", FP32, "auto", ["K8", "K2"]),
+                ("SOFT8 window", HEADLINE, "window",
+                 ["K7", "K3", HALO_ROWS[1]])):
+            fn, m = build_sharded_simulation(
+                cfg, HEADLINE_BITS, snr_db=5.5, scale=CLI_SCALE,
+                dec_len=DEC_LEN, generator="cuda", survivor=survivor,
+                mesh=mesh)
+            fn(SEED)                                         # warm-up
+            reset_counts()
+            mesh.census.clear()
+            ben = int(fn(SEED))
+            counts = read_counts()
+            if ben or mesh.census != [("all_reduce", "int64", 1)]:
+                raise AssertionError(f"one-rank split simulate {tag}: BEN "
+                                     f"{ben}, census {mesh.census}")
+            record(runs, counts, 1, kernels, f"one-rank simulate {tag}")
+            sims[tag] = fn
+            launched = {k: counts[k] for k in kernels}
+            say("37b one-rank simulate", f"{tag}: BEN 0 at 5.5 dB over "
+                f"{m} bits, shard {fn.sd} stages; census {mesh.census}; "
+                f"launches {launched}")
+        today, _ = build_sharded_simulation(
+            HEADLINE, HEADLINE_BITS, snr_db=5.5, scale=CLI_SCALE,
+            dec_len=DEC_LEN, generator="cuda", device="cuda")
+        today(SEED)                                          # warm-up
+        ms, t_ms, all_ms, t_all, ben, t_ben = ab_ms(
+            lambda: sims["SOFT8"](SEED + 1), lambda: today(SEED + 1),
+            AB_RUNS)
+        if int(ben) or int(t_ben):
+            raise AssertionError(f"in-graph A/B: BEN {int(ben)} (split), "
+                                 f"{int(t_ben)} (one device)")
+        say("37c split vs one device", f"{card}: simulate() at "
+            f"{HEADLINE_BITS} bits SOFT8 5.5 dB, {AB_RUNS} samples a side in "
+            f"turns: the one-rank split {ms:.4f} ms of "
+            f"{[round(t, 4) for t in all_ms]}, the one-device simulate "
+            f"{t_ms:.4f} ms of {[round(t, 4) for t in t_all]} (ratio "
+            f"{ms / t_ms:.3f})")
+        return decoded["5.5 dB"], {"split_in_graph_ms": ms,
+                                   "one_device_in_graph_ms": t_ms}
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def two_rank_phase(card: str, one_rank_out: np.ndarray) -> None:
+    """Two ranks sharing the one card (gloo, two worker processes started
+    with subprocess, tpu_viterbi_torch/scripts/distributed_worker.py): the
+    same 32M-bit 5.5 dB message through decode_sharded equal to the
+    one-rank output on the valid prefix, the sharded simulation (BEN 0 at
+    5.5 dB and without noise, equal to the ranks held in one process),
+    each rank's generated slab equal to the one-rank stream.  The two
+    processes are time-sliced on the card: their time is no scaling
+    number, and none is reported."""
+    with tempfile.TemporaryDirectory() as tmp:
+        port = free_port()
+        env = {**os.environ, "LOCAL_WORLD_SIZE": "2"}
+        procs = [subprocess.Popen(
+            [sys.executable, "-m",
+             "tpu_viterbi_torch.scripts.distributed_worker",
+             "--coordinator", f"localhost:{port}", "--num-processes", "2",
+             "--process-id", str(r), "--device", "cuda",
+             "-n", str(HEADLINE_BITS), "-i", "s8", "--dec-len",
+             str(DEC_LEN), "--sigma", repr(SPLIT_SIGMA), "--snr", "5.5",
+             "--seed", str(SEED + 1), "--out-dir", tmp],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=WORKER_WAIT_S)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(timeout=60)
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            for line in out.splitlines():
+                if line.startswith("DIST_OK"):
+                    print(f"    | rank {r}: {line}")
+            if p.returncode != 0:
+                raise AssertionError(f"worker rank {r} failed (rc "
+                                     f"{p.returncode}):\n{out[-3000:]}")
+        res = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+               for r in range(2)]
+        got = np.load(Path(tmp) / "rank0_decode.npy")
+    if any((x["backend"], x["device"], x["ben"], x["noiseless_ben"]) !=
+           ("gloo", "cuda:0", 0, 0) for x in res):
+        raise AssertionError(f"two ranks: {res}")
+    if not np.array_equal(got, one_rank_out):
+        raise AssertionError("two-rank decode_sharded differs from the "
+                             "one-rank output on the valid prefix")
+    say("38 two ranks on one card", f"{card}: 2 worker processes (gloo, "
+        f"both on cuda:0; time-sliced on the one card, so no time of theirs "
+        f"is a scaling number): decode_sharded of the {HEADLINE_BITS}-bit "
+        f"5.5 dB message equal to the one-rank output on its {got.shape[0]} "
+        f"valid words; sharded simulate BEN 0 at 5.5 dB and without noise, "
+        f"equal to the ranks in one process; each rank's slab equal to the "
+        f"one-rank stream; census {res[0]['census']}")
+
+
 def main() -> int:
     card = device_phase()
     build_phase()
@@ -2423,13 +2727,18 @@ def main() -> int:
     times["K26"] = transpose_phase(card, runs)
     times["K27"] = fp32_routes_phase(card, runs)
     times["K28"] = interleave_phase(card, runs)
+    times.update(tail_halo_phase(card, gen))
+    one_rank_out, split_ms = one_rank_split_phase(card, runs)
+    times[HALO_ROWS[0]][5].update(split_ms)
+    two_rank_phase(card, one_rank_out)
     # launches a call, measured in the main-path runs: where the design
     # fixes it, it must be so (one a decode or a generation; the op-cost
     # ILP and dtype probes' two step counts, the layout, microbenchmark,
     # SWAR and 16-bit ACS probes' two array counts, of one warm-up and REPS
     # timed launches a variant; time_in_graph's one untimed and CANARY_REPS
     # timed); K9's is the search's, which depends on the card
-    want = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8"), 1)
+    want = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8",
+                          *HALO_ROWS), 1)
     want["K10"] = CANARY_REPS + 1
     want["K11"] = 2 * len(op_cost_probe.VARIANTS) * (op_cost_probe.REPS + 1)
     want["K12"] = 2 * len(layout_probe.VARIANTS) * (layout_probe.REPS + 1)
@@ -2473,8 +2782,8 @@ def main() -> int:
     rows = [(k.name, str(k.source.relative_to(ROOT))) for k in KERNELS
             if k not in AB_ONLY]
     rows += [(name, str(K1.source.relative_to(ROOT)))
-             for name in ("K10", "K21", "K22", "K24", "K27")]
-    rows.sort(key=lambda r: int(r[0][1:]))
+             for name in ("K10", "K21", "K22", "K24", "K27", *HALO_ROWS)]
+    rows.sort(key=lambda r: (int(r[0][1:].split()[0]), r[0]))
     per_call = {name: launches_per_call(runs, name, want.get(name))
                 for name, _ in rows}
     # a row's extra keys (K1's, K2's and K3's A/B, K7's and K8's, K26's

@@ -13,7 +13,9 @@ SWAR, 16-bit ACS) against their plain versions, the generator probe K20
 and the roll-halo decode K23 against theirs, K1's and K3's u/d-word reader,
 the last probes' kernels K25 (SOFT16 ablation), K26 (transpose and its
 consumer, one launch on reused memory) and K28 (interleave) against
-theirs, and the probes' entry points.
+theirs, and the probes' entry points; K1's and K3's tail halo against
+the plain version and the same kernel on the appended stream, the sharded
+generator's slabs and the split's ranks (in this process) on the card.
 Every test here needs a CUDA GPU and skips without one; the
 file imports no jax, so it runs on a machine that has only the port's
 dependencies:
@@ -45,7 +47,9 @@ from tpu_viterbi_torch.scripts import (acs_variants_bench, bench_profile,
                                        soft16_ablation, soft16_pieces,
                                        staging_cost, swar_probe,
                                        transpose_bench)
-from tpu_viterbi_torch.sharding import simulate
+from tpu_viterbi_torch.sharding import blocks, simulate
+from tpu_viterbi_torch.sharding.certify import coded_workload
+from tpu_viterbi_torch.sharding.mesh import BlockMesh
 from tpu_viterbi_torch.utils import timing
 from tpu_viterbi_torch.utils.bits import extreme_field_words, extreme_wire
 
@@ -1105,3 +1109,73 @@ def test_last_probe_entry_points(gpu, mod, argv):
     """`python -m tpu_viterbi_torch.scripts.<probe>`'s main() runs on the
     card and returns 0."""
     assert mod.main(argv) == 0
+
+
+@pytest.mark.parametrize("channel", [ChannelIn.HARD, ChannelIn.SOFT4,
+                                     ChannelIn.SOFT8, ChannelIn.SOFT16],
+                         ids=lambda c: c.name)
+@pytest.mark.parametrize("out", [DecodeOut.O_B32, DecodeOut.O_B16],
+                         ids=lambda o: o.name)
+@pytest.mark.parametrize("window", [False, True], ids=["full", "window"])
+def test_tail_halo_matches_plain(gpu, rng, channel, out, window):
+    """K1 (K3 with the window) reading a tail halo in place: equal to its
+    plain version with the halo, and to the same kernel on the stream with
+    the halo appended; a ragged stream too; the launch counts once in
+    ``launches`` and once in ``halo_launches``."""
+    cfg = DecoderConfig(channel, decode_out=out)
+    kernel = core_cuda.kernel_for(cfg, window)
+    for dec_len, ragged in ((64, 0), (256, 5)):
+        plan = core_torch.plan_blocks(dec_len * 40, cfg.bits_per_pack,
+                                      dec_len)
+        wpb, wph = core_torch.words_per_block(cfg, plan)
+        x = torch.from_numpy(_words(rng, cfg, plan)).to(gpu)
+        words = x[: plan.num_blocks * wpb - ragged].contiguous()
+        halo = x[words.shape[0]: words.shape[0] + wph].contiguous()
+        before = (kernel.launches, kernel.halo_launches)
+        got = kernel(words, cfg, plan, tail_halo=halo)
+        torch.cuda.synchronize()
+        assert (kernel.launches, kernel.halo_launches) == (
+            before[0] + 1, before[1] + 1)
+        assert torch.equal(got, core_torch.decode_blocks_torch(
+            words, cfg, plan, window, tail_halo=halo))
+        assert torch.equal(got, kernel(torch.cat([words, halo]), cfg, plan))
+
+
+@pytest.mark.parametrize("channel", list(ChannelIn), ids=lambda c: c.name)
+def test_sharded_generator_on_gpu(gpu, channel):
+    """K7/K8 at every rank's base offset: the slabs, concatenated, are the
+    one-rank stream, zero past its end."""
+    n = 300_001
+    bits, words = genkernel.packed_workload_cuda(3, n, channel, 1.0, 4.0,
+                                                 gpu)
+    mesh = BlockMesh(0, 3, gpu)
+    slabs = [genkernel.packed_workload_cuda_sharded(3, n, channel, 1.0, 4.0,
+                                                    mesh, rank=r)
+             for r in range(3)]
+    for i, whole in ((0, bits), (1, words)):
+        cat = torch.cat([s[i] for s in slabs])
+        assert torch.equal(cat[: whole.shape[0]], whole)
+        assert not cat[whole.shape[0]:].any()
+
+
+@pytest.mark.parametrize("cfg", [DecoderConfig(ChannelIn.SOFT8),
+                                 DecoderConfig(ChannelIn.FP32),
+                                 DecoderConfig(ChannelIn.HARD,
+                                               decode_out=DecodeOut.O_B16)],
+                         ids=["SOFT8", "FP32", "HARD-b16"])
+def test_split_ranks_on_gpu(gpu, cfg):
+    """The split's ranks held in one process on the card: every rank's
+    decode (K1/K3 with the tail halo, K2 on FP32) equals the plain
+    version's ranks, and the noiseless simulation counts 0."""
+    n = 200_000
+    _, packed = coded_workload(n, 0.6, 4, cfg.channel_in,
+                               simulate.DEFAULT_SCALES[cfg.channel_in])
+    for ranks in (1, 2):
+        got, m = blocks.decode_all_ranks(packed, 2 * n, cfg, ranks, gpu, 512)
+        want, _ = blocks.decode_all_ranks(packed, 2 * n, cfg, ranks, gpu,
+                                          512, backend="torch")
+        assert np.array_equal(got, want)
+        s = simulate.ShardedSimulation(cfg, n, BlockMesh(0, ranks, gpu),
+                                       snr_db=math.inf, dec_len=512,
+                                       generator="cuda")
+        assert int(s.all_ranks(2)[0]) == 0

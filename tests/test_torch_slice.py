@@ -230,6 +230,11 @@ def test_port_imports_no_jax():
             "import tpu_viterbi_torch.chain.genkernel\n"
             "import tpu_viterbi_torch.chain.workload\n"
             "import tpu_viterbi_torch.sharding.simulate\n"
+            "import tpu_viterbi_torch.sharding.mesh\n"
+            "import tpu_viterbi_torch.sharding.blocks\n"
+            "import tpu_viterbi_torch.sharding.certify\n"
+            "import tpu_viterbi_torch.sharding.audit\n"
+            "import tpu_viterbi_torch.scripts.distributed_worker\n"
             "import tpu_viterbi_torch.hardware\n"
             "import tpu_viterbi_torch.library\n"
             "import tpu_viterbi_torch.utils.timing\n"

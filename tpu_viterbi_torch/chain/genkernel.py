@@ -106,9 +106,12 @@ def _bit_pack(k0, k1, idx: torch.Tensor) -> torch.Tensor:
     return torch.where(idx < 0, 0, torch.where((idx & 1) == 1, x1, x0))
 
 
-def _bit_packs(k0, k1, n: int, first: int, device) -> torch.Tensor:
-    """Packs first .. ceil(n/32) - 1 as int32, bits past n zeroed."""
-    p = torch.arange(first, -(-n // 32), device=device, dtype=torch.int64)
+def _bit_packs(k0, k1, n: int, first: int, device,
+               end: int = None) -> torch.Tensor:
+    """Packs first .. min(end, ceil(n/32)) - 1 as int32, bits past n
+    zeroed."""
+    last = -(-n // 32) if end is None else min(end, -(-n // 32))
+    p = torch.arange(first, last, device=device, dtype=torch.int64)
     keep = torch.clamp(n - 32 * p, 0, 32)
     mask = (M32 << (32 - keep)) & M32      # keep 32 -> shift 0, 0 -> 0
     return to_int32_bits(_bit_pack(k0, k1, p) & mask)
@@ -191,16 +194,18 @@ def word_format(channel_in: ChannelIn):
 
 
 def gen_words_torch(k0, k1, n: int, channel_in: ChannelIn, sigma: float,
-                    scale: float, base: int = 0, device="cpu"):
+                    scale: float, base: int = 0, device="cpu",
+                    count: int = None):
     """Plain version of K7: -> (bit packs from pack base / wpl, int32;
     channel words from word ``base``, int32), the slices from there of
-    ``packed_workload_pallas``'s ceil(n/32) packs and ceil(2n/vpw) words.
-    sigma 0 is the noiseless channel."""
+    ``packed_workload_pallas``'s ceil(n/32) packs and ceil(2n/vpw) words:
+    ``count`` words (all to the end by default) and the packs whose first
+    word is among them.  sigma 0 is the noiseless channel."""
     width, vpw, wpl = word_format(channel_in)
     spw = vpw // 2
     f_scale, f_nscale = _f32_scales(scale, sigma)
-    w = torch.arange(base, -(-2 * n // vpw), device=device,
-                     dtype=torch.int64)
+    end = -(-2 * n // vpw) if count is None else base + count
+    w = torch.arange(base, end, device=device, dtype=torch.int64)
     o0, o1 = _parity_windows(k0, k1, w * spw)
     acc = torch.zeros_like(w)
     for j in range(spw):
@@ -220,23 +225,26 @@ def gen_words_torch(k0, k1, n: int, channel_in: ChannelIn, sigma: float,
                 field = field & ((1 << width) - 1)
             field = torch.where(stage_ok, field, 0)
             acc = acc | (field << (32 - (2 * j + stream + 1) * width))
-    return _bit_packs(k0, k1, n, base // wpl, device), to_int32_bits(acc)
+    return (_bit_packs(k0, k1, n, base // wpl, device, -(-end // wpl)),
+            to_int32_bits(acc))
 
 
 def gen_values_torch(k0, k1, n: int, sigma: float, scale: float,
-                     base: int = 0, device="cpu"):
+                     base: int = 0, device="cpu", count: int = None):
     """Plain version of K8: -> (bit packs from pack base / 64, int32; the
     FP32 wire's 2n interleaved f32 values [r0, r1] per stage from value
-    ``base`` on), one noise pair per stage."""
+    ``base`` on: ``count`` values, all to the end by default, and the
+    packs whose first value is among them), one noise pair per stage."""
     f_scale, f_nscale = _f32_scales(scale, sigma)
-    s = torch.arange(base // 2, n, device=device, dtype=torch.int64)
+    end = 2 * n if count is None else base + count
+    s = torch.arange(base // 2, end // 2, device=device, dtype=torch.int64)
     o0, o1 = _parity_windows(k0, k1, s)
     zs = (None, None)
     if sigma:
         zs = normal_pair(*threefry2x32(k0, k1, s, _NOISE_TAG, GEN_ROUNDS))
     vals = torch.stack([_channel_value((o >> 25) & 1, f_scale, f_nscale, z)
                         for o, z in zip((o0, o1), zs)], dim=1).reshape(-1)
-    return _bit_packs(k0, k1, n, base // 64, device), vals
+    return _bit_packs(k0, k1, n, base // 64, device, -(-end // 64)), vals
 
 
 class GenKernel:
@@ -267,10 +275,16 @@ class GenKernel:
 
     def __call__(self, k0: int, k1: int, n: int, channel_in: ChannelIn,
                  sigma: float, scale: float, base: int = 0,
-                 device="cuda"):
+                 device="cuda", count: int = None, size: int = None):
         """-> (bit packs, channel words or f32 values) from word ``base``
         on (a multiple of the words per bit pack; FP32: of 64 values), for
-        message length ``n`` and noise sigma (0: noiseless).  On ``device``
+        message length ``n`` and noise sigma (0: noiseless): ``count``
+        words (FP32: values, an even number), all to the stream's end by
+        default, and the bit packs whose first word is among them.
+        ``size`` (a multiple of the words per pack, at least ``count``):
+        the outputs come ``size`` words and ``size`` / (words per pack)
+        packs long, zero past what was drawn (a shard past the stream's
+        end), the kernel writing into them.  On ``device``
         (``hardware.resolve_device``: the card, which must be present,
         unless the caller asks for the CPU, where the plain version
         runs)."""
@@ -289,32 +303,49 @@ class GenKernel:
         if base % quantum or not 0 <= base < n_out:
             raise ValueError(f"base {base} must be a multiple of {quantum} "
                              f"in [0, {n_out})")
+        if count is None:
+            count = n_out - base
+        if not 0 < count <= n_out - base or (self.fp32 and count % 2):
+            raise ValueError(f"count {count} must be in [1, {n_out - base}]"
+                             f"{', even' if self.fp32 else ''}")
+        if size is not None and (size < count or size % quantum):
+            raise ValueError(f"size {size} must be a multiple of {quantum} "
+                             f"of at least count {count}")
         device = resolve_device(device)
         if device.type == "cpu":
             if self.fp32:
-                return gen_values_torch(k0, k1, n, sigma, scale, base, device)
-            return gen_words_torch(k0, k1, n, channel_in, sigma, scale, base,
-                                   device)
+                out = gen_values_torch(k0, k1, n, sigma, scale, base, device,
+                                       count)
+            else:
+                out = gen_words_torch(k0, k1, n, channel_in, sigma, scale,
+                                      base, device, count)
+            if size is None:
+                return out
+            return tuple(torch.cat([x, x.new_zeros(want - x.shape[0])])
+                         for x, want in zip(out, (size // quantum, size)))
         if device.type != "cuda":
             raise ValueError(f"{self.name} runs on CPU or CUDA devices, got "
                              f"{device}")
         self.build()
         f_scale, f_nscale = _f32_scales(scale, sigma)
         n_packs = -(-n // 32)
-        bits = torch.empty(n_packs - base // quantum, dtype=torch.int32,
-                           device=device)
-        out = torch.empty(n_out - base, device=device,
+        n_bits = min(n_packs, -(-(base + count) // quantum)) - base // quantum
+        bits = torch.empty(n_bits if size is None else size // quantum,
+                           dtype=torch.int32, device=device)
+        out = torch.empty(count if size is None else size, device=device,
                           dtype=torch.float32 if self.fp32 else torch.int32)
+        bits[n_bits:].zero_()
+        out[count:].zero_()
         noisy = int(bool(sigma))
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             if self.fp32:
                 err = self._fn(bits.data_ptr(), out.data_ptr(), n, base // 2,
-                               n - base // 2, k0, k1, f_scale, f_nscale,
+                               count // 2, k0, k1, f_scale, f_nscale,
                                noisy, stream)
             else:
                 err = self._fn(bits.data_ptr(), out.data_ptr(), n, base,
-                               n_out - base, n_packs, k0, k1,
+                               count, n_packs, k0, k1,
                                word_format(channel_in)[0], f_scale, f_nscale,
                                noisy, stream)
         if err != 0:
@@ -341,7 +372,7 @@ def key_data(seed: int):
 
 def packed_workload_cuda(seed: int, n: int, channel_in: ChannelIn,
                          snr_db: float, scale: float, device="cuda",
-                         base: int = 0):
+                         base: int = 0, count: int = None, size: int = None):
     """Fused generation of the in-graph simulation's workload (the
     counterpart of ``packed_workload_pallas``): K7 for the integer channels,
     K8 for FP32, on ``device`` (the GPU unless the caller passes 'cpu',
@@ -350,12 +381,67 @@ def packed_workload_cuda(seed: int, n: int, channel_in: ChannelIn,
 
     -> (bit packs, ceil(n/32) int32 [message bits, MSB = earliest];
         channel stream: ceil(2n/vpw) int32 words, or for FP32 the 2n
-        interleaved scaled f32 values), both from word ``base`` on."""
+        interleaved scaled f32 values), both from word ``base`` on
+        (``count`` words of it in outputs of ``size``: GenKernel's)."""
     device = resolve_device(device)
     k0, k1 = key_data(seed)
     sigma = 0.0 if math.isinf(snr_db) else snr_to_sigma(snr_db)
     kernel = K8 if channel_in == ChannelIn.FP32 else K7
-    return kernel(k0, k1, n, channel_in, sigma, scale, base, device)
+    return kernel(k0, k1, n, channel_in, sigma, scale, base, device, count,
+                  size)
+
+
+# the JAX kernel's requested rows a program (genkernel.py:61), rounded up
+# per channel by _plan / _plan_f32: the sharded simulation's sizes read it
+GEN_ROWS = 64
+_F32_ROW_QUANTUM = 512   # genkernel.py:355: 8 x 64 values a bit pack
+
+
+def generator_span_stages(channel_in: ChannelIn, rows: int = GEN_ROWS) -> int:
+    """Coded stages one program of the JAX generator kernel covers, with
+    JAX's numbers (genkernel.py:418-426): rows x 128 words x vpw / 2
+    stages (FP32: rows x 128 values = rows x 64 stages), rows rounded up
+    to 8 x wpl (FP32: to 512).  K7 and K8 need no such span; the sharded
+    simulation sizes its shards by it (sharding/simulate.py:114-126), so
+    that its block framing is JAX's."""
+    if channel_in == ChannelIn.FP32:
+        rows = -(-rows // _F32_ROW_QUANTUM) * _F32_ROW_QUANTUM
+        return rows * 128 // 2
+    _, vpw, wpl = word_format(channel_in)
+    rows = -(-rows // (8 * wpl)) * (8 * wpl)
+    return rows * 128 * vpw // 2
+
+
+def packed_workload_cuda_sharded(seed: int, n: int, channel_in: ChannelIn,
+                                 snr_db: float, scale: float, mesh,
+                                 min_words: int = 0, rank: int = None):
+    """This rank's slab of ``packed_workload_cuda``'s streams (the
+    counterpart of ``packed_workload_pallas_sharded``): the stream padded
+    with zero words to at least ``min_words`` and to a whole number of bit
+    packs a rank, cut into ``mesh.size`` equal slabs; rank d draws exactly
+    its slab through K7's / K8's ``base`` offset, on ``mesh.device``.
+    Counter mode makes every slab the same bits as the one-rank stream's,
+    so no reshard is ever needed.
+
+    -> (bit packs: the slab's, w_loc / wpl int32, zero past the message;
+        words: w_loc int32 words, or FP32 values, zero past the stream).
+    ``rank``: another rank's slab (for the ranks held in one process),
+    by default ``mesh.rank``'s."""
+    rank = mesh.rank if rank is None else rank
+    if channel_in == ChannelIn.FP32:       # q: the words of one bit pack
+        n_out, dtype, q = 2 * n, torch.float32, 64
+    else:
+        _, vpw, q = word_format(channel_in)
+        n_out, dtype = -(-2 * n // vpw), torch.int32
+    w_loc = -(-max(n_out, min_words) // (mesh.size * q)) * q
+    lo = rank * w_loc
+    count = min(n_out, lo + w_loc) - lo
+    dev = mesh.device
+    if count <= 0:                      # a slab past the stream's end
+        return (torch.zeros(w_loc // q, dtype=torch.int32, device=dev),
+                torch.zeros(w_loc, dtype=dtype, device=dev))
+    return packed_workload_cuda(seed, n, channel_in, snr_db, scale, dev,
+                                base=lo, count=count, size=w_loc)
 
 
 def ref_words_from_packs(bit_packs: torch.Tensor, extra_l: int,

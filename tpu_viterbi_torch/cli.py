@@ -11,12 +11,20 @@ The chain, the file decodes and the in-graph simulation (--e2e-device:
 kernels K7/K8 generate, K1, K2 or K3 decode, the error count stays on the
 device) run on the GPU; with --device cpu they run the plain torch
 versions on the CPU.  Without a GPU and without --device cpu the CLI
-refuses to run.  Profiling and the multi-device split are not ported yet.
+refuses to run.  Launched under ``torchrun`` (WORLD_SIZE > 1),
+--e2e-device runs over every rank (sharding/: each rank generates and
+decodes its shard, the count is all-reduced) and only rank 0 prints:
+
+        torchrun --nproc-per-node 2 -m tpu_viterbi_torch -n 1000000 \
+            -s 5.5 -i s8 --seed 3 --e2e-device -v --device cpu
+
+Profiling is not ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import time
@@ -279,28 +287,48 @@ def run_decode_file(args, cfg: DecoderConfig) -> int:
     return 0
 
 
+def world_size() -> int:
+    """The ranks ``torchrun`` launched this process among (WORLD_SIZE),
+    1 without it."""
+    return int(os.environ.get("WORLD_SIZE") or 1)
+
+
 def run_e2e_device(args, cfg: DecoderConfig) -> int:
-    """--e2e-device: the in-graph simulation on one device (--device).
-    Same final output lines as the pipeline path; -v adds the first call's
+    """--e2e-device: the in-graph simulation on one device (--device), or,
+    launched under torchrun (WORLD_SIZE > 1), over every rank's
+    (sharding/mesh.py picks the collective library: nccl when each rank
+    has a card of its own, gloo on the CPU or on a shared card).  Same
+    final output lines as the pipeline path; -v adds the first call's
     time, the kernel build included, and one steady-state call's, between
     CUDA events on a GPU."""
+    from .sharding.mesh import initialize_distributed, make_block_mesh
     from .sharding.simulate import build_sharded_simulation
 
     device = resolve_device(args.device)
     if args.generator == "cuda" and device.type != "cuda":
         raise ConfigResolutionError(
             f"generator='cuda' needs a CUDA device (--device {args.device})")
+    mesh = None
+    if world_size() > 1:
+        initialize_distributed(device=device)
+        mesh = make_block_mesh(device)
+        device = mesh.device
     seed = args.seed if args.seed is not None else \
         int(np.random.SeedSequence().entropy % (2 ** 31))
+    if mesh is not None:                 # every rank draws rank 0's seed
+        seed = int(mesh.broadcast(torch.tensor(seed)))
     t0 = time.perf_counter()
     fn, m = build_sharded_simulation(
         cfg, args.num, snr_db=args.snr, scale=40000.0,
         dec_len=args.dec_len or DEFAULT_DEC_LEN, generator=args.generator,
-        survivor=args.survivor, device=device)
+        survivor=args.survivor, device=device, mesh=mesh)
     ben = int(fn(seed))
     t1 = time.perf_counter()
     if args.verbose:
-        print(f"\nIn-graph chain over 1 device(s): {m} bits decoded")
+        over = "1 device(s)" if mesh is None else (
+            f"{mesh.size} rank(s) (torch.distributed backend "
+            f"{mesh.backend})")
+        print(f"\nIn-graph chain over {over}: {m} bits decoded")
         print(f"  - first call (includes the kernel build): {t1 - t0:.2f} s")
         if device.type == "cuda":
             start = torch.cuda.Event(enable_timing=True)
@@ -361,6 +389,16 @@ def run_pipeline(message_len: int, snr: float, cfg: DecoderConfig,
 
 
 def main(argv=None) -> int:
+    """The CLI; under torchrun (WORLD_SIZE > 1) only rank 0 writes to
+    standard output."""
+    if world_size() > 1 and int(os.environ.get("RANK") or 0) != 0:
+        with open(os.devnull, "w") as sink, \
+                contextlib.redirect_stdout(sink):
+            return _main(argv)
+    return _main(argv)
+
+
+def _main(argv=None) -> int:
     args = parse_args(argv)
     cfg_fields = dict(channel_in=_CHANNEL_NAMES[args.input],
                       metric=_METRIC_NAMES[args.metric],

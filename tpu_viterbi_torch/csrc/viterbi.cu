@@ -17,6 +17,12 @@
 //     Path metrics: int16x2 (acs.cuh's acs_stage16, renormalised every
 //     pack) for widths 1, 4, 8 and kUdWidth, int32 (acs_stage) for 16,
 //     chosen at compile time by the width, whatever the metric mode.
+//     Source.p1, where not null, is the stream's tail halo: the wph words
+//     that logically follow it (decode_packed_pallas's tail_halo,
+//     core_pallas.py:1128, placed by _body_and_edge into the last tile's
+//     edge row, :828-860), read by K1's and K3's HaloReader instances on
+//     the integer channels (k1_halo, k3_halo, in build parts of their own);
+//     the sharded decoder hands each rank its neighbour's first words so.
 //   - K2, viterbi_k2_launch: FloatReader (the FP32 channel's raw interleaved
 //     f32 wire), full store, int16x2 metrics.  Replaces
 //     _viterbi_kernel_fused_f32v; its TPU staging (_body_and_edge's roll
@@ -110,10 +116,11 @@
 // Build parts: library.load_library compiles this file once per part, all
 // started together, with -DBUILD_PART=<i> for each i below the count on the
 // next line; a part holds the entry points of its group (K1 K2 K6 and
-// K1_I32 K2_I32 | K3 K3_I32 | K4's word mode | K4's value mode and K5), so
-// the ptxas work of the ~60 decode instances runs on four cores.  Built by
-// hand without the macro, one object holds every entry point.
-// nvcc parts: 4
+// K1_I32 K2_I32 | K3 K3_I32 | K4's word mode | K4's value mode and K5 |
+// K1's tail-halo instances | K3's), so the ptxas work of the ~80 decode
+// instances runs on six cores.  Built by hand without the macro, one
+// object holds every entry point.
+// nvcc parts: 6
 #ifdef BUILD_PART
 #define IN_PART(i) (BUILD_PART == (i))
 #else
@@ -133,8 +140,9 @@ __device__ __forceinline__ int trunc_int(float x) {
 
 // Where a reader finds its block's input.  Flat stream (K1-K3): p0 holds n
 // words (f32 values), block k starts at word k * stride (stride = wpb) and
-// reads its halo past its body.  Staged (K4, K5): p0 (and p1) are planes
-// of n rows, row i of block k at element i * stride + k.
+// reads its halo past its body; for the integer words p1 is null or the
+// tail halo, the wph words that follow word n - 1.  Staged (K4, K5): p0
+// (and p1) are planes of n rows, row i of block k at element i * stride + k.
 struct Source {
   const void* p0;
   const void* p1;
@@ -146,18 +154,33 @@ struct Source {
 // first (viterbiDF.h:157-163).  STAGED = false (K1, K3): the block's words
 // k*wpb ... k*wpb + wpb + wph - 1 of the flat stream, halo included (it may
 // span several following bodies when dec_len < 64); words past the stream
-// read as zero.  STAGED = true (K4 word mode): row i of column k of K6's
-// (Lw, B) output, so a warp's 32 loads are one coalesced row segment.
+// read as zero.  HALO = true (HaloReader: K1 and K3 given a tail halo):
+// word n + j reads Source.p1[j] for j < kHaloWords = wph = 2 * WARMUP /
+// (32 / WIDTH) (4 at HARD, 16 SOFT4, 32 SOFT8, 64 SOFT16), and zero past
+// it, so a decode with the halo equals one of the stream with the halo
+// appended, and no copy of the stream is made.  Its load selects the
+// address and predicates one load on the halo's end: 4.5 SASS a stage
+// over K1's 272 at SOFT8 b32, where a branch to the halo cost 10.5.  The
+// instances without a halo keep their code, and so their speed (a halo
+// test in every instance added 11.5 SASS a stage to K1's loop and 6
+// registers; PERF.md, PR 13).  The wrapper refuses a halo below dec_len
+// 64, where it would reach past the last block's neighbour.  STAGED = true
+// (K4 word mode): row i of column k of K6's (Lw, B) output, so a warp's 32
+// loads are one coalesced row segment; it takes no halo.
 // UD = true (K1 and K3 on the FP32 channel's u/d words, WIDTH 8): the two
 // fields of a stage ARE u and d, trunc(r0 + r1) and trunc(r0 - r1) packed
 // by the staging (core_torch.fp32_ud_words_torch), so no add or sub
 // follows the unpack (core_pallas.py:600-602).
-template <int WIDTH, bool STAGED = false, bool UD = false>
+template <int WIDTH, bool STAGED = false, bool UD = false,
+          bool HALO = false>
 struct IntReader {
+  static_assert(!(HALO && STAGED), "the tail halo follows a flat stream");
   static constexpr int kPairsPerWord = 16 / WIDTH;
+  static constexpr int kHaloWords = 2 * 64 / (32 / WIDTH);
   static constexpr bool kWrap = false;
 
   const int* words;
+  const int* halo;  // the tail halo (HALO), non-null
   long long n_words;
   long long step;
   long long next_idx;
@@ -165,14 +188,21 @@ struct IntReader {
   uint32_t nxt;
 
   __device__ __forceinline__ uint32_t load(long long idx) const {
-    return idx < n_words
-               ? static_cast<uint32_t>(__ldg(words + (STAGED ? idx * step
-                                                             : idx)))
-               : 0u;
+    if constexpr (HALO) {  // one predicated load from either array
+      const int* p = idx < n_words ? words + idx : halo + (idx - n_words);
+      return idx < n_words + kHaloWords ? static_cast<uint32_t>(__ldg(p))
+                                        : 0u;
+    } else {
+      return idx < n_words
+                 ? static_cast<uint32_t>(__ldg(words + (STAGED ? idx * step
+                                                               : idx)))
+                 : 0u;
+    }
   }
 
   __device__ __forceinline__ IntReader(const Source& src, int blk)
       : words(static_cast<const int*>(src.p0) + (STAGED ? blk : 0)),
+        halo(HALO ? static_cast<const int*>(src.p1) : nullptr),
         n_words(src.n), step(src.stride),
         next_idx(STAGED ? 0 : static_cast<long long>(blk) * src.stride),
         cur(0u), nxt(0u) {
@@ -212,6 +242,9 @@ struct IntReader {
 // so wph = 2 * WARMUP / 4, core_pallas.py:896), fields taken as (u, d).
 using UdReader = IntReader<8, false, true>;
 constexpr int kUdWidth = -8;  // the entry points' width code for UdReader
+// K1's and K3's reader of integer words followed by a tail halo
+template <int WIDTH>
+using HaloReader = IntReader<WIDTH, false, false, true>;
 
 // Reader of the FP32 channel's raw interleaved wire [r0, r1, r0, r1, ...]:
 // one float4 holds two stages.  Block k starts at value `first` =
@@ -553,7 +586,10 @@ stage_transpose_kernel(const uint32_t* __restrict__ in, long long n,
 using namespace viterbi;
 
 // Plain C entry points (bound with ctypes), one per decode kernel, all with
-// one signature: p0, p1, n, stride make the reader's Source; surv: the full
+// one signature: p0, p1, n, stride make the reader's Source (K1 and K3 on
+// integer words: p1 the tail halo, which takes the HaloReader instances
+// of k1_halo and k3_halo, or null; the other flat-stream entries refuse a
+// p1); surv: the full
 // store, or null for the window (K4, K5; K1 and K2 need it, K3 ignores it);
 // width: the channel's field width (1, 4, 8, 16) for words, kUdWidth (-8)
 // for the FP32 channel's u/d words (K1, K3), 0 for f32 values, 32 for int32
@@ -586,12 +622,21 @@ using namespace viterbi;
   if (num_blocks <= 0 || (sv == nullptr && n_slots < 3))                   \
     return static_cast<int>(cudaErrorInvalidValue);
 
+// K1 and K3 with a tail halo, each in a build part of its own (k1_halo,
+// k3_halo, declared before their entry points): HARD, SOFT4 and SOFT8 on
+// int16x2 metrics, SOFT16 on int32, as without the halo.
+int k1_halo(VITERBI_ARGS);
+int k3_halo(VITERBI_ARGS);
+
 #if IN_PART(0)
 // K1: int16x2 metrics on HARD, SOFT4, SOFT8 and the u/d words, int32 on
 // SOFT16 (acs.cuh's header).
 extern "C" int viterbi_k1_launch(VITERBI_ARGS) {
   VITERBI_PROLOGUE
   if (sv == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (p1 != nullptr)
+    return k1_halo(p0, p1, n, stride, surv, out, num_blocks, n_packs, n_conv,
+                   n_emit, width, bpp, renorm, n_slots, stream);
   VITERBI_LAUNCH(1, IntReader<1>, 32, false, true)
   VITERBI_LAUNCH(1, IntReader<1>, 16, false, true)
   VITERBI_LAUNCH(4, IntReader<4>, 32, false, true)
@@ -611,7 +656,8 @@ extern "C" int viterbi_k1_launch(VITERBI_ARGS) {
 // launches them.  K1_I32: SOFT8, full store.
 extern "C" int viterbi_k1_i32_launch(VITERBI_ARGS) {
   VITERBI_PROLOGUE
-  if (sv == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (sv == nullptr || p1 != nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   VITERBI_CASE(8, IntReader<8>, 32, false)
   VITERBI_CASE(8, IntReader<8>, 16, false)
   return static_cast<int>(cudaErrorInvalidValue);
@@ -620,7 +666,8 @@ extern "C" int viterbi_k1_i32_launch(VITERBI_ARGS) {
 // K2: int16x2 metrics on the FP32 wire (|bm| <= 16, acs.cuh's header).
 extern "C" int viterbi_k2_launch(VITERBI_ARGS) {
   VITERBI_PROLOGUE
-  if (sv == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (sv == nullptr || p1 != nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   VITERBI_LAUNCH(0, FloatReader, 32, false, true)
   VITERBI_LAUNCH(0, FloatReader, 16, false, true)
   return static_cast<int>(cudaErrorInvalidValue);
@@ -629,7 +676,8 @@ extern "C" int viterbi_k2_launch(VITERBI_ARGS) {
 // K2_I32: the FP32 wire, full store.
 extern "C" int viterbi_k2_i32_launch(VITERBI_ARGS) {
   VITERBI_PROLOGUE
-  if (sv == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (sv == nullptr || p1 != nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   VITERBI_CASE(0, FloatReader, 32, false)
   VITERBI_CASE(0, FloatReader, 16, false)
   return static_cast<int>(cudaErrorInvalidValue);
@@ -642,6 +690,9 @@ extern "C" int viterbi_k2_i32_launch(VITERBI_ARGS) {
 extern "C" int viterbi_k3_launch(VITERBI_ARGS) {
   surv = nullptr;
   VITERBI_PROLOGUE
+  if (p1 != nullptr)
+    return k3_halo(p0, p1, n, stride, surv, out, num_blocks, n_packs, n_conv,
+                   n_emit, width, bpp, renorm, n_slots, stream);
   VITERBI_LAUNCH(0, FloatReader, 32, true, true)
   VITERBI_LAUNCH(0, FloatReader, 16, true, true)
   VITERBI_LAUNCH(1, IntReader<1>, 32, true, true)
@@ -661,10 +712,41 @@ extern "C" int viterbi_k3_launch(VITERBI_ARGS) {
 extern "C" int viterbi_k3_i32_launch(VITERBI_ARGS) {
   surv = nullptr;
   VITERBI_PROLOGUE
+  if (p1 != nullptr) return static_cast<int>(cudaErrorInvalidValue);
   VITERBI_CASE(8, IntReader<8>, 32, true)
   VITERBI_CASE(8, IntReader<8>, 16, true)
   VITERBI_CASE(0, FloatReader, 32, true)
   VITERBI_CASE(0, FloatReader, 16, true)
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+#endif
+
+#if IN_PART(4)
+int k1_halo(VITERBI_ARGS) {
+  VITERBI_PROLOGUE
+  VITERBI_LAUNCH(1, HaloReader<1>, 32, false, true)
+  VITERBI_LAUNCH(1, HaloReader<1>, 16, false, true)
+  VITERBI_LAUNCH(4, HaloReader<4>, 32, false, true)
+  VITERBI_LAUNCH(4, HaloReader<4>, 16, false, true)
+  VITERBI_LAUNCH(8, HaloReader<8>, 32, false, true)
+  VITERBI_LAUNCH(8, HaloReader<8>, 16, false, true)
+  VITERBI_CASE(16, HaloReader<16>, 32, false)
+  VITERBI_CASE(16, HaloReader<16>, 16, false)
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+#endif
+
+#if IN_PART(5)
+int k3_halo(VITERBI_ARGS) {
+  VITERBI_PROLOGUE
+  VITERBI_LAUNCH(1, HaloReader<1>, 32, true, true)
+  VITERBI_LAUNCH(1, HaloReader<1>, 16, true, true)
+  VITERBI_LAUNCH(4, HaloReader<4>, 32, true, true)
+  VITERBI_LAUNCH(4, HaloReader<4>, 16, true, true)
+  VITERBI_LAUNCH(8, HaloReader<8>, 32, true, true)
+  VITERBI_LAUNCH(8, HaloReader<8>, 16, true, true)
+  VITERBI_CASE(16, HaloReader<16>, 32, true)
+  VITERBI_CASE(16, HaloReader<16>, 16, true)
   return static_cast<int>(cudaErrorInvalidValue);
 }
 #endif

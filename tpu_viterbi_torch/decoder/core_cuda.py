@@ -26,9 +26,12 @@ kernel template), which exports one plain C entry point per kernel
 K1-K3 take none of the TPU staging (``_body_and_edge``, the lane-roll
 halo, ``padded_input_words``, ``LANE_TILE``): each thread reads its
 block's words straight from the flat stream, halo included, with zero
-fill past its end.  K1 and K3 also read the FP32 channel's u/d words
-(``decode_ud_words_cuda`` on ``core_torch.fp32_ud_words_torch``), the JAX
-kernel's ``ud_mode``.  The staged entries
+fill past its end.  K1 and K3 take the JAX entry's ``tail_halo`` on the
+integer channels: the wph words that follow the stream, read in place
+(``Source.p1``), so the sharded decoder (``sharding/blocks.py``) decodes a
+rank's shard with its neighbour's halo and no copy of the shard.  K1 and
+K3 also read the FP32 channel's u/d words (``decode_ud_words_cuda`` on
+``core_torch.fp32_ud_words_torch``), the JAX kernel's ``ud_mode``.  The staged entries
 (``decode_packed_cuda(fused=False)``, ``fp32_words=False``,
 ``decode_blocks_cuda``) stage through K6 first, as the JAX package's
 A/B paths do; ``b_pad`` is B on the GPU.
@@ -49,8 +52,8 @@ import torch
 
 from .. import hardware, library
 from ..config import ChannelIn, ConfigResolutionError, DecoderConfig
-from .core_torch import (BlockPlan, assemble_output, clamp_split,
-                         decode_blocks_torch, decode_planes_torch,
+from .core_torch import (BlockPlan, assemble_output, check_tail_halo,
+                         clamp_split, decode_blocks_torch, decode_planes_torch,
                          decode_staged_torch, decode_ud_words_torch,
                          needs_int32_renorm, stage_transpose,
                          staged_word_mode, survivor_window_slots,
@@ -138,6 +141,8 @@ class StreamKernel(CudaKernel):
         super().__init__(name)
         self.fp32 = fp32
         self.window = window
+        # launches with a tail halo (each also counts in ``launches``)
+        self.halo_launches = 0
 
     def check_config(self, cfg: DecoderConfig) -> None:
         """Raise ConfigResolutionError for a channel this kernel does not
@@ -150,13 +155,21 @@ class StreamKernel(CudaKernel):
                 f"{cfg.channel_in.name} channel; {other} does")
 
     def __call__(self, packed: torch.Tensor, cfg: DecoderConfig,
-                 plan: BlockPlan) -> torch.Tensor:
+                 plan: BlockPlan, tail_halo: torch.Tensor = None
+                 ) -> torch.Tensor:
         """Packed channel words (f32 values for FP32) -> (B, n_emit) int32
-        output packs (uint32 bit patterns).  Launches on the current
-        stream, does not synchronize."""
+        output packs (uint32 bit patterns).  ``tail_halo``: the wph words
+        that follow the stream (integer channels, dec_len >= 64;
+        ``core_torch.check_tail_halo``), read in place.  Launches on the
+        current stream, does not synchronize."""
         self.check_config(cfg)
-        if self._check_device(packed):
-            return decode_blocks_torch(packed, cfg, plan, self.window)
+        tensors = (packed,)
+        if tail_halo is not None:
+            check_tail_halo(tail_halo, cfg, plan)
+            tensors += (tail_halo,)
+        if self._check_device(*tensors):
+            return decode_blocks_torch(packed, cfg, plan, self.window,
+                                       tail_halo)
         is_float = cfg.channel_in == ChannelIn.FP32
         dtype = torch.float32 if is_float else torch.int32
         if packed.dtype != dtype or packed.dim() != 1 \
@@ -167,11 +180,20 @@ class StreamKernel(CudaKernel):
         if is_float and packed.data_ptr() % 16:
             raise ValueError(f"{self.name} reads the f32 wire as float4: "
                              f"its data must be 16-byte aligned")
+        halo = None
+        if tail_halo is not None:
+            if tail_halo.dtype != torch.int32 \
+                    or not tail_halo.is_contiguous():
+                raise ValueError(f"{self.name} takes a contiguous int32 "
+                                 f"tail_halo, got {tail_halo.dtype}")
+            halo = tail_halo.data_ptr()
         wpb, _ = words_per_block(cfg, plan)
-        return self._decode(packed.device, packed.data_ptr(), None,
-                            packed.numel(), wpb, cfg, plan,
-                            0 if is_float else cfg.enc_data_width,
-                            self.window)
+        out = self._decode(packed.device, packed.data_ptr(), halo,
+                           packed.numel(), wpb, cfg, plan,
+                           0 if is_float else cfg.enc_data_width,
+                           self.window)
+        self.halo_launches += halo is not None
+        return out
 
 
 class StagedKernel(CudaKernel):
@@ -273,6 +295,15 @@ class Int32Kernel(StreamKernel):
     def __init__(self, name: str, window: bool, channels):
         super().__init__(name, fp32=None, window=window)
         self.channels = channels
+
+    def __call__(self, packed: torch.Tensor, cfg: DecoderConfig,
+                 plan: BlockPlan, tail_halo: torch.Tensor = None
+                 ) -> torch.Tensor:
+        """StreamKernel's, without a tail halo: the A/B instances have no
+        halo reader."""
+        if tail_halo is not None:
+            raise ValueError(f"{self.name} takes no tail_halo")
+        return super().__call__(packed, cfg, plan)
 
     def check_config(self, cfg: DecoderConfig) -> None:
         if cfg.channel_in not in self.channels:
@@ -420,7 +451,8 @@ def decode_ud_words_cuda(udw: torch.Tensor, cfg: DecoderConfig,
 def decode_packed_cuda(packed: torch.Tensor, cfg: DecoderConfig,
                        plan: BlockPlan, fused: bool = True,
                        fp32_words: bool = True, window: bool = False,
-                       s16: str = "pack") -> torch.Tensor:
+                       s16: str = "pack",
+                       tail_halo: torch.Tensor = None) -> torch.Tensor:
     """Full decode straight from packed channel words -> flat int32 packed
     output words; counterpart of ``decode_packed_pallas``, with its
     routing:
@@ -439,9 +471,19 @@ def decode_packed_cuda(packed: torch.Tensor, cfg: DecoderConfig,
 
     ``s16``: the JAX kernel's SOFT16 unpack layouts decode identically by
     construction; the GPU has one unpack, so any of the four names is
-    accepted and another raises as the JAX kernel does."""
+    accepted and another raises as the JAX kernel does.
+
+    ``tail_halo``: the wph words that logically follow ``packed`` (the
+    sharded decoder's neighbour halo), read in place by K1 or K3; the
+    decode equals that of the stream with the halo appended.  FP32,
+    ``fused=False`` and dec_len < 64 refuse it with the JAX entry's words
+    (``core_torch.check_tail_halo``)."""
     if s16 not in S16_LAYOUTS:
         raise ValueError(f"unknown s16 layout {s16!r}")
+    if tail_halo is not None:
+        check_tail_halo(tail_halo, cfg, plan, fused)
+        return assemble_output(kernel_for(cfg, window)(
+            packed, cfg, plan, tail_halo), cfg, plan)
     if cfg.channel_in == ChannelIn.FP32:
         if fp32_words:
             packs = kernel_for(cfg, window)(packed, cfg, plan)

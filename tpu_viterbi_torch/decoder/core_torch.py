@@ -495,14 +495,51 @@ def _decode_stages(rs: torch.Tensor, cfg: DecoderConfig, plan: BlockPlan,
     return to_int32_bits(traceback_scan(surv, cfg, plan))
 
 
+TAIL_HALO_REFUSAL = ("tail_halo requires the fused roll-halo integer path "
+                     "(dec_len >= 64, fused=True)")
+
+
+def check_tail_halo(tail_halo, cfg: DecoderConfig, plan: BlockPlan,
+                    fused: bool = True) -> None:
+    """Refuse a tail halo where the JAX entry does, with its words
+    (core_pallas.py:1183-1185): the FP32 channel, ``fused=False`` and
+    dec_len < 64 raise ValueError.  (The JAX entry drops a halo given with
+    FP32 silently, its FP32 branch returning before the check; here it is
+    refused.)  A halo must be the wph words of ``words_per_block``.  JAX's
+    lane-tile assert (num_blocks == b_pad, :858-859) guards the TPU's
+    staging into tile-edge rows, which the flat reader does not have, so
+    it is not carried over: the halo follows the stream wherever it ends."""
+    if cfg.channel_in == ChannelIn.FP32 or not fused \
+            or plan.dec_len < WARMUP:
+        raise ValueError(TAIL_HALO_REFUSAL)
+    wph = words_per_block(cfg, plan)[1]
+    if tail_halo.dim() != 1 or tail_halo.shape[0] != wph:
+        raise ValueError(f"tail_halo must be the {wph} words of "
+                         f"{cfg.channel_in.name}'s halo, got "
+                         f"{tuple(tail_halo.shape)}")
+
+
+def with_tail_halo(packed: torch.Tensor, tail_halo, cfg: DecoderConfig,
+                   plan: BlockPlan) -> torch.Tensor:
+    """The stream a decode with ``tail_halo`` reads: ``packed`` with the
+    halo appended (zeros after it, as after any stream); the plain
+    versions' meaning of the kernels' tail halo."""
+    if tail_halo is None:
+        return packed
+    check_tail_halo(tail_halo, cfg, plan)
+    return torch.cat([packed.to(torch.int32), tail_halo.to(torch.int32)])
+
+
 def decode_blocks_torch(packed: torch.Tensor, cfg: DecoderConfig,
-                        plan: BlockPlan, window: bool = False
-                        ) -> torch.Tensor:
+                        plan: BlockPlan, window: bool = False,
+                        tail_halo: torch.Tensor = None) -> torch.Tensor:
     """Packed channel words -> (B, n_emit) int32 output packs: the plain
     version of the kernels (core_cuda), same inputs, same outputs — K1
     (integer channels) and K2 (FP32) with the full survivor store, K3 with
-    ``window=True``."""
+    ``window=True``.  ``tail_halo``: the wph words that follow the stream
+    (integer channels, dec_len >= 64; ``with_tail_halo``)."""
     is_float = cfg.channel_in == ChannelIn.FP32
+    packed = with_tail_halo(packed, tail_halo, cfg, plan)
     packed = packed.to(torch.float32 if is_float else torch.int32)
     return _decode_stages(stage_values(packed, cfg, plan), cfg, plan, window)
 
@@ -562,24 +599,29 @@ def pm16_input(cfg: DecoderConfig, ud: bool = False):
 def decode_blocks_i16_torch(packed: torch.Tensor, cfg: DecoderConfig,
                             plan: BlockPlan, ud: bool = False,
                             renorm: bool = True, return_peak: bool = False,
-                            window: bool = False):
+                            window: bool = False,
+                            tail_halo: torch.Tensor = None):
     """The int16 arithmetic of K1, K2 and K3 in plain torch (``Pm16``):
     packed channel words, the FP32 channel's f32 wire, or with ``ud`` its
     u/d words (and the FP32 ``cfg``) -> (B, n_emit) int32 output packs,
     full store or ``window``; ``decode_blocks_torch`` (or
     ``decode_ud_words_torch``) on int16 metrics.  ``renorm``: ``Pm16``'s.
     With ``return_peak`` it also returns the largest |candidate| before the
-    wrap.  SOFT16 raises ValueError: the kernels keep int32 metrics there
-    (its |bm| reaches 65,536)."""
+    wrap.  ``tail_halo``: ``decode_blocks_torch``'s.  SOFT16 raises
+    ValueError: the kernels keep int32 metrics there (its |bm| reaches
+    65,536)."""
     is_float = cfg.channel_in == ChannelIn.FP32
     if (ud and not is_float) or cfg.channel_in == ChannelIn.SOFT16:
         raise ValueError(f"the kernels run int16 metrics on HARD, SOFT4, "
                          f"SOFT8 and the FP32 channel's wire and u/d words, "
                          f"not {cfg.channel_in.name}"
                          f"{' u/d words' if ud else ''}")
+    if tail_halo is not None:
+        check_tail_halo(tail_halo, cfg, plan)
     if ud:
         rs = ud_stage_pairs(packed, plan)
     else:
+        packed = with_tail_halo(packed, tail_halo, cfg, plan)
         packed = packed.to(torch.float32 if is_float else torch.int32)
         rs = stage_values(packed, cfg, plan)
     pm16 = Pm16(renorm, return_peak)
@@ -677,11 +719,12 @@ def decode_blocks(r_blocks: torch.Tensor, cfg: DecoderConfig,
 
 
 def decode_packed_torch(packed: torch.Tensor, cfg: DecoderConfig,
-                        plan: BlockPlan, window: bool = False
-                        ) -> torch.Tensor:
+                        plan: BlockPlan, window: bool = False,
+                        tail_halo: torch.Tensor = None) -> torch.Tensor:
     """Full decode straight from packed channel words (the
     ViterbiCUDA::run input format, viterbi.cu:211-238) -> flat int32
     packed output words.  Counterpart of ``decode_packed_xla`` (and of
-    ``decode_packed_pallas(..., window=True)`` with ``window=True``)."""
-    return assemble_output(decode_blocks_torch(packed, cfg, plan, window),
-                           cfg, plan)
+    ``decode_packed_pallas(..., window=True)`` with ``window=True``);
+    ``tail_halo`` as ``decode_packed_pallas`` takes it."""
+    return assemble_output(decode_blocks_torch(packed, cfg, plan, window,
+                                               tail_halo), cfg, plan)
