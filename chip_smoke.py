@@ -24,7 +24,11 @@ after holding their kernels against their plain versions.  Phases 31-35
 hold K1's and K3's u/d-word reader against its plain version and K2, and
 drive the last probes (K25 SOFT16 ablation, K26 transpose, K27 FP32
 routes: launches of K1, K2 and K3, K28 interleave); phases 16 and 19 cover
-K11's relayouts and K13's bisect traceback.  Phase 5b times K1's int16x2
+K11's relayouts and K13's bisect traceback.  Phase 14 times K4 in word
+mode (int16x2 metrics) in turns with K1 and K1_I32 and K5 in turns with K2
+and K2_I32 at the headline, K4's value modes beside them, each held
+against its int32 and int16 plain versions, with the SASS a stage, F2I a
+stage and registers of each b32 instance.  Phase 5b times K1's int16x2
 path metrics against K1_I32, its int32 instances kept for that A/B (never
 launched by a main path), in turns on the same words, with the SASS a
 stage and the registers of each; phases 5c and 5d do the same for K2 (the
@@ -98,7 +102,8 @@ from tpu_viterbi_torch.decoder import core_cuda  # noqa: E402
 from tpu_viterbi_torch.decoder.core_torch import (  # noqa: E402
     PM16_MAX_ABS_BM, assemble_output, clamp_split, decode_blocks,
     decode_blocks_i16_torch, decode_blocks_torch, decode_packed_torch,
-    decode_planes_torch, decode_staged_torch,
+    decode_planes_i16_torch, decode_planes_torch, decode_staged_i16_torch,
+    decode_staged_torch,
     decode_ud_words_torch, fp32_ud_words_torch, gather_blocks,
     needs_int32_renorm, plan_blocks, pm16_bound, pm16_input,
     stage_transpose, stage_words,
@@ -122,7 +127,7 @@ from tpu_viterbi_torch.utils.bits import (count_bit_errors,  # noqa: E402
                                           extreme_field_words,
                                           extreme_wire, pack_msb_first)
 from tpu_viterbi_torch.utils.timing import (ab_ms, cuda_ms,  # noqa: E402
-                                            graph_ms)
+                                            graph_ms, turns_ms)
 
 HEADLINE_BITS = 32_000_000          # the reference's default -n (main.cpp:176)
 HEADLINE = DecoderConfig(ChannelIn.SOFT8)   # SOFT8, int32 metrics, b32 packs
@@ -218,8 +223,13 @@ def bound(nbytes: float, ops: float = 0.0, sfu: float = 0.0):
 
 def runs_pm16(kernel, cfg) -> bool:
     """Whether ``kernel`` decodes ``cfg`` on int16x2 path metrics: K1, K2
-    and K3 on every channel but SOFT16."""
-    return kernel in (K1, K2, K3) and cfg.channel_in != ChannelIn.SOFT16
+    and K3 on every channel but SOFT16, K4 on HARD, SOFT4 and SOFT8 (not
+    on SOFT16, nor on the FP32 channel's unclamped f32 values), K5
+    always."""
+    ch = cfg.channel_in
+    return (kernel in (K1, K2, K3) and ch != ChannelIn.SOFT16) or (
+        kernel is K4 and ch not in (ChannelIn.SOFT16, ChannelIn.FP32)) or \
+        kernel is K5
 
 
 def decode_bound(in_bytes: int, cfg, plan, pm16: bool = False):
@@ -772,7 +782,8 @@ def window_compare_phase(gen, tally) -> dict:
         f"plans, renorm included, and the FP32 plans of 3b) and window "
         f"(3c's plans): K4 words and int32 values (K6 -> K4), K5 (K6 -> "
         f"clamp and split -> K5), K4 on unclamped f32 values (NaN, +-inf, "
-        f"+-3e9) against its own plain version; checks {tally['n']}; max "
+        f"+-3e9, +-2^31, +-(2^31 - 128)) against its own plain version; "
+        f"checks {tally['n']}; max "
         f"|diff| {tally['worst']}")
     worst.update(tally["worst"])
     return worst
@@ -1197,12 +1208,15 @@ def random_values(cfg, plan, gen):
     plan's stages (the last block reads zero fill): integer channels within
     their field range (the contract of decode_blocks_cuda); FP32 values of
     scale 30, NOT clamped, with 4 % NaN, 2 % each of +-inf and 2 % each of
-    +-3e9 (past the int32 range)."""
+    +-3e9 (past the int32 range), and 1 % each of +-2^31 and +-(2^31 - 128)
+    (the float below 2^31), the edges of K4's conversion."""
     shape = (plan.message_len + 57, 2)
     if cfg.channel_in == ChannelIn.FP32:
         x = torch.randn(shape, generator=gen, device="cuda") * 30
         for frac, v in ((0.04, float("nan")), (0.02, float("inf")),
-                        (0.02, float("-inf")), (0.02, 3e9), (0.02, -3e9)):
+                        (0.02, float("-inf")), (0.02, 3e9), (0.02, -3e9),
+                        (0.01, 2.0 ** 31), (0.01, -2.0 ** 31),
+                        (0.01, 2.0 ** 31 - 128), (0.01, 128 - 2.0 ** 31)):
             x[torch.rand(shape, generator=gen, device="cuda") < frac] = v
         return x
     if cfg.channel_in == ChannelIn.HARD:
@@ -1275,8 +1289,9 @@ def staged_checks(tally, x, cfg, plan, window: bool, want):
 
 
 def unclamped_checks(tally, cfg, plan, window: bool, gen):
-    """K4 in value mode on unclamped f32 (S, 2) values (NaN, +-inf, +-3e9)
-    against its plain version, and K6 on them against its."""
+    """K4 in value mode on unclamped f32 (S, 2) values (``random_values``:
+    NaN, +-inf, +-3e9, +-2^31, +-(2^31 - 128)) against its plain version,
+    and K6 on them against its."""
     r = random_values(cfg, plan, gen).reshape(-1)
     args = (2 * plan.dec_len, 2 * plan.block_len, plan.num_blocks)
     st = K6(r, *args)
@@ -1338,12 +1353,55 @@ def staged_path_phase(runs: dict):
                 f"decode, BEN 0; launches {want}")
 
 
+# K4's and K5's b32 full-store instances in viterbi.cu's cubin: each
+# mode's reader as mangled template arguments (StagedIntReader<8>,
+# PlaneReader<int>, UnclampedReader = PlaneReader<float, true>,
+# PlaneReader<float>) and whether it runs int16x2 metrics; word mode is in
+# one build part, the value modes and K5 in another
+STAGED_READERS = {"K4 words": ("9IntReaderILi8ELb1ELb0ELb0EEE", True),
+                  "K4 values": ("11PlaneReaderIiLb0EEE", True),
+                  "K4 f32 values": ("11PlaneReaderIfLb1EEE", False),
+                  "K5": ("11PlaneReaderIfLb0EEE", True)}
+
+
+def loop_stages(mix: dict) -> float:
+    """The ACS stages a stage loop's opcode mix runs: 64 maxima a stage,
+    VIMNMX one (int32) or VIMNMX.S16x2 two (int16x2) of them."""
+    return mix.get("VIMNMX", 0) / 64 + mix.get("VIMNMX.S16x2", 0) / 32
+
+
+def staged_sass() -> dict:
+    """{mode: (SASS a stage, registers, stack bytes, F2I a stage, the stage
+    loop's opcode mix)} of K4's and K5's b32 full-store instances (a pass
+    of the stage loop runs the reader's kStep stages, loop_stages)."""
+    out = {}
+    for modes in (("K4 words",), ("K4 values", "K4 f32 values", "K5")):
+        names = {m: f"viterbi_kernelINS_{STAGED_READERS[m][0]}Li32ELb0E"
+                    f"Lb{int(STAGED_READERS[m][1])}E" for m in modes}
+        table = sass_table(names[modes[0]],
+                           {m: (name,) for m, name in names.items()})
+        for m, (loop, res, mix) in table.items():
+            n = loop_stages(mix)
+            f2i = sum(k for op, k in mix.items() if op.startswith("F2I"))
+            out[m] = (loop / n, res.get("REG"), res.get("STACK"), f2i / n,
+                      mix)
+    return out
+
+
 def staged_times_phase(card: str):
-    """K6 on words and on values, K4 in word mode beside K1 (the
-    coalescing A/B), K4 in value mode (int32 values; f32 values, the
-    staged FP32 wire unclamped), K5 beside K2: CUDA-event medians of 5 at
-    the headline (launched in turns where two are compared), each plain
-    version's median of 3; outputs checked equal."""
+    """K6 on words and on values; K4 in word mode in turns with K1 (the
+    same int16x2 ACS on the flat stream: the coalescing A/B) and K1_I32
+    (the int32 ACS), K5 in turns with K2 and K2_I32 likewise, K4 in value
+    mode (integer values; f32 values, the staged FP32 wire unclamped, in
+    turns with K4 on the same wire clamped as K5's planes are, which must
+    decode as K5):
+    CUDA-event medians of AB_RUNS at the headline, each plain version's
+    median of 3, outputs equal to each other, to the int32 plain version
+    and, where the mode runs int16x2, to the int16 one, whose largest
+    candidate metric stays under the input's bound; SASS a stage,
+    registers and F2I of each b32 instance, the bound at the int16x2 count
+    where it applies.  Returns the rows K4, K5 and K6 (K4's value modes
+    and each yardstick's time in K4's and K5's extra keys)."""
     times = {}
     packed, plan, _ = headline_packed(HEADLINE, 21)
     b = plan.num_blocks
@@ -1381,48 +1439,91 @@ def staged_times_phase(card: str):
     wire, fplan, _ = headline_packed(FP32, 21)
     fw, fh = words_per_block(FP32, fplan)
     wire_staged = K6(wire, fw, fw + fh, fplan.num_blocks)
-    cases = (("K4 words", K4, staged["words"], K1, packed, HEADLINE, plan),
-             ("K4 values", K4, staged["values"], None, None, HEADLINE,
-              plan),
-             ("K4 f32 values", K4, wire_staged, None, None, FP32, fplan),
-             ("K5", K5, clamp_split(wire_staged, fplan), K2, wire, FP32,
-              fplan))
-    for name, kernel, arg, other, oarg, cfg, pl in cases:
-        args = arg if kernel is K5 else (arg,)
-        fn = lambda: kernel(*args, cfg, pl)                  # noqa: E731
-        fn()
-        if other is None:
-            k_ms, k_all, got = cuda_ms(fn, 5)
-            line = ""
-        else:
-            other(oarg, cfg, pl)
-            k_ms, o_ms, k_all, o_all, got, o_out = ab_ms(
-                fn, lambda: other(oarg, cfg, pl), 5)
-            if not torch.equal(got, o_out):
-                raise AssertionError(f"{name} and {other.name} differ at "
-                                     f"the headline")
-            times[f"{other.name} beside {name}"] = (o_ms, o_all)
-            line = (f"; {other.name} in turns with it: median {o_ms:.4f} ms "
-                    f"of {[round(t, 4) for t in o_all]} ({name} / "
-                    f"{other.name} = {k_ms / o_ms:.3f})")
+    planes = clamp_split(wire_staged, fplan)
+    # the same values clamped to [-8, 7], K5's planes interleaved again:
+    # K4's f32 reader and ACS on K5's input, which it decodes as K5 does
+    clamped = torch.stack(planes, dim=2).reshape(wire_staged.shape)
+    k5_out = K5(*planes, FP32, fplan)
+
+    def beside(k, x, cfg, pl, want=None):
+        """A yardstick timed in turns: (label, call, the output it must
+        give; None: the timed kernel's own)."""
+        return k.name, (lambda: k(x, cfg, pl)), want
+    cases = (("K4 words", K4, (staged["words"],), HEADLINE, plan,
+              (beside(K1, packed, HEADLINE, plan),
+               beside(K1_I32, packed, HEADLINE, plan))),
+             ("K4 values", K4, (staged["values"],), HEADLINE, plan, ()),
+             ("K4 f32 values", K4, (wire_staged,), FP32, fplan,
+              (("K4 on the clamped wire",
+                lambda: K4(clamped, FP32, fplan), k5_out),)),
+             ("K5", K5, planes, FP32, fplan,
+              (beside(K2, wire, FP32, fplan),
+               beside(K2_I32, wire, FP32, fplan))))
+    sass = staged_sass()
+    extra = {"K4": {}, "K5": {}}
+    for name, kernel, args, cfg, pl, others in cases:
+        fns = [lambda: kernel(*args, cfg, pl)] + [fn for _, fn, _ in others]
+        for fn in fns:                                       # warm-up
+            fn()
+        meds, all_ms, outs = turns_ms(fns, AB_RUNS)
+        got, k_ms = outs[0], meds[0]
+        line = ""
+        for (label, _, want), o_ms, o_all, o_out in zip(
+                others, meds[1:], all_ms[1:], outs[1:]):
+            if not torch.equal(got if want is None else want, o_out):
+                raise AssertionError(f"{label} beside {name}: its output "
+                                     f"differs at the headline")
+            extra[kernel.name][
+                f"{label.lower().replace(' ', '_')}_ms"] = o_ms
+            line += (f"; {label} in turns with it: median {o_ms:.4f} ms of "
+                     f"{[round(t, 4) for t in o_all]} ({name} / {label} = "
+                     f"{k_ms / o_ms:.3f})")
         plain = (lambda: decode_planes_torch(*args, cfg, pl)) \
-            if kernel is K5 else (lambda: decode_staged_torch(arg, cfg, pl))
+            if kernel is K5 else (lambda: decode_staged_torch(*args, cfg, pl))
         plain()                                              # warm-up
         p_ms, p_all, want = cuda_ms(plain, 3)
         err = max_abs_diff(got, want)
         if err:
             raise AssertionError(f"{name} differs from its plain version at "
                                  f"the headline (max |diff| {err})")
-        bnd = decode_bound(arg.numel() * 4 if kernel is K4 else
-                           sum(a.numel() for a in args) * 4, cfg, pl)
+        pm16 = STAGED_READERS[name][1]
+        if pm16 != runs_pm16(kernel, cfg):
+            raise AssertionError(f"{name}: the metrics' width of its reader "
+                                 f"and of runs_pm16 differ")
+        held16 = ""
+        if pm16:
+            i16 = decode_planes_i16_torch if kernel is K5 else \
+                decode_staged_i16_torch
+            plain16, peak = i16(*args, cfg, pl, return_peak=True)
+            held(f"{name} against its int16 plain version", got, plain16)
+            bound16 = pm16_bound(PM16_MAX_ABS_BM[pm16_input(cfg)],
+                                 cfg.bits_per_pack)
+            if peak > bound16:
+                raise AssertionError(f"{name}: int16 candidate metric {peak} "
+                                     f"over the bound {bound16}")
+            held16 = (f" and its int16 plain version (largest |candidate "
+                      f"metric| {peak} <= {bound16})")
+        bnd = decode_bound(sum(a.numel() for a in args) * 4, cfg, pl, pm16)
         times[name] = (k_ms, p_ms, err, bnd)
+        n, regs, stack, f2i, mix = sass[name]
+        key = name.lower().replace(" ", "_")
+        extra[kernel.name].update({
+            f"{key}_ms": k_ms, f"{key}_bound_ms": bnd[0],
+            f"{key}_sass_per_stage": n, f"{key}_registers": regs,
+            f"{key}_f2i_per_stage": f2i})
         say("14 times", f"{card}: {name} at {pl.message_len} bits "
-            f"{cfg.channel_in.name} b32 dec_len {pl.dec_len}: median "
-            f"{k_ms:.4f} ms of {[round(t, 4) for t in k_all]} = "
+            f"{cfg.channel_in.name} b32 dec_len {pl.dec_len}, "
+            f"{'int16x2' if pm16 else 'int32'} metrics: median {k_ms:.4f} ms "
+            f"of {[round(t, 4) for t in all_ms[0]]} = "
             f"{pl.message_len / k_ms / 1e6:.2f} Gb/s decoded{line}; plain "
             f"median {p_ms:.1f} ms of {[round(t, 1) for t in p_all]} "
-            f"({p_ms / k_ms:.0f}x); outputs bit-equal; bound {bnd[0]:.4f} "
-            f"ms by {bnd[1]}")
+            f"({p_ms / k_ms:.0f}x); outputs bit-equal to the int32 plain "
+            f"version{held16}; bound {bnd[0]:.4f} ms by {bnd[1]}; b32 "
+            f"instance: {n:g} SASS a stage, {f2i:g} F2I a stage, {regs} "
+            f"registers, stack {stack} B ({describe_mix(mix, 12)})")
+    times["K4"] = (*times["K4 words"], None, extra["K4"])
+    times["K5"] = (*times["K5"], None, extra["K5"])
+    times["K6"] = times["K6 words"]
     return times
 
 
@@ -1561,8 +1662,9 @@ CANARY_REPS = 5
 
 
 def canary_phase(card: str, runs: dict):
-    """K10: K4's packs at the canary shape bit-equal to the plain
-    decode_staged_torch on the same words, then `utils.timing.canary_ns`
+    """K10: K4's packs at the canary shape (SOFT8 words: int16x2 metrics)
+    bit-equal to the plain decode_staged_torch and to its int16 version
+    decode_staged_i16_torch on the same words, then `utils.timing.canary_ns`
     CANARY_CALLS times with the counts set to 0 (each call stages fresh
     words and times K4 between CUDA events, one untimed launch and
     CANARY_REPS timed).  Returns K10's row; K4's launches in those calls
@@ -1576,18 +1678,21 @@ def canary_phase(card: str, runs: dict):
     if got.shape != want.shape or err:
         raise AssertionError(f"K4 at the canary shape differs from "
                              f"decode_staged_torch (max |diff| {err})")
+    held("K4 at the canary shape against decode_staged_i16_torch", got,
+         decode_staged_i16_torch(words, cfg, plan))
     for k in KERNELS:
         k.launches = 0
     ns = [timing.canary_ns(reps=CANARY_REPS) for _ in range(CANARY_CALLS)]
     torch.cuda.synchronize()
     launches = K4.launches
     record(runs, {"K10": launches}, CANARY_CALLS, ["K10"], "canary_ns")
-    bnd = decode_bound(words.numel() * 4, cfg, plan)
-    say("17 canary", f"{card}: K10 (K4 word mode, {plan.num_blocks} blocks "
+    bnd = decode_bound(words.numel() * 4, cfg, plan, runs_pm16(K4, cfg))
+    say("17 canary", f"{card}: K10 (K4 word mode on int16x2 metrics, "
+        f"{plan.num_blocks} blocks "
         f"= {-(-plan.num_blocks // core_cuda.K_THREADS)} CUDA blocks of "
         f"{core_cuda.K_THREADS}, dec_len {plan.dec_len}, {plan.n_packs} "
         f"packs): packs bit-equal to decode_staged_torch (plain {p_ms:.1f} "
-        f"ms); canary_ns x {CANARY_CALLS}: median "
+        f"ms) and decode_staged_i16_torch; canary_ns x {CANARY_CALLS}: median "
         f"{statistics.median(ns):.4f} ns/stage/tile of "
         f"{[round(v, 4) for v in ns]} (spread {max(ns) - min(ns):.4f}); "
         f"K4 median {k_ms:.4f} ms; launches {launches}; bound "
@@ -1699,7 +1804,8 @@ def ablation_phase(card: str, runs: dict, k10_ms: float):
     version on all GRID programs at ABLATION_CHECK_PACKS packs, then `python
     -m tpu_viterbi_torch.scripts.kernel_ablation` with the counts set to 0,
     and each variant's bound, beside K10 (K4 with every piece, at the same
-    2048 blocks x 8192 stages, ``k10_ms`` in this run).  Returns K13's row:
+    2048 blocks x 8192 stages, ``k10_ms`` in this run; K4 runs the int16x2
+    ACS there, K13's pieces the int32 one).  Returns K13's row:
     +traceback at the JAX shape beside its plain version there, output and
     store equal."""
     ka = kernel_ablation
@@ -1734,7 +1840,8 @@ def ablation_phase(card: str, runs: dict, k10_ms: float):
             f"{share(bnd, r['ms'])}")
     by = {r["variant"]: r["ns_per_stage_tile"] for r in results}
     say("19 ablation", f"K10 in this run, K4 with every piece at the same "
-        f"shape: {k10_ms:.4f} ms = {k10_ms * 1e6 / (stages * ka.GRID):.4f} "
+        f"shape on int16x2 metrics (K13's pieces run the int32 ACS): "
+        f"{k10_ms:.4f} ms = {k10_ms * 1e6 / (stages * ka.GRID):.4f} "
         f"ns/stage/tile; over +dump: +traceback "
         f"{by['+traceback'] - by['+dump']:+.4f}, +tb(bisect) "
         f"{by['+tb(bisect)'] - by['+dump']:+.4f} ns/stage/tile")
@@ -2110,7 +2217,7 @@ def bench_split_phase(card: str, runs: dict):
     staged = bs.stage_values(bs.make_values(m, "cuda"), plan)
     p_ms, _, _ = cuda_ms(lambda: decode_staged_torch(staged, bs.CFG, plan), 1)
     return t["kernel"], p_ms, 0, decode_bound(staged.numel() * 4, bs.CFG,
-                                              plan)
+                                              plan, runs_pm16(K4, bs.CFG))
 
 
 def staging_cost_phase(card: str, runs: dict):
@@ -2704,8 +2811,7 @@ def main() -> int:
     say("12 e2e summary", f"{card}: CLI steady-state lines {steady}; "
         f"simulate() medians {e2e} ms")
     staged_times = staged_times_phase(card)
-    times.update({k: staged_times[f"{k} words" if k != "K5" else k]
-                  for k in ("K4", "K5", "K6")})
+    times.update({k: staged_times[k] for k in ("K4", "K5", "K6")})
     times["K9"] = hardware_phase(card, gen, runs)
     times["K11"] = op_cost_phase(card, runs)
     times["K10"] = canary_phase(card, runs)

@@ -1,7 +1,9 @@
 """Kernels K1-K6 on the card against their plain PyTorch versions (the
 int16x2 metrics of K1, K2 and K3 on extreme fields and wires against the
 int32 core, the int16 plain version and their int32 instances K1_I32,
-K2_I32 and K3_I32 too), the
+K2_I32 and K3_I32 too; K4's and K5's on extreme words, values and planes
+against both plain versions, and K4's unclamped f32 values at the
+conversion's edges), the
 staged-input paths (``decode_packed_cuda(fused=False)``,
 ``fp32_words=False``, ``decode_blocks_cuda``) and their launch counts, and
 ViterbiGPU's CUDA path (run, run_stream, streaming); the generator
@@ -398,6 +400,106 @@ def test_k5_matches_plain_and_k2(gpu, rng, out, dec_len, window):
                                                           window=window))
     planes = [r.contiguous() for r in (r0, r1)]     # two contiguous planes
     assert torch.equal(core_cuda.K5(*planes, cfg, plan, window), got)
+
+
+def _field_extremes(rng, channel, n_stages):
+    """(n_stages, 2) int32 values at the ends of the channel's field range
+    (HARD +-1, SOFTw -2^(w-1) and 2^(w-1) - 1)."""
+    half = 1 if channel == ChannelIn.HARD else \
+        1 << (DecoderConfig(channel).enc_data_width - 1)
+    hi = 1 if channel == ChannelIn.HARD else half - 1
+    return rng.choice(np.array([-half, hi], np.int32), size=(n_stages, 2))
+
+
+@pytest.mark.parametrize("mode", ["words", "values", "planes"])
+@pytest.mark.parametrize("out", [DecodeOut.O_B32, DecodeOut.O_B16],
+                         ids=lambda o: o.name)
+@pytest.mark.parametrize("dec_len", [96, 2048])
+@pytest.mark.parametrize("window", [False, True], ids=["full", "window"])
+def test_k4_k5_int16_extreme_input(gpu, rng, mode, out, dec_len, window):
+    """K4's and K5's int16x2 metrics at the ends of their input range: K4
+    in word mode on HARD, SOFT4 and SOFT8 fields at their extremes and on
+    noiseless coded SOFT8 at +-127, in value mode on values at the ends of
+    each field range and on the same noiseless SOFT8, K5 on planes of -8, 7
+    and NaN and on the noiseless coded wire at -8 and 7 (the metrics'
+    fastest growth): each equals the int32 plain version and the int16
+    one, one launch of its own kernel a decode."""
+    kernel = core_cuda.K5 if mode == "planes" else core_cuda.K4
+    channels = [ChannelIn.FP32] if mode == "planes" else [
+        ChannelIn.HARD, ChannelIn.SOFT4, ChannelIn.SOFT8]
+    for channel in channels:
+        cfg = DecoderConfig(channel, decode_out=out)
+        bpp = cfg.bits_per_pack
+        plan = core_torch.plan_blocks(dec_len * 20 - bpp, bpp, dec_len)
+        n = cfg.get_input_words(2 * (plan.message_len + 64))
+        b = plan.num_blocks
+        if mode == "planes":
+            x = rng.choice(np.array([-8.0, 7.0, np.nan], np.float32), size=n)
+            inputs = [x, _noiseless(rng, plan, -8.0, 7.0)]
+        elif mode == "words":
+            inputs = [extreme_field_words(rng, n, cfg.enc_data_width)]
+        else:
+            inputs = [_field_extremes(rng, channel, plan.message_len + 57)]
+        if channel == ChannelIn.SOFT8:
+            coded = _noiseless(rng, plan, -127.0, 127.0)
+            inputs.append(coded.astype(np.int32).reshape(-1, 2)
+                          if mode == "values" else quantize_and_pack(
+                              torch.from_numpy(coded), channel).numpy())
+        for x in inputs:
+            x = torch.from_numpy(x).to(gpu)
+            if mode == "planes":
+                staged = core_torch.clamp_split(
+                    core_cuda.stage_words_cuda(x, cfg, plan), plan)
+                want = core_torch.decode_planes_torch(*staged, cfg, plan,
+                                                      window)
+                plain16 = core_torch.decode_planes_i16_torch(
+                    *staged, cfg, plan, window)
+            else:
+                staged = (core_cuda.stage_words_cuda(x, cfg, plan)
+                          if mode == "words" else core_cuda.K6(
+                              x.reshape(-1), 2 * plan.dec_len,
+                              2 * plan.block_len, b),)
+                want = core_torch.decode_staged_torch(*staged, cfg, plan,
+                                                      window)
+                plain16 = core_torch.decode_staged_i16_torch(
+                    *staged, cfg, plan, window)
+            got, n_launch = _launched([kernel], lambda: kernel(
+                *staged, cfg, plan, window))
+            assert n_launch == [1]
+            assert torch.equal(plain16, want) and torch.equal(got, want)
+
+
+# f32 values at the conversion's edges: NaN, +-inf, past the int32 range,
+# +-2^31 and the floats next to it, zeros, halves and the clamp's ends
+F32_EDGES = np.array([np.nan, np.inf, -np.inf, 3e9, -3e9, 2.0 ** 31,
+                      -2.0 ** 31, 2.0 ** 31 - 128, -(2.0 ** 31 - 128), 0.0,
+                      -0.0, 0.5, -0.5, 7.0, -8.0], dtype=np.float32)
+
+
+@pytest.mark.parametrize("out", [DecodeOut.O_B32, DecodeOut.O_B16],
+                         ids=lambda o: o.name)
+@pytest.mark.parametrize("dec_len", [96, 2048])
+@pytest.mark.parametrize("window", [False, True], ids=["full", "window"])
+def test_k4_f32_values_at_the_edges(gpu, rng, out, dec_len, window):
+    """K4 on unclamped f32 values (int32 metrics, two conversions a stage
+    and nu, nd from them), drawn from NaN, +-inf, +-3e9, +-2^31,
+    +-(2^31 - 128) and small values, half of them noise of scale 30: equal
+    to decode_staged_torch, whose branch metrics convert every state's
+    correlation with saturation; one launch."""
+    cfg = DecoderConfig(ChannelIn.FP32, decode_out=out)
+    bpp = cfg.bits_per_pack
+    plan = core_torch.plan_blocks(dec_len * 9 - bpp, bpp, dec_len)
+    shape = (plan.message_len + 57, 2)
+    r = np.where(rng.random(shape) < 0.5, rng.choice(F32_EDGES, size=shape),
+                 rng.standard_normal(shape) * 30).astype(np.float32)
+    r = torch.from_numpy(r).to(gpu)
+    st = core_cuda.K6(r.reshape(-1), 2 * plan.dec_len, 2 * plan.block_len,
+                      plan.num_blocks)
+    got, n = _launched([core_cuda.K4], lambda: core_cuda.K4(st, cfg, plan,
+                                                            window))
+    assert n == [1]
+    assert torch.equal(got, core_torch.decode_staged_torch(st, cfg, plan,
+                                                           window))
 
 
 @pytest.mark.parametrize("dtype", [torch.int32, torch.float32],

@@ -1,18 +1,23 @@
 // The add-compare-select stages of the decode kernels in viterbi.cu.
-//   - acs_stage: 64 int32 path metrics, a state a register.  K4 and K5 run
-//     it, and K1 and K3 on SOFT16 (|bm| reaches 65,536: int16 cannot hold
-//     its metrics, as the JAX package's options_valid forbids M_B16 there);
-//     so do the int32 A/B entries (viterbi_k1_i32_launch, _k2_i32_,
-//     _k3_i32_).  So do the probes that time it on its own, K12's layout A
-//     (layout_probe.cu) and K13's ablation (kernel_ablation.cu), which keep
-//     measuring the int32 stage of their JAX scripts, and K23 and K25; K14
-//     and K16 take its wrapping add and sub.
+//   - acs_stage: 64 int32 path metrics, a state a register.  K1, K3 and K4
+//     run it on SOFT16 (|bm| reaches 65,536: int16 cannot hold its metrics,
+//     as the JAX package's options_valid forbids M_B16 there), and K4 on
+//     its unclamped f32 values (they saturate at +-2^31, and its adds wrap
+//     as the plain version's int32 adds do); so do the int32 A/B entries
+//     (viterbi_k1_i32_launch, _k2_i32_, _k3_i32_).  So do the probes that
+//     time it on its own, K12's layout A (layout_probe.cu) and K13's
+//     ablation (kernel_ablation.cu), which keep measuring the int32 stage
+//     of their JAX scripts, and K23 and K25; K14 and K16 take its wrapping
+//     add and sub.
 //   - acs_stage16: 32 int16x2 words of path metrics, two neighbouring
 //     states a register.  K1 runs it on HARD, SOFT4, SOFT8 and the FP32
-//     channel's u/d words, K2 on the FP32 wire, and K3 on all five, at bpp
-//     32 and 16, whatever the metric mode: the metric's width never changes
-//     a decision while no metric wraps (tests/test_metric_equiv.py holds
-//     that invariant on the JAX side).
+//     channel's u/d words, K2 on the FP32 wire, K3 on all five, K4 on
+//     HARD, SOFT4 and SOFT8 words and integer values (within the channel's
+//     field range, so the words' bounds hold) and K5 on the clamped f32
+//     planes (the FP32 wire's bound), at bpp 32 and 16, whatever the metric
+//     mode: the metric's width never changes a decision while no metric
+//     wraps (tests/test_metric_equiv.py holds that invariant on the JAX
+//     side).
 //
 // The no-wrap bound of acs_stage16.  Let M be the largest |bm| of the
 // channel (256 for SOFT8: u = a0 + a1 of two 8-bit fields; 128 for the u/d
@@ -27,9 +32,11 @@
 // its bpp stages moves a metric by at most M: every candidate of the pack
 // has |c| <= (12 + bpp) M, at most (12 + 32) * 256 = 11,264 < 32,767
 // (kPm16Bound); on the FP32 wire (12 + 32) * 16 = 704 at bpp 32 and
-// (12 + 16) * 16 = 448 at bpp 16.  tests/test_torch_k1_int16.py and
-// tests/test_torch_k2_k3_int16.py check the largest |c| of the plain
-// version, core_torch.decode_blocks_i16_torch, against it.
+// (12 + 16) * 16 = 448 at bpp 16.  tests/test_torch_k1_int16.py,
+// tests/test_torch_k2_k3_int16.py and tests/test_torch_k4_k5_int16.py
+// check the largest |c| of the plain versions (core_torch's
+// decode_blocks_i16_torch, decode_staged_i16_torch and
+// decode_planes_i16_torch) against it.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -56,10 +63,10 @@ __host__ __device__ constexpr int sign1(int q) {
 
 // The four branch metrics a stage can have: u = r0 + r1, d = r0 - r1 and
 // their negations nu, nd.  An integer reader sets nu = -u, nd = -d; the
-// unclamped f32 reader converts -u and -d on their own, because a
+// unclamped f32 reader takes ~u where the conversion saturated, because a
 // saturated conversion is not odd (-INT32_MAX != INT32_MIN): the plain
 // version, as the JAX core, converts each state's correlation
-// trunc(s0*r0 + s1*r1) itself.
+// trunc(s0*r0 + s1*r1) itself (viterbi.cu's neg_trunc).
 struct Bm {
   int u, nu, d, nd;
 };
@@ -119,7 +126,7 @@ __device__ __forceinline__ void acs_stage(const int (&pm)[kStates],
   }
 }
 
-// --- int16x2 path metrics (K1, K2, K3) ---
+// --- int16x2 path metrics (K1-K5) ---
 
 // The largest |candidate metric| of acs_stage16 with renorm16 once a pack
 // of 32 stages on SOFT8, the widest channel that takes it (the header's

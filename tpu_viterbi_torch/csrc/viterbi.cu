@@ -43,12 +43,16 @@
 //     window: IntReader<WIDTH, true> on the (Lw, B) word-major words of K6
 //     (word mode), PlaneReader<int> / UnclampedReader on the (2 *
 //     block_len, B) staged values (value mode; f32 NOT clamped, exact on any
-//     value).  Replaces _viterbi_kernel called by _run_kernel
-//     (core_pallas.py:951-997).
+//     value).  Path metrics: int16x2 on HARD, SOFT4 and SOFT8, words or
+//     values (integer values lie in the channel's field range, so the
+//     words' bounds hold), int32 on SOFT16 and on the unclamped f32 values
+//     (they saturate at +-2^31: no int16 bound).  Replaces _viterbi_kernel
+//     called by _run_kernel (core_pallas.py:951-997).
 //   - K5, viterbi_k5_launch: PlaneReader<float> on the two f32 planes of
 //     stage_floats_2streams, clamped to [-8, 7] by the staging (values
-//     outside it are outside K5's contract), full store or window.  Replaces
-//     _viterbi_kernel_f32_2s (:617) called by _run_kernel_f32_2s (:1000).
+//     outside it are outside K5's contract), full store or window, int16x2
+//     metrics (the FP32 wire's bound).  Replaces _viterbi_kernel_f32_2s
+//     (:617) called by _run_kernel_f32_2s (:1000).
 //   - K6, viterbi_k6_launch: out[i, k] = in[k * stride + i], the
 //     overlapped-window transpose into the word-major layout.  Replaces
 //     _stage_tr_kernel (:1061) called by stage_words_pallas (:1067).
@@ -81,13 +85,15 @@
 // 32 butterflies, so the trellis' even/odd interleave is register renaming
 // and the +-1 branch signs fold into add/sub at compile time: no shuffles,
 // no per-stage memory traffic besides the channel input, prefetched ahead.
-// K1, K2 and K3 keep two states' metrics in a register (int16x2): one
-// VIADD.16x2 adds a branch metric to two states and one VIMNMX.S16x2 takes
-// two maxima and both decisions, so a stage issues fewer instructions; the
-// survivors stay int32.  At SOFT8 b32 K1's stage loop issues 272 SASS a
-// stage against 395.5 for the int32 instance, in 134 registers against 176,
-// no spills (chip_smoke.py phases 5b-5d read each kernel's two instances
-// from the built library's cubin).  Path metrics start at zero in every
+// K1-K5 keep two states' metrics in a register (int16x2) wherever |bm| is
+// bounded (all but SOFT16 and K4's unclamped f32 values): one VIADD.16x2
+// adds a branch metric to two states and one VIMNMX.S16x2 takes two maxima
+// and both decisions, so a stage issues fewer instructions; the survivors
+// stay int32.  At SOFT8 b32 K1's stage loop issues 272 SASS a stage
+// against 395.5 for the int32 instance, in 134 registers against 176, no
+// spills (chip_smoke.py phases 5b-5d read K1's, K2's and K3's two
+// instances from the built library's cubin, phase 14 K4's and K5's).
+// Path metrics start at zero in every
 // block; int16x2 metrics subtract state 0's every pack, after the survivor
 // dump (the window's ring write; acs.cuh: no int16 wraps), int32 ones the
 // per-pack minimum only when the plan needs it (renorm flag).  The ring's
@@ -100,10 +106,16 @@
 // and the survivor traffic to device memory (K1's 264 MB at the 32M-bit
 // headline) is gone; its ring (64 or 96 KB a CTA of 64 threads) sets the
 // occupancy, not the registers, so int16x2 gains it issue alone.
-// K4/K5 read the same bytes as K1/K2 but coalesced (K1's flat reader loads
-// each block's words at a stride of wpb words); K6 is a copy, bound by
-// device-memory bandwidth: 32x33 tiles in shared memory make both its
-// reads (along a block's words) and its writes (along the blocks)
+// K4 and K5 read staged rows, one coalesced row segment a warp, where K1's
+// and K2's flat readers load each block's words (float4s) at the block
+// stride; K4's word mode and K5 run the ACS of K1 and K2, so each pair in
+// turns (chip_smoke.py phase 14) weighs the two readers.  Every staged row
+// is a fresh line of device memory, so the staged readers load a pass of
+// the stage loop ahead into a ring that no register move shifts, and
+// prefetch their rows into L2 further ahead (IntReader, PlaneReader).  K6
+// is a copy,
+// bound by device-memory bandwidth: 32x33 tiles in shared memory make both
+// its reads (along a block's words) and its writes (along the blocks)
 // coalesced.
 
 #include <cuda_runtime.h>
@@ -138,6 +150,17 @@ __device__ __forceinline__ int trunc_int(float x) {
   return x != x ? 0 : __float2int_rz(x);
 }
 
+// trunc_int(-x) from u = trunc_int(x), with integer work in place of a
+// second F2I: -u, except where u is INT32_MAX or INT32_MIN, where it is ~u.
+// u == INT32_MAX only for x >= 2^31 (the float below 2^31 is 2^31 - 128),
+// so -x <= -2^31 converts to INT32_MIN = ~u; u == INT32_MIN only for x <=
+// -2^31, so -x converts to INT32_MAX = ~u; a NaN gives 0 = -0.  Elsewhere
+// |x| < 2^31 and trunc is odd.
+__device__ __forceinline__ int neg_trunc(int u) {
+  const bool sat = static_cast<uint32_t>(u) - 0x7FFFFFFFu < 2u;
+  return sat ? ~u : -u;
+}
+
 // Where a reader finds its block's input.  Flat stream (K1-K3): p0 holds n
 // words (f32 values), block k starts at word k * stride (stride = wpb) and
 // reads its halo past its body; for the integer words p1 is null or the
@@ -166,11 +189,35 @@ struct Source {
 // registers; PERF.md, PR 13).  The wrapper refuses a halo below dec_len
 // 64, where it would reach past the last block's neighbour.  STAGED = true
 // (K4 word mode): row i of column k of K6's (Lw, B) output, so a warp's 32
-// loads are one coalesced row segment; it takes no halo.
+// loads are one coalesced row segment; it takes no halo.  Such a row is a
+// fresh line of device memory for every word, where the flat reader's next
+// words mostly hit the line it loaded before, so the staged reader loads
+// kStagedLead stages ahead into a ring of words, each slot taken and
+// refilled at a slot of the stage-loop pass known at compile time (no
+// register that awaits a load is moved: a queue shifted by register moves
+// waits on its newest load at every shift), and prefetches its rows
+// kPrefetchAhead stages past that into L2.  With both, K4's word mode runs
+// at K1's speed (0.99-1.04 of it in turns, where the shifted queue ran
+// 1.17-1.19; PERF.md §6).  Staged HARD, 16 stages a word, keeps the
+// flat reader's one word ahead.
 // UD = true (K1 and K3 on the FP32 channel's u/d words, WIDTH 8): the two
 // fields of a stage ARE u and d, trunc(r0 + r1) and trunc(r0 - r1) packed
 // by the staging (core_torch.fp32_ud_words_torch), so no add or sub
 // follows the unpack (core_pallas.py:600-602).
+// Least stages a staged reader loads ahead: a pass of the stage loop.  A
+// ring of 8 ran slower than the shifted queue (K4's words at 1.35-1.41 of
+// K1 in turns; a pass of ~2,300 SASS, past what the instruction cache
+// seems to hold), one of 2 slower than 4 (chip_smoke.py phase 14, PERF.md
+// §6).
+constexpr int kStagedLead = 4;
+// Stages past its ring's loads that a staged reader prefetches its rows
+// into L2, so that the ring's loads find them there.
+constexpr int kPrefetchAhead = 16;
+
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+}
+
 template <int WIDTH, bool STAGED = false, bool UD = false,
           bool HALO = false>
 struct IntReader {
@@ -178,6 +225,14 @@ struct IntReader {
   static constexpr int kPairsPerWord = 16 / WIDTH;
   static constexpr int kHaloWords = 2 * 64 / (32 / WIDTH);
   static constexpr bool kWrap = false;
+  // Stages a pass of the stage loop, and the words they read: staged words
+  // of at most a pass' stages (SOFT8, SOFT16; SOFT4 at a pass of 4) take
+  // the ring, the words of the pass after this one; else 2 stages and the
+  // one word after the current one (the flat stream; staged HARD, whose
+  // word of 16 stages is loaded that far ahead).
+  static constexpr bool kRingMode = STAGED && kPairsPerWord <= kStagedLead;
+  static constexpr int kStep = kRingMode ? kStagedLead : 2;
+  static constexpr int kRing = kRingMode ? kStagedLead / kPairsPerWord : 1;
 
   const int* words;
   const int* halo;  // the tail halo (HALO), non-null
@@ -185,7 +240,7 @@ struct IntReader {
   long long step;
   long long next_idx;
   uint32_t cur;
-  uint32_t nxt;
+  uint32_t ring[kRing];
 
   __device__ __forceinline__ uint32_t load(long long idx) const {
     if constexpr (HALO) {  // one predicated load from either array
@@ -205,18 +260,27 @@ struct IntReader {
         halo(HALO ? static_cast<const int*>(src.p1) : nullptr),
         n_words(src.n), step(src.stride),
         next_idx(STAGED ? 0 : static_cast<long long>(blk) * src.stride),
-        cur(0u), nxt(0u) {
-    nxt = load(next_idx++);
+        cur(0u) {
+#pragma unroll
+    for (int w = 0; w < kRing; ++w) ring[w] = load(next_idx++);
   }
 
-  // The branch metrics of global stage s of the block; stages must be read
-  // in order.  HARD bits map to +-1 as bit*2-1; soft fields are two's
-  // complement, sign-extended by an arithmetic shift (core_pallas.py:594-
-  // 599).
-  __device__ __forceinline__ void next(int s, Bm& m) {
-    if (s % kPairsPerWord == 0) {  // fetch the word after the new one
-      cur = nxt;
-      nxt = load(next_idx++);
+  // The branch metrics of global stage s of the block, at slot s mod kStep
+  // of its pass; stages must be read in order.  HARD bits map to +-1 as
+  // bit*2-1; soft fields are two's complement, sign-extended by an
+  // arithmetic shift (core_pallas.py:594-599).
+  __device__ __forceinline__ void next(int s, int slot, Bm& m) {
+    if constexpr (kRingMode) {
+      if (slot % kPairsPerWord == 0) {  // take a word, load the next pass'
+        constexpr int kAhead = kPrefetchAhead / kPairsPerWord;  // words
+        cur = ring[slot / kPairsPerWord];
+        ring[slot / kPairsPerWord] = load(next_idx++);
+        if (next_idx + kAhead < n_words)
+          prefetch_l2(words + (next_idx + kAhead) * step);
+      }
+    } else if (s % kPairsPerWord == 0) {  // fetch the word after the new one
+      cur = ring[0];
+      ring[0] = load(next_idx++);
     }
     int a0, a1;
     if constexpr (WIDTH == 1) {
@@ -265,6 +329,7 @@ using HaloReader = IntReader<WIDTH, false, false, true>;
 // without --use_fast_math so none of this is reassociated.
 struct FloatReader {
   static constexpr bool kWrap = false;
+  static constexpr int kStep = 2;
 
   const float* vals;
   long long n_vals;
@@ -295,7 +360,8 @@ struct FloatReader {
     return x < -8.0f ? -8.0f : (x > 7.0f ? 7.0f : x);
   }
 
-  __device__ __forceinline__ void next(int s, Bm& m) {
+  __device__ __forceinline__ void next(int s, int slot, Bm& m) {
+    (void)slot;
     float a, b;
     if (s % 2 == 0) {  // a new float4: shift the prefetch queue
       cur = q1;
@@ -319,25 +385,34 @@ struct FloatReader {
 // Reader of staged values (K4 value mode, K5): r0 of stage t at row t of
 // plane p0, r1 at row t of plane p1, column k.  K4 value mode passes K6's
 // (2 * block_len, B) output with p1 = p0 + B and a row step of 2B (rows 2t
-// and 2t + 1); K5 the two planes of stage_floats_2streams.  Loads run kLead
-// stages ahead of use, as K2's float4 queue does.
+// and 2t + 1); K5 the two planes of stage_floats_2streams.  Each row is a
+// fresh line of device memory, so loads run kLead stages ahead of use, in a
+// ring whose slot is the stage's slot in its pass of the stage loop (kStep
+// = kLead stages): a slot is read and refilled with the stage kLead later,
+// and no register that awaits a load is moved (IntReader's staged ring);
+// and each stage prefetches the rows kPrefetchAhead stages past its loads
+// into L2, which takes 0.11-0.13 ms off K5 and K4's integer values at the
+// headline (two rows a stage wait on device memory, where a staged SOFT8
+// word serves two stages; PERF.md §6).  A pass of 8 stages ran slower
+// than one of 4, and one of 2 slower on K5 (its lead is too short).
 //
 // int (K4): u = r0 + r1, d = r0 - r1 (values within the channel's field
-// range, the contract of decode_blocks_cuda).  float: u and d are single
-// f32 adds, truncated into the integer ACS.
+// range, the contract of decode_blocks_cuda, so int16x2 metrics hold on
+// HARD, SOFT4 and SOFT8).  float: u and d are single f32 adds, truncated
+// into the integer ACS.
 //   - SATURATING = false (K5): the planes are clamped to [-8, 7] by the
-//     staging, so |u|, |d| <= 15 and -trunc(u) is exact: nu = -u, nd = -d.
+//     staging, so |u|, |d| <= 15 and -trunc(u) is exact: nu = -u, nd = -d;
+//     int16x2 metrics, the FP32 wire's bound.
 //   - SATURATING = true (K4 value mode): the values are NOT clamped (the
-//     JAX entry decodes them as given, core_pallas.py:1050), so each of u,
-//     -u, d, -d is converted on its own, saturating, as the plain version's
-//     per-state conversion does, and the ACS wraps as its int32 adds do.
-//     Exact on any input, NaN, +-inf and values past the int32 range
-//     included, at a cost: at the 32M-bit FP32 headline this form measured
-//     1.09 ms against 0.74 ms for the SATURATING = false form, with equal
-//     static SASS counts (NVIDIA H100 80GB HBM3, 700 W).
+//     JAX entry decodes them as given, core_pallas.py:1050), so nu and nd
+//     are what the plain version's per-state saturating conversion gives
+//     for -u and -d (neg_trunc: two F2I a stage, not four), and the int32
+//     ACS wraps as its adds do.  Exact on any input, NaN, +-inf and values
+//     past the int32 range included.
 template <typename T, bool SATURATING = false>
 struct PlaneReader {
-  static constexpr int kLead = 4;
+  static constexpr int kLead = kStagedLead;
+  static constexpr int kStep = kLead;
   static constexpr bool kWrap = SATURATING;
 
   const T* r0;
@@ -362,23 +437,21 @@ struct PlaneReader {
     }
   }
 
-  __device__ __forceinline__ void next(int s, Bm& m) {
+  __device__ __forceinline__ void next(int s, int slot, Bm& m) {
     (void)s;
-    const T x = a[0], y = b[0];
-#pragma unroll
-    for (int i = 0; i + 1 < kLead; ++i) {
-      a[i] = a[i + 1];
-      b[i] = b[i + 1];
+    const T x = a[slot], y = b[slot];
+    a[slot] = load(r0, next_t);
+    b[slot] = load(r1, next_t);
+    if (next_t + kPrefetchAhead < n_stages) {
+      prefetch_l2(r0 + (next_t + kPrefetchAhead) * step);
+      prefetch_l2(r1 + (next_t + kPrefetchAhead) * step);
     }
-    a[kLead - 1] = load(r0, next_t);
-    b[kLead - 1] = load(r1, next_t);
     ++next_t;
     if constexpr (SATURATING) {
-      const float uf = __fadd_rn(x, y), df = __fsub_rn(x, y);
-      m.u = trunc_int(uf);
-      m.nu = trunc_int(-uf);
-      m.d = trunc_int(df);
-      m.nd = trunc_int(-df);
+      m.u = trunc_int(__fadd_rn(x, y));
+      m.d = trunc_int(__fsub_rn(x, y));
+      m.nu = neg_trunc(m.u);
+      m.nd = neg_trunc(m.d);
     } else if constexpr (std::is_floating_point<T>::value) {
       m.u = trunc_int(__fadd_rn(x, y));
       m.d = trunc_int(__fsub_rn(x, y));
@@ -421,6 +494,8 @@ viterbi_kernel(const Source src, uint32_t* __restrict__ surv,
                int n_conv, int n_emit, int renorm, int n_slots) {
   constexpr uint32_t kMask = BPP == 32 ? 0xFFFFFFFFu : 0xFFFFu;
   constexpr bool kWrap = Reader::kWrap;
+  static_assert(BPP % Reader::kStep == 0 && Reader::kStep % 2 == 0,
+                "a pass of the stage loop must divide a pack");
   constexpr int kPmWords = PM16 ? kStates / 2 : kStates;
   using pm_t = std::conditional_t<PM16, uint32_t, int>;
   extern __shared__ uint32_t ring[];
@@ -441,19 +516,24 @@ viterbi_kernel(const Source src, uint32_t* __restrict__ surv,
   Reader reader(src, blk);
   int stage = 0;
   for (int p = 0; p < n_packs; ++p) {
+    // a pass runs the reader's kStep stages, each with its slot k known at
+    // compile time (a staged reader's ring; the flat readers take 2)
 #pragma unroll 1
-    for (int t = 0; t < BPP; t += 2) {
-      Bm m;
-      reader.next(stage++, m);
-      if constexpr (PM16)
-        acs_stage16(pm_a, pp_a, pm_b, pp_b, m);
-      else
-        acs_stage<kWrap>(pm_a, pp_a, pm_b, pp_b, m);
-      reader.next(stage++, m);
-      if constexpr (PM16)
-        acs_stage16(pm_b, pp_b, pm_a, pp_a, m);
-      else
-        acs_stage<kWrap>(pm_b, pp_b, pm_a, pp_a, m);
+    for (int t = 0; t < BPP; t += Reader::kStep) {
+#pragma unroll
+      for (int k = 0; k < Reader::kStep; k += 2) {
+        Bm m;
+        reader.next(stage++, k, m);
+        if constexpr (PM16)
+          acs_stage16(pm_a, pp_a, pm_b, pp_b, m);
+        else
+          acs_stage<kWrap>(pm_a, pp_a, pm_b, pp_b, m);
+        reader.next(stage++, k + 1, m);
+        if constexpr (PM16)
+          acs_stage16(pm_b, pp_b, pm_a, pp_a, m);
+        else
+          acs_stage<kWrap>(pm_b, pp_b, pm_a, pp_a, m);
+      }
     }
     if constexpr (WINDOW) {
       // one-pointer circular buffer (core_pallas.py:440-486): dump pack p
@@ -592,8 +672,9 @@ using namespace viterbi;
 // p1); surv: the full
 // store, or null for the window (K4, K5; K1 and K2 need it, K3 ignores it);
 // width: the channel's field width (1, 4, 8, 16) for words, kUdWidth (-8)
-// for the FP32 channel's u/d words (K1, K3), 0 for f32 values, 32 for int32
-// values (K4); n_slots: the ring's W >= 3 for the
+// for the FP32 channel's u/d words (K1, K3), 0 for f32 values (K2, K3, K4,
+// K5), kValueWidth + the field width for integer values (K4, which routes
+// the metrics' width by it); n_slots: the ring's W >= 3 for the
 // window.  Each returns the cudaError_t of the launch (0 = launched).
 #define VITERBI_LAUNCH(W, R, B, WINDOW, PM16)                              \
   if (width == W && bpp == B)                                              \
@@ -602,14 +683,15 @@ using namespace viterbi;
         static_cast<cudaStream_t>(stream)));
 // int32 metrics; the int16x2 instances are VITERBI_LAUNCH(..., true)
 #define VITERBI_CASE(W, R, B, WINDOW) VITERBI_LAUNCH(W, R, B, WINDOW, false)
-// the four instances of a reader: bpp 32 and 16, window when surv is null
-#define VITERBI_STAGED(W, R)       \
-  if (sv == nullptr) {             \
-    VITERBI_CASE(W, R, 32, true)   \
-    VITERBI_CASE(W, R, 16, true)   \
-  } else {                         \
-    VITERBI_CASE(W, R, 32, false)  \
-    VITERBI_CASE(W, R, 16, false)  \
+// the four instances of a staged reader (K4, K5): bpp 32 and 16, window
+// when surv is null; int16x2 metrics where PM16
+#define VITERBI_STAGED(W, R, PM16)           \
+  if (sv == nullptr) {                       \
+    VITERBI_LAUNCH(W, R, 32, true, PM16)     \
+    VITERBI_LAUNCH(W, R, 16, true, PM16)     \
+  } else {                                   \
+    VITERBI_LAUNCH(W, R, 32, false, PM16)    \
+    VITERBI_LAUNCH(W, R, 16, false, PM16)    \
   }
 #define VITERBI_ARGS                                                       \
   const void *p0, const void *p1, long long n, long long stride,           \
@@ -752,16 +834,19 @@ int k3_halo(VITERBI_ARGS) {
 #endif
 
 // K4 is one entry point over two parts: word mode here, value mode in part
-// 3 (k4_values, declared before it).
+// 3 (k4_values, declared before it).  Both run int16x2 metrics on HARD,
+// SOFT4 and SOFT8 (acs.cuh's bounds: the values lie in the channel's field
+// range), int32 on SOFT16 and on the unclamped f32 values.
 int k4_values(VITERBI_ARGS);
+constexpr int kValueWidth = 32;  // K4's integer values: kValueWidth + width
 
 #if IN_PART(2)
 extern "C" int viterbi_k4_launch(VITERBI_ARGS) {
   VITERBI_PROLOGUE
-  VITERBI_STAGED(1, StagedIntReader<1>)
-  VITERBI_STAGED(4, StagedIntReader<4>)
-  VITERBI_STAGED(8, StagedIntReader<8>)
-  VITERBI_STAGED(16, StagedIntReader<16>)
+  VITERBI_STAGED(1, StagedIntReader<1>, true)
+  VITERBI_STAGED(4, StagedIntReader<4>, true)
+  VITERBI_STAGED(8, StagedIntReader<8>, true)
+  VITERBI_STAGED(16, StagedIntReader<16>, false)
   return k4_values(p0, p1, n, stride, surv, out, num_blocks, n_packs, n_conv,
                    n_emit, width, bpp, renorm, n_slots, stream);
 }
@@ -770,14 +855,19 @@ extern "C" int viterbi_k4_launch(VITERBI_ARGS) {
 #if IN_PART(3)
 int k4_values(VITERBI_ARGS) {
   VITERBI_PROLOGUE
-  VITERBI_STAGED(32, PlaneReader<int>)
-  VITERBI_STAGED(0, UnclampedReader)
+  VITERBI_STAGED(kValueWidth + 1, PlaneReader<int>, true)
+  VITERBI_STAGED(kValueWidth + 4, PlaneReader<int>, true)
+  VITERBI_STAGED(kValueWidth + 8, PlaneReader<int>, true)
+  VITERBI_STAGED(kValueWidth + 16, PlaneReader<int>, false)
+  VITERBI_STAGED(0, UnclampedReader, false)
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// K5: int16x2 metrics on the clamped planes (|bm| <= 16, the FP32 wire's
+// bound in acs.cuh's header).
 extern "C" int viterbi_k5_launch(VITERBI_ARGS) {
   VITERBI_PROLOGUE
-  VITERBI_STAGED(0, PlaneReader<float>)
+  VITERBI_STAGED(0, PlaneReader<float>, true)
   return static_cast<int>(cudaErrorInvalidValue);
 }
 #endif

@@ -13,8 +13,11 @@
   other side of the int16x2 A/B for ``chip_smoke.py`` and the GPU tests;
   no decode path launches them;
 - K4: the decode from staged input (word mode or value mode), full store or
-  window — ``_viterbi_kernel`` through ``_run_kernel``;
-- K5: the FP32 decode from two clamped f32 planes — ``_viterbi_kernel_f32_2s``;
+  window — ``_viterbi_kernel`` through ``_run_kernel``; int16x2 metrics on
+  HARD, SOFT4 and SOFT8 words and values, int32 on SOFT16 and on the
+  unclamped f32 values;
+- K5: the FP32 decode from two clamped f32 planes, int16x2 metrics —
+  ``_viterbi_kernel_f32_2s``;
 - K6: the overlapped-window transpose into the word-major layout that feeds
   K4 and K5 — ``_stage_tr_kernel`` through ``stage_words_pallas``.
 
@@ -201,7 +204,13 @@ class StagedKernel(CudaKernel):
     word-major channel words of an integer channel (word mode, K6's output
     at (wpb, Lw)), or (2 * block_len, B) values with r0 and r1 of stage t
     in rows 2t and 2t + 1 (value mode: int32, or f32 for FP32, not
-    clamped; K6's output on the (S, 2) values)."""
+    clamped; K6's output on the (S, 2) values).  Path metrics: int16x2 on
+    HARD, SOFT4 and SOFT8, words or values, which therefore must lie in
+    the channel's field range (``decode_blocks_cuda``'s contract; the
+    plain int16 version is ``core_torch.decode_staged_i16_torch``); int32
+    on SOFT16 and on the f32 values, which saturate at +-2^31.  Integer
+    values pass the channel's width as ``VALUE_WIDTH`` + width, so the
+    entry routes the metrics' width by it."""
 
     def __call__(self, staged: torch.Tensor, cfg: DecoderConfig,
                  plan: BlockPlan, window: bool = False) -> torch.Tensor:
@@ -221,7 +230,9 @@ class StagedKernel(CudaKernel):
                                 cfg.enc_data_width, window)
         p0 = staged.data_ptr()
         return self._decode(staged.device, p0, p0 + 4 * b, plan.block_len,
-                            2 * b, cfg, plan, 0 if is_float else 32, window)
+                            2 * b, cfg, plan,
+                            0 if is_float else VALUE_WIDTH +
+                            cfg.enc_data_width, window)
 
 
 class PlaneKernel(CudaKernel):
@@ -230,7 +241,9 @@ class PlaneKernel(CudaKernel):
     strided and the blocks contiguous (``stage_floats_2streams``' views of
     K6's output, or two contiguous planes).  The clamp to [-8, 7] is the
     staging's: values outside it (NaN aside) are outside K5's contract,
-    and unclamped values go to K4's value mode."""
+    and unclamped values go to K4's value mode.  Path metrics: int16x2,
+    under the FP32 wire's bound that the clamp gives (the plain int16
+    version is ``core_torch.decode_planes_i16_torch``)."""
 
     def __call__(self, r0: torch.Tensor, r1: torch.Tensor,
                  cfg: DecoderConfig, plan: BlockPlan,
@@ -312,6 +325,9 @@ class Int32Kernel(StreamKernel):
                 f"{' and '.join(c.name for c in self.channels)} only, not "
                 f"{cfg.channel_in.name}")
 
+
+# viterbi.cu's kValueWidth: K4's integer values pass it + the field width
+VALUE_WIDTH = 32
 
 K1 = StreamKernel("K1", fp32=False, window=False)
 K2 = StreamKernel("K2", fp32=True, window=False)
@@ -406,9 +422,10 @@ def decode_blocks_cuda(r: torch.Tensor, cfg: DecoderConfig,
     Values are cast to int32 (integer channels) or float32 (FP32), as the
     JAX entry casts them; FP32 values are not clamped.  Integer values
     must lie within the channel's field range (HARD +-1, SOFTw the w-bit
-    two's-complement range): ``needs_int32_renorm`` bounds the path
-    metrics by that range, so values outside it are outside the contract,
-    as they are for the JAX kernel."""
+    two's-complement range): K4's int16x2 metrics (HARD, SOFT4, SOFT8) and
+    ``needs_int32_renorm`` (SOFT16) bound the path metrics by that range,
+    so values outside it are outside the contract, as they are for the
+    JAX kernel."""
     is_float = cfg.channel_in == ChannelIn.FP32
     flat = r.to(torch.float32 if is_float else torch.int32) \
         .contiguous().reshape(-1)

@@ -17,10 +17,11 @@ computing its kernel's function: ``decode_blocks_torch`` (K1, K2, K3 on
 packed words), ``decode_staged_torch`` (K4 on staged words or values),
 ``decode_planes_torch`` (K5 on two f32 planes), ``stage_transpose``
 (K6) and ``decode_ud_words_torch`` (K1 and K3 on the FP32 channel's u/d
-words of ``fp32_ud_words_torch``); ``decode_blocks_i16_torch``, the int16
-arithmetic of K1, K2 and K3 (``Pm16``), which the tests and
-``chip_smoke.py`` hold against the int32 decode (no decode path calls it);
-and the values-in entry
+words of ``fp32_ud_words_torch``); ``decode_blocks_i16_torch``,
+``decode_staged_i16_torch`` and ``decode_planes_i16_torch``, the int16
+arithmetic of K1-K3, K4 and K5 (``Pm16``), which the tests and
+``chip_smoke.py`` hold against the int32 decode (no decode path calls
+them); and the values-in entry
 ``decode_blocks`` with ``gather_blocks``, ``forward_scan`` and
 ``traceback_scan``, as the JAX package exports them.
 The CPU tests hold it bit-exact against ``decode_packed_xla`` and
@@ -30,9 +31,10 @@ against it on the card.  It runs on the CPU or on CUDA tensors.
 All metric modes run on int32 path metrics, as the TPU kernel does
 (core_pallas.py:140-148): the reference sizes renorm strides so b16/fp16
 metrics decode identically to int32 (tests/test_metric_equiv.py locks the
-identity on the JAX side).  K1, K2 and K3 run int16 metrics on every
-channel but SOFT16, renormalised once a pack, which decodes identically for
-the same reason (``decode_blocks_i16_torch``).  Survivor registers are
+identity on the JAX side).  K1-K5 run int16 metrics on every input but
+SOFT16 and K4's unclamped f32 values, renormalised once a pack, which
+decodes identically for the same reason (``decode_blocks_i16_torch`` and
+its K4 and K5 siblings).  Survivor registers are
 int64 masked to 32 bits, because torch's uint32 support is partial and
 ``>>`` on int32 is arithmetic.
 """
@@ -286,9 +288,13 @@ def _branch_metrics(r0, r1, s0, s1, is_float: bool, ud: bool = False):
     if ud:
         return s0 * torch.where(s0 == s1, r0[None, :], r1[None, :])
     bm = s0 * r0[None, :] + s1 * r1[None, :]
-    if not is_float:
-        return bm
-    return (torch.trunc(bm).nan_to_num(nan=0.0).clamp(-2.0 ** 31, 2.0 ** 31)
+    return trunc_int32(bm) if is_float else bm
+
+
+def trunc_int32(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> int32 toward zero as XLA converts: saturating at the int32
+    range, NaN to 0 (``_branch_metrics``' conversion)."""
+    return (torch.trunc(x).nan_to_num(nan=0.0).clamp(-2.0 ** 31, 2.0 ** 31)
             .to(torch.int64).clamp(-2 ** 31, 2 ** 31 - 1).to(torch.int32))
 
 
@@ -300,7 +306,8 @@ def _repeat2(x):
 
 class Pm16:
     """The int16 path metrics of ``csrc/acs.cuh`` (``acs_stage16`` and
-    ``renorm16``), which K1, K2 and K3 run on every channel but SOFT16: each
+    ``renorm16``), which K1-K5 run on every input but SOFT16 and K4's
+    unclamped f32 values: each
     candidate metric is computed exactly, then wrapped to int16 as
     VIADD.16x2 wraps it, and compared in int16 with the same tie rule (the
     j=0 branch wins ties); once a pack, after the survivor dump, state 0's
@@ -568,10 +575,12 @@ def staged_word_mode(staged: torch.Tensor, cfg: DecoderConfig,
 # largest |bm| of each input that takes them, and the largest |candidate
 # metric| that renormalising once a pack allows: the spread of the 64
 # metrics is at most 12 max|bm| (every state reaches every other in 6
-# stages), and a pack adds at most bpp max|bm|.  ChannelIn.FP32 is the
-# channel's u/d words (K1 and K3 in ud mode), their fields read as they
-# are, 8 bits each; FP32_WIRE the raw f32 wire (K2, K3): the clamp to
-# [-8, 7] keeps |u| and |d| at or under 16, a NaN truncates to 0.
+# stages), and a pack adds at most bpp max|bm|.  HARD, SOFT4 and SOFT8
+# hold for their words (K1, K3, K4) and their integer values in the field
+# range (K4); ChannelIn.FP32 is the channel's u/d words (K1 and K3 in ud
+# mode), their fields read as they are, 8 bits each; FP32_WIRE the raw f32
+# wire (K2, K3) and K5's planes: the clamp to [-8, 7] keeps |u| and |d| at
+# or under 16, a NaN truncates to 0.
 # PM16_BOUND is acs.cuh's kPm16Bound, SOFT8 at bpp 32.
 FP32_WIRE = "FP32 wire"
 PM16_MAX_ABS_BM = {**{c: _MAX_ABS_BM[c] for c in (
@@ -590,7 +599,8 @@ PM16_BOUND = pm16_bound(PM16_MAX_ABS_BM[ChannelIn.SOFT8], 32)
 
 def pm16_input(cfg: DecoderConfig, ud: bool = False):
     """The key of ``PM16_MAX_ABS_BM`` for this input: the channel, or
-    FP32_WIRE for the FP32 channel's raw wire (``ud`` False)."""
+    FP32_WIRE for the FP32 channel's raw wire or K5's planes (``ud``
+    False)."""
     if cfg.channel_in == ChannelIn.FP32 and not ud:
         return FP32_WIRE
     return cfg.channel_in
@@ -624,6 +634,14 @@ def decode_blocks_i16_torch(packed: torch.Tensor, cfg: DecoderConfig,
         packed = with_tail_halo(packed, tail_halo, cfg, plan)
         packed = packed.to(torch.float32 if is_float else torch.int32)
         rs = stage_values(packed, cfg, plan)
+    return _decode_i16(rs, cfg, plan, window, renorm, return_peak, ud)
+
+
+def _decode_i16(rs: torch.Tensor, cfg: DecoderConfig, plan: BlockPlan,
+                window: bool, renorm: bool, return_peak: bool,
+                ud: bool = False):
+    """``_decode_stages`` on int16 metrics (``Pm16``): the packs, and with
+    ``return_peak`` the largest |candidate| before the wrap."""
     pm16 = Pm16(renorm, return_peak)
     packs = _decode_stages(rs, cfg, plan, window, ud, pm16)
     return (packs, int(pm16.peak)) if return_peak else packs
@@ -635,11 +653,45 @@ def decode_staged_torch(staged: torch.Tensor, cfg: DecoderConfig,
     """The plain version of kernel K4: staged input (``staged_words``) ->
     (B, n_emit) int32 output packs.  Words are unpacked as K1 unpacks them;
     values decode as given (int32, or f32 for FP32: not clamped)."""
+    return _decode_stages(_staged_stage_pairs(staged, cfg, plan), cfg, plan,
+                          window)
+
+
+def _staged_stage_pairs(staged: torch.Tensor, cfg: DecoderConfig,
+                        plan: BlockPlan) -> torch.Tensor:
+    """K4's staged input -> its stage pairs: words unpacked as K1 unpacks
+    them, values as given."""
     if staged_word_mode(staged, cfg, plan):
-        rs = unpack_words(staged.to(torch.int32), cfg)
-    else:
-        rs = staged.reshape(plan.block_len, 2, plan.num_blocks)
-    return _decode_stages(rs, cfg, plan, window)
+        return unpack_words(staged.to(torch.int32), cfg)
+    return staged.reshape(plan.block_len, 2, plan.num_blocks)
+
+
+def decode_staged_i16_torch(staged: torch.Tensor, cfg: DecoderConfig,
+                            plan: BlockPlan, window: bool = False,
+                            renorm: bool = True, return_peak: bool = False):
+    """The int16 arithmetic of K4 in plain torch (``Pm16``): staged words
+    or integer values of HARD, SOFT4 or SOFT8 -> (B, n_emit) int32 output
+    packs, full store or ``window``; ``decode_staged_torch`` on int16
+    metrics.  Values must lie in the channel's field range, which bounds
+    their |bm| as the words' (``PM16_MAX_ABS_BM``).  ``renorm`` and
+    ``return_peak``: ``decode_blocks_i16_torch``'s.  SOFT16 and the FP32
+    channel's f32 values raise ValueError: K4 keeps int32 metrics there
+    (|bm| to 65,536; unclamped values saturate at +-2^31)."""
+    if cfg.channel_in in (ChannelIn.SOFT16, ChannelIn.FP32):
+        what = "f32 values" if cfg.channel_in == ChannelIn.FP32 else "input"
+        raise ValueError(f"K4 runs int16 metrics on HARD, SOFT4 and SOFT8 "
+                         f"words and values, not {cfg.channel_in.name} "
+                         f"{what}")
+    return _decode_i16(_staged_stage_pairs(staged, cfg, plan), cfg, plan,
+                       window, renorm, return_peak)
+
+
+def _planes_stage_pairs(r0: torch.Tensor, r1: torch.Tensor,
+                        plan: BlockPlan) -> torch.Tensor:
+    """Two planes, (n_packs, bpp, B) or (block_len, B) each -> (block_len,
+    2, B) stage pairs."""
+    shp = (plan.block_len, plan.num_blocks)
+    return torch.stack([r0.reshape(shp), r1.reshape(shp)], dim=1)
 
 
 def decode_planes_torch(r0: torch.Tensor, r1: torch.Tensor,
@@ -649,9 +701,25 @@ def decode_planes_torch(r0: torch.Tensor, r1: torch.Tensor,
     ``stage_floats_2streams``, (n_packs, bpp, B) or (block_len, B) each ->
     (B, n_emit) int32 output packs.  The planes decode as given: the clamp
     is the staging's."""
-    shp = (plan.block_len, plan.num_blocks)
-    rs = torch.stack([r0.reshape(shp), r1.reshape(shp)], dim=1)
-    return _decode_stages(rs, cfg, plan, window)
+    return _decode_stages(_planes_stage_pairs(r0, r1, plan), cfg, plan,
+                          window)
+
+
+def decode_planes_i16_torch(r0: torch.Tensor, r1: torch.Tensor,
+                            cfg: DecoderConfig, plan: BlockPlan,
+                            window: bool = False, renorm: bool = True,
+                            return_peak: bool = False):
+    """The int16 arithmetic of K5 in plain torch (``Pm16``):
+    ``decode_planes_torch`` on int16 metrics.  The planes must be clamped
+    to [-8, 7] (NaN aside), as the staging clamps them: that is the FP32
+    wire's bound (``PM16_MAX_ABS_BM[FP32_WIRE]``).  ``renorm`` and
+    ``return_peak``: ``decode_blocks_i16_torch``'s.  Another channel than
+    FP32 raises ValueError, as K5 decodes FP32 only."""
+    if cfg.channel_in != ChannelIn.FP32:
+        raise ValueError(f"K5 runs int16 metrics on the FP32 channel's "
+                         f"clamped planes, not {cfg.channel_in.name}")
+    return _decode_i16(_planes_stage_pairs(r0, r1, plan), cfg, plan, window,
+                       renorm, return_peak)
 
 
 def fp32_ud_words_torch(vals: torch.Tensor) -> torch.Tensor:

@@ -41,22 +41,25 @@ def cuda_ms(fn: Callable, runs: int):
     return statistics.median(ts), ts, out
 
 
+def turns_ms(fns, runs: int):
+    """CUDA-event times of the calls ``fns``, launched in turns (a, b, c,
+    c, b, a, ...): ([median ms of each], [all ms of each], [the last
+    result of each])."""
+    ts = [[] for _ in fns]
+    outs = [None] * len(fns)
+    for i in range(runs):
+        order = range(len(fns)) if i % 2 == 0 else reversed(range(len(fns)))
+        for k in order:
+            ms, _, outs[k] = cuda_ms(fns[k], 1)
+            ts[k].append(ms)
+    return [statistics.median(t) for t in ts], ts, outs
+
+
 def ab_ms(fa: Callable, fb: Callable, runs: int):
     """CUDA-event times of fa and fb, launched in turns (a, b, b, a, ...):
     (median a, median b, all a, all b, out a, out b)."""
-    ta, tb = [], []
-    out_a = out_b = None
-    for i in range(runs):
-        order = ((fa, ta), (fb, tb)) if i % 2 == 0 else ((fb, tb), (fa, ta))
-        for fn, ts in order:
-            ms, _, out = cuda_ms(fn, 1)
-            ts.append(ms)
-            if fn is fa:
-                out_a = out
-            else:
-                out_b = out
-    return (statistics.median(ta), statistics.median(tb), ta, tb, out_a,
-            out_b)
+    (ma, mb), (ta, tb), (out_a, out_b) = turns_ms((fa, fb), runs)
+    return ma, mb, ta, tb, out_a, out_b
 
 
 def graph_ms(fn: Callable, calls: int, runs: int):
