@@ -24,7 +24,11 @@ after holding their kernels against their plain versions.  Phases 31-35
 hold K1's and K3's u/d-word reader against its plain version and K2, and
 drive the last probes (K25 SOFT16 ablation, K26 transpose, K27 FP32
 routes: launches of K1, K2 and K3, K28 interleave); phases 16 and 19 cover
-K11's relayouts and K13's bisect traceback.  Phase 14 times K4 in word
+K11's relayouts and K13's bisect traceback; phase 32 holds K25 at every
+lane count an array (1 to 32) and times each at both array counts, with
+the lanes the wrapper picks.  Phase 14 times K6 on the headline's words
+and values and on HARD's thinnest window (dec_len 32) with the route
+(load width, tile rows) that ran, and K4 in word
 mode (int16x2 metrics) in turns with K1 and K1_I32 and K5 in turns with K2
 and K2_I32 at the headline, K4's value modes beside them, each held
 against its int32 and int16 plain versions, with the SASS a stage, F2I a
@@ -74,6 +78,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -132,12 +137,16 @@ from tpu_viterbi_torch.utils.timing import (ab_ms, cuda_ms,  # noqa: E402
 HEADLINE_BITS = 32_000_000          # the reference's default -n (main.cpp:176)
 HEADLINE = DecoderConfig(ChannelIn.SOFT8)   # SOFT8, int32 metrics, b32 packs
 FP32 = DecoderConfig(ChannelIn.FP32)
+HARD = DecoderConfig(ChannelIn.HARD)
 DEC_LEN = 2048                      # ViterbiGPU.DEFAULT_DEC_LEN
+THIN_DEC_LEN = 32                   # HARD's thinnest K6 window: stride 2, win 6
 SEED = 7
 K1, K2, K3 = core_cuda.K1, core_cuda.K2, core_cuda.K3
 # K1's, K2's and K3's int32 metrics: the other sides of the int16x2 A/Bs
 K1_I32, K2_I32, K3_I32 = core_cuda.K1_I32, core_cuda.K2_I32, core_cuda.K3_I32
 K4, K5, K6 = core_cuda.K4, core_cuda.K5, core_cuda.K6
+K6_TILE_WORDS, transpose_route = core_cuda.K6_TILE_WORDS, \
+    core_cuda.transpose_route
 K7, K8 = genkernel.K7, genkernel.K8
 K7_OLD, K8_OLD = genkernel.K7_OLD, genkernel.K8_OLD  # K7/K8's first design
 K9, K11 = hardware.K9, op_cost_probe.K11
@@ -553,6 +562,7 @@ def timing_phase(card: str):
 
 
 AB_RUNS = 10                        # CUDA-event samples a side of the A/B
+K6_RUNS = 30                        # K6's samples a staging (0.03-0.3 ms each)
 # The readers of the A/Bs' b32 instances in viterbi.cu's cubin, as mangled
 # template arguments (IntReader<8, false, false, false>, FloatReader)
 READERS = {ChannelIn.SOFT8: "9IntReaderILi8ELb0ELb0ELb0EEE",
@@ -1389,53 +1399,69 @@ def staged_sass() -> dict:
 
 
 def staged_times_phase(card: str):
-    """K6 on words and on values; K4 in word mode in turns with K1 (the
-    same int16x2 ACS on the flat stream: the coalescing A/B) and K1_I32
-    (the int32 ACS), K5 in turns with K2 and K2_I32 likewise, K4 in value
-    mode (integer values; f32 values, the staged FP32 wire unclamped, in
-    turns with K4 on the same wire clamped as K5's planes are, which must
-    decode as K5):
-    CUDA-event medians of AB_RUNS at the headline, each plain version's
-    median of 3, outputs equal to each other, to the int32 plain version
-    and, where the mode runs int16x2, to the int16 one, whose largest
-    candidate metric stays under the input's bound; SASS a stage,
-    registers and F2I of each b32 instance, the bound at the int16x2 count
-    where it applies.  Returns the rows K4, K5 and K6 (K4's value modes
-    and each yardstick's time in K4's and K5's extra keys)."""
+    """K6 on words, on values and on HARD's words at dec_len 32 (stride 2,
+    win 6), each with the route that ran; K4 in word mode in turns with K1
+    (the same int16x2 ACS on the flat stream: the coalescing A/B) and
+    K1_I32 (the int32 ACS), K5 in turns with K2 and K2_I32 likewise, K4 in
+    value mode (integer values; f32 values, the staged FP32 wire
+    unclamped, in turns with K4 on the same wire clamped as K5's planes
+    are, which must decode as K5): CUDA-event medians of AB_RUNS at the
+    headline, each plain version's median of 3, outputs equal to each
+    other, to the int32 plain version and, where the mode runs int16x2, to
+    the int16 one, whose largest candidate metric stays under the input's
+    bound; SASS a stage, registers and F2I of each b32 instance, the bound
+    at the int16x2 count where it applies.  Returns the rows K4, K5 and K6
+    (K4's value modes and each yardstick's time in K4's and K5's extra
+    keys, K6's values and HARD times in K6's)."""
     times = {}
     packed, plan, _ = headline_packed(HEADLINE, 21)
     b = plan.num_blocks
     wpb, wph = words_per_block(HEADLINE, plan)
     vals = unpack_to_soft(packed, HEADLINE.channel_in)
-    stagings = (("words", packed, wpb, wpb + wph),
-                ("values", vals, 2 * plan.dec_len, 2 * plan.block_len))
-    staged = {}
-    for what, x, stride, win in stagings:
-        K6(x, stride, win, b)                                # warm-up
-        k_ms, k_all, got = cuda_ms(lambda: K6(x, stride, win, b), 5)
+    # HARD at dec_len 32: the thinnest window (stride 2, win 6)
+    hard, hplan, _ = headline_packed(HARD, 21)
+    hplan = plan_blocks(hplan.message_len, HARD.bits_per_pack, THIN_DEC_LEN)
+    hw, hh = words_per_block(HARD, hplan)
+    stagings = (("words", packed, wpb, wpb + wph, b),
+                ("values", vals, 2 * plan.dec_len, 2 * plan.block_len, b),
+                ("hard32", hard, hw, hw + hh, hplan.num_blocks))
+    staged, k6_extra = {}, {}
+    for what, x, stride, win, num in stagings:
+        K6(x, stride, win, num)                              # warm-up
+        before = Counter(K6.route_launches)
+        k_ms, k_all, got = cuda_ms(lambda: K6(x, stride, win, num), K6_RUNS)
+        ran = sorted(Counter(K6.route_launches) - before)
+        if ran != [transpose_route(x.data_ptr(), stride, win)]:
+            raise AssertionError(f"K6 on {what} ran the routes {ran}")
         p_ms, p_all, want = cuda_ms(
-            lambda: stage_transpose(x, stride, win, b), 3)
+            lambda: stage_transpose(x, stride, win, num), 3)
         err = bits_diff(got, want)
         if err:
             raise AssertionError(f"K6 on {what} differs from its plain "
                                  f"version (max |diff| {err})")
         staged[what] = got
         mb = (x.numel() + got.numel()) * 4 / 1e6
-        need = (b - 1) * stride + win          # the pad is not timed
+        need = (num - 1) * stride + win        # the pad is not timed
         padded = torch.cat([x, x.new_zeros(max(0, need - x.numel()))])
         lib_ms, _, lib = cuda_ms(lambda: torch.as_strided(
-            padded, (win, b), (1, stride)).contiguous(), 5)
+            padded, (win, num), (1, stride)).contiguous(), 5)
         if bits_diff(lib, want):
             raise AssertionError(f"as_strided on {what} differs from K6")
         bnd = bound(mb * 1e6)
         times[f"K6 {what}"] = (k_ms, p_ms, err, bnd, lib_ms)
-        say("14 times", f"{card}: K6 on the headline's {what} "
-            f"({x.numel()} words -> {tuple(got.shape)}): median {k_ms:.4f} "
-            f"ms of {[round(t, 4) for t in k_all]} = "
-            f"{mb / k_ms / 1e3:.3f} TB/s of {mb:.1f} MB moved; plain median "
-            f"{p_ms:.3f} ms of {[round(t, 3) for t in p_all]}; as_strided"
-            f"(...).contiguous() median {lib_ms:.4f} ms; bound "
-            f"{bnd[0]:.4f} ms by {bnd[1]}")
+        vec, ti = ran[0]
+        k6_extra.update({f"{what}_ms": k_ms, f"{what}_bound_ms": bnd[0],
+                         f"{what}_library_ms": lib_ms,
+                         f"{what}_route": f"{4 * vec}-byte loads, "
+                                          f"{ti}-row tiles"})
+        say("14 times", f"{card}: K6 on the {what} (stride {stride}, win "
+            f"{win}, {x.numel()} words -> {tuple(got.shape)}), route "
+            f"{4 * vec}-byte loads, {ti} x {K6_TILE_WORDS // ti} tiles: "
+            f"median {k_ms:.4f} ms of {[round(t, 4) for t in k_all]} = "
+            f"{mb / k_ms / 1e3:.3f} TB/s of {mb:.1f} MB moved ("
+            f"{bnd[0] / k_ms:.1%} of the bound {bnd[0]:.4f} ms by {bnd[1]});"
+            f" plain median {p_ms:.3f} ms of {[round(t, 3) for t in p_all]};"
+            f" as_strided(...).contiguous() median {lib_ms:.4f} ms")
     wire, fplan, _ = headline_packed(FP32, 21)
     fw, fh = words_per_block(FP32, fplan)
     wire_staged = K6(wire, fw, fw + fh, fplan.num_blocks)
@@ -1523,7 +1549,7 @@ def staged_times_phase(card: str):
             f"registers, stack {stack} B ({describe_mix(mix, 12)})")
     times["K4"] = (*times["K4 words"], None, extra["K4"])
     times["K5"] = (*times["K5"], None, extra["K5"])
-    times["K6"] = times["K6 words"]
+    times["K6"] = (*times["K6 words"], k6_extra)
     return times
 
 
@@ -2326,43 +2352,72 @@ def ud_reader_phase(gen, runs: dict) -> int:
 
 
 def soft16_ablation_phase(card: str, runs: dict):
-    """K25: every variant bit-equal to its plain version on every program
-    of both grids (2048 and 15,872 arrays) at ABLATION_CHECK_PACKS packs,
-    then `python -m tpu_viterbi_torch.scripts.soft16_ablation` with the
-    counts set to 0, and each run's bound (its words read once, OPS
-    lane-operations an array-stage).  Returns K25's row: s16/unpack at the
-    JAX shape beside its plain version there."""
+    """K25: every variant at every lane count bit-equal to its plain version
+    on every program of both grids (2048 and 15,872 arrays) at
+    ABLATION_CHECK_PACKS packs, then `python -m
+    tpu_viterbi_torch.scripts.soft16_ablation` (every variant at every lane
+    count at both grids) with the counts set to 0, and each run's bound (its
+    words read once, OPS lane-operations an array-stage, whatever the
+    lanes).  Prints, at each grid, the lanes the wrapper picks and each lane
+    count's s16/unpack line.  Returns K25's row: s16/unpack at the JAX shape
+    at the picked lanes beside its plain version there, each lane count's
+    times in the extra keys."""
     sa = soft16_ablation
     for programs in (sa.GRID, sa.HEADLINE_TILES):
         for v in sa.VARIANTS:
             w = sa.probe_input(programs, ABLATION_CHECK_PACKS, sa.WPP[v],
                                "cuda", seed=SEED)
-            held(f"K25 {v} at {programs} programs", K25(v, w, programs),
-                 sa.soft16_ablation_torch(v, w, programs))
+            want = sa.soft16_ablation_torch(v, w, programs)
+            for n in sa.LANES:
+                held(f"K25 {v} at {programs} programs, {n} lanes",
+                     K25(v, w, programs, n), want)
     say("32 soft16 ablation", f"K25 bit-equal to its plain version on all "
-        f"{len(sa.VARIANTS)} variants, every program of {sa.GRID} and "
-        f"{sa.HEADLINE_TILES} programs, {ABLATION_CHECK_PACKS} packs")
+        f"{len(sa.VARIANTS)} variants at lanes {list(sa.LANES)}, every "
+        f"program of {sa.GRID} and {sa.HEADLINE_TILES} programs, "
+        f"{ABLATION_CHECK_PACKS} packs")
     stages = sa.N_PACKS * 32
     results = probe_results(
         "32 soft16 ablation", card, runs, sa, "K25", "SOFT16 ablation",
         lambda r: bound(r["programs"] * (sa.N_PACKS * sa.WPP[r["variant"]] + 1)
                         * LT_BYTES, sa.OPS[r["variant"]] * r["arrays"] *
                         stages))
+    extra = {}
     for programs in (sa.GRID, sa.HEADLINE_TILES):
-        by = {r["variant"]: r["ns_per_stage_tile"] for r in results
-              if r["programs"] == programs}
-        say("32 soft16 ablation", f"{card}: {programs * 128} arrays: "
-            f"{sa.decomposition(by)}; LDG a loop pass " + ", ".join(
-                f"{r['variant']} {r['ldg']}" for r in results
-                if r["programs"] == programs))
+        arrays = programs * 128
+        picked = sa.lanes_for(arrays)
+        mine = [r for r in results if r["programs"] == programs]
+        by = {r["variant"]: r["ns_per_stage_tile"] for r in mine
+              if r["lanes"] == picked}
+        unpack = {r["lanes"]: r for r in mine if r["variant"] == "s16/unpack"}
+        for n, r in unpack.items():
+            extra[f"s16_unpack_{arrays}_lanes{n}_ms"] = r["ms"]
+        p = unpack[picked]
+        extra.update({f"lanes_at_{arrays}": picked,
+                      f"sass_per_stage_at_{arrays}": p["sass_per_stage"],
+                      f"shfl_per_stage_at_{arrays}": p["shfl_per_stage"],
+                      f"registers_at_{arrays}": p["regs"],
+                      f"warp_pace_ns_at_{arrays}": sa.warp_pace(p)})
+        say("32 soft16 ablation", f"{card}: {arrays} arrays: the wrapper "
+            f"picks {picked} lanes (s16/unpack {p['ms']:.4f} ms, "
+            f"{p['sass_per_stage']:g} SASS and {p['shfl_per_stage']:g} SHFL "
+            f"a stage, {p['regs']} registers, warp pace "
+            f"{sa.warp_pace(p):.4f} ns/stage); s16/unpack by lanes: " +
+            ", ".join(f"{n}: {r['ms']:.4f} ms ({r['sass_per_stage']:g} SASS,"
+                      f" {r['shfl_per_stage']:g} SHFL a stage, {r['regs']} "
+                      f"registers, pace {sa.warp_pace(r):.4f} ns)"
+                      for n, r in sorted(unpack.items())) +
+            f"; {sa.decomposition(by)}; LDG a loop pass " + ", ".join(
+                f"{r['variant']} {r['ldg']}" for r in mine
+                if r["lanes"] == picked))
     w = sa.probe_input(sa.GRID, sa.N_PACKS, 32, "cuda", seed=SEED)
     p_ms = held_to_plain("K25 s16/unpack at the JAX shape",
                          K25("s16/unpack", w, sa.GRID),
                          lambda: sa.soft16_ablation_torch("s16/unpack", w,
                                                           sa.GRID))
     row = next(r for r in results if r["variant"] == "s16/unpack" and
-               r["programs"] == sa.GRID)
-    return row["ms"], p_ms, 0, row["bound"]
+               r["programs"] == sa.GRID and
+               r["lanes"] == sa.lanes_for(sa.GRID * 128))
+    return row["ms"], p_ms, 0, row["bound"], None, extra
 
 
 GRAPH_CALLS = 100                   # calls a CUDA graph replays (graph_ms)
@@ -2872,12 +2927,12 @@ def main() -> int:
     want["K22"] = 4 * runs_a_piece + 1
     want["K23"] = runs_a_piece
     want["K24"] = len(soft16_pieces.CONFIGS) * (2 * runs_a_piece + 1)
-    # K25: two array counts; K26: torch + consume, each tiling and the
+    # K25: two array counts at every lane count; K26: torch + consume, each tiling and the
     # consumer, one warm-up and REPS timed each; K27: the check's 4 decodes,
     # then one warm-up and RUNS timed calls a decoding route; K28: the
     # check's one launch a variant, then two grids
-    want["K25"] = 2 * len(soft16_ablation.VARIANTS) * (
-        soft16_ablation.REPS + 1)
+    want["K25"] = 2 * len(soft16_ablation.VARIANTS) * len(
+        soft16_ablation.LANES) * (soft16_ablation.REPS + 1)
     want["K26"] = (len(transpose_bench.TILINGS) + 2) * (
         transpose_bench.REPS + 1)
     want["K27"] = 4 + sum(kind != "staging" for *_, kind in

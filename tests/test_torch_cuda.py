@@ -25,6 +25,7 @@ dependencies:
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 """
 
+import itertools
 import math
 
 import numpy as np
@@ -502,19 +503,64 @@ def test_k4_f32_values_at_the_edges(gpu, rng, out, dec_len, window):
                                                            window))
 
 
+def _k6_cases():
+    """(id, stride, win, num, n, offset): every shape K6 treats apart."""
+    cases = []
+    for ch in ChannelIn:
+        for dec_len in (32, 96):
+            cfg = DecoderConfig(ch)
+            plan = core_torch.plan_blocks(dec_len * 37 - 32, 32, dec_len)
+            wpb, wph = core_torch.words_per_block(cfg, plan)
+            n = cfg.get_input_words(2 * (plan.message_len + 64))
+            cases.append((f"{ch.name}-{dec_len}", wpb, wpb + wph,
+                          plan.num_blocks, n, 0))
+    for stride in (64, 65, 66, 67):
+        for num, short, what in ((333, 0, "odd-num"), (5, 0, "below-a-tile"),
+                                 (333, 17, "ends-mid-window")):
+            cases.append((f"stride{stride}-{what}", stride, 3 * stride, num,
+                          (num - 1) * stride + 3 * stride - short, 0))
+    for off in (1, 2, 3):
+        cases += [(f"wide-offset{off}", 1024, 1056, 129, 1024 * 129, off),
+                  (f"HARD-32-offset{off}", 2, 6, 600, 1200, off)]
+    cases += [("HARD-32-full", 2, 6, 1_000_000, 2_000_004, 0),
+              ("HARD-32-full-offset1", 2, 6, 1_000_000, 2_000_004, 1),
+              ("halo-over-strides", 8, 40, 1000, 5000, 0),
+              ("one-block", 100, 100, 1, 20, 0),
+              ("wide-ragged", 64, 160, 33, 64 * 33 + 10, 0),
+              ("wide-100", 1024, 1056, 100, 1024 * 100, 0)]
+    return cases
+
+
 @pytest.mark.parametrize("dtype", [torch.int32, torch.float32],
                          ids=["int32", "float32"])
-@pytest.mark.parametrize("stride,win,num,n", [
-    (64, 160, 33, 64 * 33 + 10), (1024, 1056, 100, 1024 * 100),
-    (8, 40, 1000, 5000), (100, 100, 1, 20)])
-def test_k6_matches_plain(gpu, dtype, stride, win, num, n):
-    """K6 on ragged shapes: windows past the stream zero-filled, halos over
-    several strides, one block, a stream shorter than one window."""
-    x = torch.arange(1, n + 1, device=gpu, dtype=dtype)
+@pytest.mark.parametrize("case", _k6_cases(), ids=lambda c: c[0])
+def test_k6_matches_plain(gpu, case, dtype):
+    """K6 bit for bit against its plain version (float32 with NaN payloads
+    and infs) at every channel's dec_len 32 and 96, every stride % 4, an
+    odd num, one below a tile, a stream ending mid-window (zero past it),
+    halos over several strides, one block, streams 1-3 words off an
+    aligned start, and HARD at dec_len 32 over its 1,000,000 blocks: one
+    launch, counted on the route transpose_route picks."""
+    _, stride, win, num, n, off = case
+    g = torch.Generator(device=gpu)
+    g.manual_seed(n + off)
+    bits = torch.randint(-2 ** 31, 2 ** 31, (n + off,), generator=g,
+                         device=gpu, dtype=torch.int64).to(torch.int32)
+    if dtype == torch.float32:
+        bits[::7] = 0x7FC00001 + torch.arange(bits[::7].numel(), device=gpu,
+                                              dtype=torch.int32)
+        bits[3::11] = 0x7F800000
+    x = bits.view(dtype)[off:]
+    route = core_cuda.transpose_route(x.data_ptr(), stride, win)
+    before = core_cuda.K6.route_launches[route]
     got, launches = _launched([core_cuda.K6], lambda: core_cuda.K6(
         x, stride, win, num))
     assert launches == [1] and got.dtype == dtype and got.is_contiguous()
-    assert torch.equal(got, core_torch.stage_transpose(x, stride, win, num))
+    assert core_cuda.K6.route_launches[route] == before + 1
+    want = core_torch.stage_transpose(x, stride, win, num)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if off % 2:
+        assert route[0] == 1
 
 
 def test_staged_wrappers_reject_bad_input(gpu):
@@ -1105,22 +1151,30 @@ def test_fp32_probe_check(gpu):
                                                           "window": True}
 
 
-@pytest.mark.parametrize("programs", [soft16_ablation.GRID, 3])
+@pytest.mark.parametrize("programs", [1, 3, 16, 124])
+@pytest.mark.parametrize("lanes", (None,) + soft16_ablation.LANES)
 @pytest.mark.parametrize("variant", soft16_ablation.VARIANTS)
-def test_k25_matches_plain(gpu, variant, programs):
-    """Three packs on the JAX grid and on 3 programs: equal to the plain
-    version; one launch; a refused shape raises before any launch."""
+def test_k25_matches_plain(gpu, variant, lanes, programs):
+    """Every variant at the lanes the wrapper picks (None) and split over
+    every lane count, at 1, 3, 16 (the JAX grid) and 124 programs and 1, 3
+    and 4 packs (tails of 2, 0 and 2 stages after the passes of 6), equal
+    to the plain version on full-range words; one launch each, counted at
+    its lanes; a refused shape raises before any launch."""
     sa = soft16_ablation
-    words = sa.probe_input(programs, 3, sa.WPP[variant], gpu, seed=25)
-    before = sa.K25.launches
-    got = sa.K25(variant, words, programs)
-    torch.cuda.synchronize()
-    assert sa.K25.launches == before + 1
-    assert torch.equal(got, sa.soft16_ablation_torch(variant, words,
-                                                     programs))
+    n = sa.lanes_for(programs * 128) if lanes is None else lanes
+    for n_packs in (1, 3, 4):
+        words = sa.probe_input(programs, n_packs, sa.WPP[variant], gpu,
+                               seed=programs + n_packs)
+        before = (sa.K25.launches, sa.K25.lane_launches[n])
+        got = sa.K25(variant, words, programs, lanes)
+        torch.cuda.synchronize()
+        assert (sa.K25.launches, sa.K25.lane_launches[n]) == (
+            before[0] + 1, before[1] + 1)
+        assert torch.equal(got, sa.soft16_ablation_torch(variant, words,
+                                                         programs))
     with pytest.raises(ValueError):
-        sa.K25(variant, words[:, :8].contiguous(), programs)
-    assert sa.K25.launches == before + 1
+        sa.K25(variant, words[:, :8].contiguous(), programs, lanes)
+    assert sa.K25.launches == before[0] + 1
 
 
 @pytest.mark.parametrize("shape", [(96, 80), (15744 // 8, 1056), (33, 130),
@@ -1190,8 +1244,14 @@ def test_k28_matches_plain(gpu, variant, reps):
 
 def test_last_probe_sass_readings(gpu):
     """K25's and K28's loops, K11's relayouts and K13's bisect are in the
-    library's SASS; a relayout's step loop holds a SHFL a construct."""
-    for mod, keys in ((soft16_ablation, soft16_ablation.VARIANTS),
+    library's SASS; a relayout's step loop holds a SHFL a construct.
+    K25's lane-split loops shuffle (L = 1 does not) and no branch splits
+    their warps around the shuffles."""
+    sa = soft16_ablation
+    for (v, lanes), (loop, res, mix) in sa.sass_counts().items():
+        assert (sa.shfl_count(mix) > 0) == (lanes > 1), (v, lanes)
+        assert not any("DIV" in op or "COLLECTIVE" in op for op in mix)
+    for mod, keys in ((sa, list(itertools.product(sa.VARIANTS, sa.LANES))),
                       (interleave_bench, interleave_bench.VARIANTS),
                       (kernel_ablation, kernel_ablation.VARIANTS)):
         counts = mod.sass_counts()

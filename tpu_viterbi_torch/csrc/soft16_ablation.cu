@@ -15,19 +15,43 @@
 //                 first (_make_ud_soft8, K13's +unpack, K1's IntReader<8>)
 //   3 s16/unpack  SOFT16's: stage s reads word s, a0 = w >> 16, a1 = (w <<
 //                 16) >> 16, u = a0 + a1, d = a0 - a1 (_make_ud_soft16 :48)
-// Output: (programs, 128) = (pm + pp)[0] of every program, wrapping.  The
-// stage is K1's acs_stage (acs.cuh); the plain PyTorch version is
-// soft16_ablation_torch in tpu_viterbi_torch/scripts/soft16_ablation.py,
-// with which every variant agrees bit for bit.
+// Output: (programs, 128) = (pm + pp)[0] of every program, wrapping: the
+// natural-order int32 ACS of acs.cuh's acs_stage (the noup variants feed
+// raw full-range words as u and d, so int16x2 metrics cannot compute it).
+// The plain PyTorch version is soft16_ablation_torch in
+// tpu_viterbi_torch/scripts/soft16_ablation.py, with which every variant
+// agrees bit for bit at every lane count.
 //
-// What bounds it: the ACS' issue, 256 operations an array-stage; the words
-// are 4 (SOFT8) or 8 (SOFT16) bytes an array-stage, 67 MB for SOFT16 at the
-// JAX shape, 0.02 ms at the memory rate against 0.13 ms of issue.  What the
-// design does about it: it is K13's: one thread an array, 64 CUDA threads a
-// block, a loop of two stages whose next words load while it runs.  The
-// words noup does not use are read with ld.volatile, which ptxas may not
-// drop, so the traffic is real (the probe prints the loop's LDG count);
-// on the TPU the block's DMA read them all.
+// What bounds it: the ACS' issue, 256 operations an array-stage (260 with
+// the unpack); the words are 4 (SOFT8) or 8 (SOFT16) bytes an array-stage,
+// 67 MB for SOFT16 at the JAX shape, 0.02 ms at the memory rate against
+// 0.13 ms of issue.  At the JAX shape's 2,048 arrays one thread an array
+// (K13's layout, lanes = 1) runs 32 CTAs of 64 threads on 132 SMs: a
+// warp's pace is the latency of its ACS chain, whatever the card's issue.
+//
+// What the design does about it: each array is split over `lanes` L of a
+// warp (1, 2, 4, 8, 16 or 32; the wrapper picks L from the array count so
+// that the card holds several warps a scheduler), S = 64 / L states a
+// lane.  The states move in place: after t stages physical position P =
+// lane * S + register holds logical state rol6(P, t % 6), so stage t pairs
+// P with P ^ (1 << b), b = 5 - t % 6, the two predecessors (x, q) of the
+// children (q, x): a register of the same thread when b < 6 - log2 L,
+// else the same register of lane ^ (1 << (b - 6 + log2 L)), read with
+// __shfl_xor_sync (K12's layout C, csrc/layout_probe.cu, shuffles the same
+// trellis).  Position P keeps child (q, x_P): c_self = pm[P] + bm(q),
+// c_part = pm[P'] - bm(q), the partner taken when c_part > c_self (x_P = 0)
+// or c_part >= c_self (x_P = 1), the j=0 branch winning ties as in
+// acs_stage, and the survivor gets the winner's x.  State 0 stays at P = 0.
+// bm(q)'s choice among u, -u, d, -d is linear in P's bits: its register
+// part is a compile-time index, its lane part two flip bits a phase read
+// once a thread.  A pass of the stage loop is the six phases; a tail of 2
+// or 4 stages ends a run of 32 n_packs stages.  A pass's words load a pass
+// ahead, each into the register its stage has just read (no moves); every
+// lane of an array loads the same word (one broadcast request).  The words
+// noup does not use are read with ld.volatile, which ptxas may not drop,
+// spread over the array's lanes, so the traffic is real (the probe prints
+// the loop's LDG count); on the TPU the block's DMA read them all.  L = 1
+// is K13's loop of two stages with acs_stage, the pass's words a pass ahead.
 
 #include <cuda_runtime.h>
 
@@ -40,13 +64,26 @@ namespace viterbi_soft16_ablation {
 using viterbi::Bm;
 using viterbi::kStates;
 
-constexpr int kCols = 128;   // arrays of a program
-constexpr int kThreads = 64; // K1's CUDA block
+constexpr int kCols = 128;        // arrays of a program
+constexpr int kThreads = 64;      // K1's CUDA block (lanes = 1)
+constexpr int kLaneThreads = 128; // the lane-split kernels' CUDA block
+constexpr int kPass = 6;          // stages of a pass of the lane-split loop
+constexpr unsigned kFull = 0xFFFFFFFFu;
 
 // A word of the block that is read and not used.
 __device__ __forceinline__ void touch(const int* p) {
   int v;
   asm volatile("ld.volatile.global.b32 %0, [%1];" : "=r"(v) : "l"(p));
+}
+
+// The same where `on`, as a predicated load: no branch splits the warp.
+__device__ __forceinline__ void touch_if(bool on, const int* p) {
+  int v;
+  asm volatile(
+      "{\n .reg .pred q;\n setp.ne.u32 q, %1, 0;\n"
+      " @q ld.volatile.global.b32 %0, [%2];\n}"
+      : "=r"(v)
+      : "r"(static_cast<unsigned>(on)), "l"(p));
 }
 
 template <int V>
@@ -123,13 +160,240 @@ soft16_ablation_kernel(const int* __restrict__ words, int* __restrict__ out,
   out[i] = static_cast<int>(static_cast<uint32_t>(pm_a[0]) + pp_a[0]);
 }
 
-template <int V>
+// --- the lane-split layout (lanes >= 2) ---
+
+__host__ __device__ constexpr int log2_of(int x) {
+  return x <= 1 ? 0 : 1 + log2_of(x / 2);
+}
+__host__ __device__ constexpr int rol6(int p, int f) {
+  return f == 0 ? p : ((p << f) | (p >> (6 - f))) & 63;
+}
+// bit 0: bm's sign is + (sign0 > 0); bit 1: sign0 != sign1 (bm is +-d),
+// for the pair q that physical position P holds in phase f.  Both are XORs
+// of P's bits, so bits(lane * S + r) = bits(lane * S) ^ bits(r).
+__host__ __device__ constexpr int bm_bits(int P, int f) {
+  const int q = rol6(P, f) & 31;
+  return (viterbi::sign0(q) > 0 ? 1 : 0) |
+         (viterbi::sign0(q) != viterbi::sign1(q) ? 2 : 0);
+}
+// Whether the lane part of bm_bits can be non-zero in phase f (else the
+// flips are compile-time zero).
+template <int L>
+__host__ __device__ constexpr int lane_bm_bits(int f) {
+  int any = 0;
+  for (int lane = 0; lane < L; ++lane) any |= bm_bits(lane * (kStates / L), f);
+  return any;
+}
+
+// Position update: (pm_o, pp_o) = the child (q, h) from own (pm_s, pp_s)
+// and the partner's (pm_p, pp_p), h = the position's x bit: the partner
+// wins on c_part > c_self, and on a tie where h = 1 (the j=0 branch is then
+// the partner).  Written without a branch on h, which is a lane's bit in
+// the phases that shuffle: a branch there would split the warp around its
+// shuffles.
+__device__ __forceinline__ void lane_acs(int pm_s, uint32_t pp_s, int pm_p,
+                                         uint32_t pp_p, int bm, bool h,
+                                         int& pm_o, uint32_t& pp_o) {
+  const int cs = viterbi::add<true>(pm_s, bm);
+  const int cp = viterbi::sub<true>(pm_p, bm);
+  const bool dec = (cp > cs) | ((cp == cs) & h);
+  pm_o = dec ? cp : cs;
+  pp_o = ((dec ? pp_p : pp_s) << 1) | static_cast<uint32_t>(dec != h);
+}
+
+// One stage in phase F of a lane's S = 64 / L positions, from (pm, pp)
+// into (pm_o, pp_o).  flips: bit F the lane's sign flip, bit 6 + F its
+// u/d flip (bm_bits of the lane's part); lane: the array's lane.
+template <int L, int F>
+__device__ __forceinline__ void lane_stage(const int (&pm)[kStates / L],
+                                           const uint32_t (&pp)[kStates / L],
+                                           int (&pm_o)[kStates / L],
+                                           uint32_t (&pp_o)[kStates / L],
+                                           const Bm& m, uint32_t flips,
+                                           int lane) {
+  constexpr int S = kStates / L, kRegBits = 6 - log2_of(L), B = 5 - F;
+  constexpr int kLane = lane_bm_bits<L>(F);
+  const bool fp = (kLane & 1) && ((flips >> F) & 1u);
+  const bool fd = (kLane & 2) && ((flips >> (6 + F)) & 1u);
+  // bm of the register part's (sign +, +-d) bits, the lane's flips applied
+  const int su = fd ? m.d : m.u, sun = fd ? m.nd : m.nu;
+  const int sd = fd ? m.u : m.d, sdn = fd ? m.nu : m.nd;
+  const int bm4[4] = {fp ? su : sun, fp ? sun : su, fp ? sd : sdn,
+                      fp ? sdn : sd};
+#pragma unroll
+  for (int r = 0; r < S; ++r) {
+    const int bm = bm4[bm_bits(r, F)];
+    if constexpr (B < kRegBits) {
+      const int rp = r ^ (1 << B);
+      lane_acs(pm[r], pp[r], pm[rp], pp[rp], bm, (r >> B) & 1, pm_o[r],
+               pp_o[r]);
+    } else {
+      constexpr int x = 1 << (B - kRegBits);
+      const int qm = __shfl_xor_sync(kFull, pm[r], x);
+      const uint32_t qp = __shfl_xor_sync(kFull, pp[r], x);
+      lane_acs(pm[r], pp[r], qm, qp, bm, (lane >> (B - kRegBits)) & 1,
+               pm_o[r], pp_o[r]);
+    }
+  }
+}
+
+// One array's lane: its S = 64 / L positions, double-buffered, and the
+// words of the next pass of the stage loop.
+template <int V, int L>
+struct LaneArray {
+  static constexpr int S = kStates / L;
+  static constexpr int kWpp = V % 2 ? 32 : 16;
+  static constexpr bool kUnpack = V >= 2;
+  // words a pass reads: SOFT16's one a stage, SOFT8's one a stage pair
+  static constexpr int kPassWords = kWpp == 32 ? kPass : kPass / 2;
+
+  const int* w;
+  int n_packs, n_words, lane;
+  uint32_t flips;
+  int pm_a[S], pm_b[S];
+  uint32_t pp_a[S], pp_b[S];
+  int pw[kPassWords];       // unpack: the pass's words
+  int ru[kPass], rd[kPass]; // noup: each stage's raw u and d
+
+  __device__ __forceinline__ LaneArray(const int* col, int packs, int ln)
+      : w(col), n_packs(packs), n_words(packs * kWpp), lane(ln), flips(0u) {
+#pragma unroll
+    for (int f = 0; f < kPass; ++f) {
+      const int b = bm_bits(lane * S, f);
+      flips |= static_cast<uint32_t>(b & 1) << f;
+      flips |= static_cast<uint32_t>(b >> 1) << (6 + f);
+    }
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      pm_a[s] = 0;
+      pp_a[s] = 0u;
+    }
+#pragma unroll
+    for (int k = 0; k < kPassWords; ++k) pw[k] = kUnpack ? load(k) : 0;
+#pragma unroll
+    for (int j = 0; j < kPass; ++j) {
+      ru[j] = kUnpack ? 0 : raw(j, 0);
+      rd[j] = kUnpack ? 0 : raw(j, 1);
+    }
+  }
+
+  __device__ __forceinline__ int load(int idx) const {
+    return idx < n_words ? __ldg(w + idx * kCols) : 0;
+  }
+  // noup: row 0 (u) or 1 (d) of stage t's pack
+  __device__ __forceinline__ int raw(int t, int row) const {
+    const int p = t >> 5;
+    return p < n_packs ? __ldg(w + (p * kWpp + row) * kCols) : 0;
+  }
+
+  // Stage t0 + J, phase J (t0 % 6 == 0); AHEAD: then load the next pass's
+  // word or raw u and d into the register this stage has read.
+  template <int J, bool AHEAD>
+  __device__ __forceinline__ void stage(int t0) {
+    Bm m;
+    if constexpr (!kUnpack) {
+      m.u = ru[J];
+      m.d = rd[J];
+      m.nu = viterbi::neg<true>(m.u);
+      m.nd = viterbi::neg<true>(m.d);
+      if constexpr (AHEAD) {
+        if ((t0 + J) >> 5 != (t0 + kPass + J) >> 5) {
+          ru[J] = raw(t0 + kPass + J, 0);
+          rd[J] = raw(t0 + kPass + J, 1);
+        }
+      }
+    } else if constexpr (kWpp == 32) {
+      const uint32_t x = static_cast<uint32_t>(pw[J]);
+      viterbi::int_bm(static_cast<int>(x) >> 16,
+                      static_cast<int>(x << 16) >> 16, m);
+      if constexpr (AHEAD) pw[J] = load(t0 + kPass + J);
+    } else {
+      const uint32_t x = static_cast<uint32_t>(pw[J / 2]) << (J % 2 ? 16 : 0);
+      viterbi::int_bm(static_cast<int>(x) >> 24,
+                      static_cast<int>(x << 8) >> 24, m);
+      if constexpr (AHEAD && J % 2 == 1)
+        pw[J / 2] = load((t0 + kPass) / 2 + J / 2);
+    }
+    if constexpr (J % 2 == 0)
+      lane_stage<L, J>(pm_a, pp_a, pm_b, pp_b, m, flips, lane);
+    else
+      lane_stage<L, J>(pm_b, pp_b, pm_a, pp_a, m, flips, lane);
+  }
+
+  template <int J, int N, bool AHEAD>
+  __device__ __forceinline__ void stages(int t0) {
+    if constexpr (J < N) {
+      stage<J, AHEAD>(t0);
+      stages<J + 1, N, AHEAD>(t0);
+    }
+  }
+
+  // Stages t0 .. t0 + N - 1 (N even, so the result is back in pm_a, pp_a);
+  // noup first reads the words the unpack would, one lane each.
+  template <int N, bool AHEAD>
+  __device__ __forceinline__ void pass(int t0) {
+    if constexpr (!kUnpack) {
+#pragma unroll
+      for (int k = 0; k < (kWpp == 32 ? N : N / 2); ++k) {
+        const int idx = (kWpp == 32 ? t0 : t0 / 2) + k;
+        touch_if(k % L == lane && idx < n_words, w + idx * kCols);
+      }
+    }
+    stages<0, N, AHEAD>(t0);
+  }
+};
+
+template <int V, int L>
+__global__ void __launch_bounds__(kLaneThreads)
+soft16_lanes_kernel(const int* __restrict__ words, int* __restrict__ out,
+                    int programs, int n_packs) {
+  constexpr int kWpp = V % 2 ? 32 : 16;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int a = i / L, lane = i % L;
+  const int g = a / kCols, l = a % kCols;
+  LaneArray<V, L> arr(
+      words + static_cast<size_t>(g) * n_packs * kWpp * kCols + l, n_packs,
+      lane);
+  const int stages = n_packs * 32;
+  int t0 = 0;
+#pragma unroll 1
+  for (; t0 + kPass <= stages; t0 += kPass) arr.template pass<kPass, true>(t0);
+  // 32 n_packs % 6 is 0, 2 or 4
+  if (stages - t0 == 4)
+    arr.template pass<4, false>(t0);
+  else if (stages - t0 == 2)
+    arr.template pass<2, false>(t0);
+  if (lane == 0)
+    out[a] = static_cast<int>(static_cast<uint32_t>(arr.pm_a[0]) +
+                              arr.pp_a[0]);
+}
+
+template <int V, int L>
 cudaError_t launch(const int* words, int* out, int programs, int n_packs,
                    cudaStream_t stream) {
   const int arrays = programs * kCols;
-  soft16_ablation_kernel<V><<<(arrays + kThreads - 1) / kThreads, kThreads, 0,
-                              stream>>>(words, out, programs, n_packs);
+  if constexpr (L == 1) {
+    soft16_ablation_kernel<V><<<(arrays + kThreads - 1) / kThreads, kThreads,
+                                0, stream>>>(words, out, programs, n_packs);
+  } else {
+    // arrays * L threads: a whole number of blocks (kCols * L % 128 == 0)
+    static_assert(kCols * L % kLaneThreads == 0, "whole CUDA blocks");
+    soft16_lanes_kernel<V, L><<<arrays / kLaneThreads * L, kLaneThreads, 0,
+                                stream>>>(words, out, programs, n_packs);
+  }
   return cudaGetLastError();
+}
+
+template <int L>
+cudaError_t launch_variant(int variant, const int* w, int* o, int programs,
+                           int n_packs, cudaStream_t s) {
+  switch (variant) {
+    case 0: return launch<0, L>(w, o, programs, n_packs, s);
+    case 1: return launch<1, L>(w, o, programs, n_packs, s);
+    case 2: return launch<2, L>(w, o, programs, n_packs, s);
+    case 3: return launch<3, L>(w, o, programs, n_packs, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace viterbi_soft16_ablation
@@ -137,22 +401,34 @@ cudaError_t launch(const int* words, int* out, int programs, int n_packs,
 using namespace viterbi_soft16_ablation;
 
 // Launch variant `variant` (0 s8/noup, 1 s16/noup, 2 s8/unpack, 3
-// s16/unpack) over `programs` programs of n_packs (>= 1) packs: words holds
-// programs x n_packs x wpp x 128 int32 (wpp 16 for variants 0 and 2, 32 for
-// 1 and 3), out programs x 128 int32.  Returns the cudaError_t of the
-// launch (0 = launched).
-extern "C" int viterbi_k25_launch(int variant, const void* words, void* out,
-                                  int programs, int n_packs, void* stream) {
+// s16/unpack) split over `lanes` (1, 2, 4, 8, 16 or 32) lanes an array,
+// over `programs` programs of n_packs (>= 1) packs: words holds programs x
+// n_packs x wpp x 128 int32 (wpp 16 for variants 0 and 2, 32 for 1 and 3),
+// out programs x 128 int32.  Returns the cudaError_t of the launch (0 =
+// launched).
+extern "C" int viterbi_k25_launch(int variant, int lanes, const void* words,
+                                  void* out, int programs, int n_packs,
+                                  void* stream) {
   const int* w = static_cast<const int*>(words);
   int* o = static_cast<int*>(out);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (programs <= 0 || n_packs < 1 || words == nullptr || out == nullptr)
+  if (programs <= 0 || n_packs < 1 || words == nullptr || out == nullptr ||
+      variant < 0 || variant > 3 ||
+      static_cast<long long>(programs) * kCols * lanes > INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
-  switch (variant) {
-    case 0: return static_cast<int>(launch<0>(w, o, programs, n_packs, s));
-    case 1: return static_cast<int>(launch<1>(w, o, programs, n_packs, s));
-    case 2: return static_cast<int>(launch<2>(w, o, programs, n_packs, s));
-    case 3: return static_cast<int>(launch<3>(w, o, programs, n_packs, s));
+  switch (lanes) {
+    case 1: return static_cast<int>(launch_variant<1>(variant, w, o, programs,
+                                                      n_packs, s));
+    case 2: return static_cast<int>(launch_variant<2>(variant, w, o, programs,
+                                                      n_packs, s));
+    case 4: return static_cast<int>(launch_variant<4>(variant, w, o, programs,
+                                                      n_packs, s));
+    case 8: return static_cast<int>(launch_variant<8>(variant, w, o, programs,
+                                                      n_packs, s));
+    case 16: return static_cast<int>(launch_variant<16>(variant, w, o,
+                                                        programs, n_packs, s));
+    case 32: return static_cast<int>(launch_variant<32>(variant, w, o,
+                                                        programs, n_packs, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -113,10 +113,14 @@
 // is a fresh line of device memory, so the staged readers load a pass of
 // the stage loop ahead into a ring that no register move shifts, and
 // prefetch their rows into L2 further ahead (IntReader, PlaneReader).  K6
-// is a copy,
-// bound by device-memory bandwidth: 32x33 tiles in shared memory make both
-// its reads (along a block's words) and its writes (along the blocks)
-// coalesced.
+// is a copy bound by device-memory bandwidth (each input word read once,
+// each output word written once; on this card a plain contiguous copy of
+// the headline's words reaches ~2 TB/s, not 3.35): it moves 16-KB tiles
+// through shared memory, 16-byte cp.async loads along a block's words and
+// 16-byte stores along the blocks (narrower loads where the stride or the
+// stream's address is not 16-byte aligned), one tile a CUDA block, the
+// tiles of a row of blocks next to each other so that the blocks in flight
+// write whole rows of the output (K6's note below).
 
 #include <cuda_runtime.h>
 
@@ -620,43 +624,150 @@ cudaError_t launch(const Source& src, uint32_t* surv, int* out,
 }
 
 // K6: out[i, k] = in[k * stride + i] for i < win, k < num, zero where
-// k * stride + i >= n; 32-bit words of either dtype.  A CUDA block moves
-// one 32 x 32 tile (blocks k0.. on grid.x, which allows 2^31 - 1 tiles;
-// words i0.. on grid.y): it reads 32 rows of 32 consecutive words of the
-// stream and writes 32 rows of 32 consecutive blocks of the output, through
-// a 32 x 33 shared tile whose padding column keeps both the column-wise
-// store and the column-wise read free of bank conflicts.
-constexpr int kTile = 32;
-constexpr int kTileRows = 8;
-
+// k * stride + i >= n; 32-bit words of either dtype, moved as bits.
+//
+// A CUDA block moves one tile of TI words i (input-contiguous) by TK =
+// kTrTileWords / TI blocks k (output-contiguous), 16 KB; tile t is (it, kt)
+// = (t / k_tiles, t % k_tiles), k fastest, so the blocks in flight write
+// whole rows of the output.  Its loads are cp.async of VEC words (16, 8 or
+// 4 bytes: the widest that the stride and the stream's address allow,
+// chosen by the wrapper) along i into shared memory, all issued before the
+// first is waited on; its stores are 16-byte vectors along k.  A row of the
+// output starts at element i * num + k0, 16-byte aligned only when (i *
+// num) % 4 == 0 (num is odd at the headline), so each tile row is stored as
+// the aligned 16-byte words it covers: the inner ones whole, the partial
+// head and tail word by word (both by one thread).  The tile is held k-major
+// (word (kk, i) at kk * TI + i) with the 16-byte chunks of each 128-byte
+// line XOR-swizzled by (kk >> 2) & 7, so that the 16-byte fills of a
+// quarter-warp and the column reads of the stores (8 k-vectors x 4 rows a
+// warp) hit 32 banks.  Per-element checks run only in edge tiles: a tile
+// past num, or one whose loads reach the stream's end (zero-filled by
+// cp.async's src-size); rows past win are skipped a row at a time.  A block
+// walking several tiles through a ring of two slots, the next tile's loads
+// in flight during the current tile's stores, ran slower on the H100 in
+// turns (PERF.md): six blocks an SM already overlap one block's loads with
+// another's stores, and longer-lived blocks coarsen the grid's tail and
+// spread the tiles in flight over more rows of the output.
 #if IN_PART(0)
-__global__ void __launch_bounds__(kTile * kTileRows)
+constexpr int kTrThreads = 256;
+constexpr int kTrTileWords = 4096;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// cp.async of VEC words; bytes < 4 * VEC reads that many and zero-fills.
+template <int VEC>
+__device__ __forceinline__ void cp_async(uint32_t dst, const uint32_t* src,
+                                         int bytes) {
+  if constexpr (VEC == 4)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(bytes));
+  else if constexpr (VEC == 2)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(bytes));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(bytes));
+}
+
+// One 16-byte store (p 16-byte aligned), as st.global.v4: written as a
+// uint4 store, nvcc split it into four 4-byte stores.
+__device__ __forceinline__ void st_v4(uint32_t* p, uint32_t x, uint32_t y,
+                                      uint32_t z, uint32_t w) {
+  asm volatile("st.global.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"l"(p), "r"(x),
+               "r"(y), "r"(z), "r"(w)
+               : "memory");
+}
+
+// Word (kk, i) of a k-major slot of TI-word rows, chunks swizzled.
+template <int TI>
+__device__ __forceinline__ int tr_slot(int kk, int i) {
+  return (kk * TI + i) ^ (((kk >> 2) & 7) << 2);
+}
+
+template <int VEC, int TI>
+__global__ void __launch_bounds__(kTrThreads)
 stage_transpose_kernel(const uint32_t* __restrict__ in, long long n,
                        uint32_t* __restrict__ out, long long stride, int win,
-                       int num) {
-  __shared__ uint32_t tile[kTile][kTile + 1];
-  const int k0 = blockIdx.x * kTile;
-  const int i0 = blockIdx.y * kTile;
-  const int i_in = i0 + threadIdx.x;
+                       int num, int k_tiles) {
+  constexpr int TK = kTrTileWords / TI;
+  constexpr int kVecs = TI / VEC;                 // load vectors a tile row
+  constexpr int kLoads = TK * kVecs / kTrThreads;  // a thread's, a tile
+  constexpr int kRowStep = kTrThreads / kVecs;    // rows between them
+  constexpr int kUnits = kTrTileWords / 128;      // 4 rows x 32 k a unit
+  static_assert(kLoads * kTrThreads == TK * kVecs && kUnits == 32, "tile");
+  __shared__ __align__(16) uint32_t tile[kTrTileWords];
+  const int tid = threadIdx.x;
+  // this thread's loads: rows kr + j * kRowStep, words u .. u + VEC - 1
+  const int kr = tid / kVecs, u = (tid % kVecs) * VEC;
+  // this thread's stores: tile row 4 * rg + rr, 16-byte word 8 * vg + wv
+  const int lane = tid & 31, warp = tid >> 5;
+  const int rr = lane >> 3, wv = lane & 7;
+  // a row's loads end at the last vector that starts below win
+  const int win_vec = (win + VEC - 1) / VEC * VEC;
+  const int i0 = (blockIdx.x / k_tiles) * TI, k0 = (blockIdx.x % k_tiles) * TK;
+  {
+    const int i = i0 + u;
+    const long long last = static_cast<long long>(k0 + TK - 1) * stride +
+                           min(i0 + TI, win_vec);
+    const uint32_t* src = in + static_cast<long long>(k0 + kr) * stride + i;
+    if (i >= win) {
+      // this thread's words are past win: none is stored
+    } else if (k0 + TK <= num && last <= n) {
 #pragma unroll
-  for (int r = 0; r < kTile; r += kTileRows) {
-    const int j = r + threadIdx.y;
-    const int k = k0 + j;
-    uint32_t v = 0u;
-    if (k < num && i_in < win) {
-      const long long idx = static_cast<long long>(k) * stride + i_in;
-      if (idx < n) v = __ldg(in + idx);
+      for (int j = 0; j < kLoads; ++j)
+        cp_async<VEC>(smem_u32(tile + tr_slot<TI>(kr + j * kRowStep, u)),
+                      src + j * kRowStep * stride, 4 * VEC);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kLoads; ++j) {
+        const int kk = kr + j * kRowStep;
+        if (k0 + kk >= num) break;
+        const long long idx = static_cast<long long>(k0 + kk) * stride + i;
+        const long long left = n - idx;
+        const int bytes = left <= 0 ? 0 : left >= VEC ? 4 * VEC
+                                                      : 4 * static_cast<int>(left);
+        cp_async<VEC>(smem_u32(tile + tr_slot<TI>(kk, u)),
+                      bytes ? src + j * kRowStep * stride : in, bytes);
+      }
     }
-    tile[j][threadIdx.x] = v;
   }
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   __syncthreads();
-  const int k_out = k0 + threadIdx.x;
+  {
+    const bool whole = k0 + TK <= num;
 #pragma unroll
-  for (int r = 0; r < kTile; r += kTileRows) {
-    const int j = r + threadIdx.y;
-    const int i = i0 + j;
-    if (i < win && k_out < num)
-      out[static_cast<long long>(i) * num + k_out] = tile[threadIdx.x][j];
+    for (int unit = warp; unit < kUnits; unit += kTrThreads / 32) {
+      const int r = (unit / (TK / 32)) * 4 + rr;
+      const int w = (unit % (TK / 32)) * 8 + wv;
+      const int i = i0 + r;
+      if (i >= win) continue;
+      const long long e0 = static_cast<long long>(i) * num + k0;
+      if (whole) {
+        const int a = static_cast<int>(e0 & 3);
+        if (a == 0 || w != 0) {
+          const int kk = 4 * w - a;
+          st_v4(out + e0 - a + 4 * w, tile[tr_slot<TI>(kk, r)],
+                tile[tr_slot<TI>(kk + 1, r)], tile[tr_slot<TI>(kk + 2, r)],
+                tile[tr_slot<TI>(kk + 3, r)]);
+        } else {
+          // the row's partial head (kk < 4 - a) and tail (kk >= TK - a)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int kk = c < 4 - a ? c : TK - 4 + c;
+            out[e0 + kk] = tile[tr_slot<TI>(kk, r)];
+          }
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int kk = 4 * w + c;
+          if (k0 + kk < num) out[e0 + kk] = tile[tr_slot<TI>(kk, r)];
+        }
+      }
+    }
   }
 }
 #endif  // IN_PART(0)
@@ -873,20 +984,40 @@ extern "C" int viterbi_k5_launch(VITERBI_ARGS) {
 #endif
 
 #if IN_PART(0)
-// K6: in holds n 32-bit words; out the (win, num) word-major layout.
+// K6: in holds n 32-bit words; out the (win, num) word-major layout.  vec
+// (4, 2 or 1 words a load) and ti (8, 16 or 32 rows a tile) are the route
+// core_cuda.transpose_route chose; a vec that the stride or in's address
+// does not allow, an out that is not 16-byte aligned, or more tiles than
+// grid.x holds (2^31 - 1) is refused.
+#define K6_ROUTE(V, T)                                                     \
+  if (vec == V && ti == T) {                                               \
+    constexpr int TK = kTrTileWords / T;                                   \
+    const int k_tiles = (num + TK - 1) / TK;                               \
+    const long long tiles =                                                \
+        static_cast<long long>(k_tiles) * ((win + T - 1) / T);             \
+    if (tiles > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue); \
+    stage_transpose_kernel<V, T>                                           \
+        <<<static_cast<unsigned>(tiles), kTrThreads, 0,                    \
+           static_cast<cudaStream_t>(stream)>>>(src, n, dst, stride, win,  \
+                                                num, k_tiles);             \
+    return static_cast<int>(cudaGetLastError());                           \
+  }
 extern "C" int viterbi_k6_launch(const void* in, long long n, void* out,
-                                 long long stride, int win, int num,
-                                 void* stream) {
-  if (num <= 0 || win <= 0 || stride <= 0)
+                                 long long stride, int win, int num, int vec,
+                                 int ti, void* stream) {
+  if (num <= 0 || win <= 0 || stride <= 0 || n < 0 || in == nullptr ||
+      out == nullptr || (vec != 1 && vec != 2 && vec != 4) ||
+      stride % vec != 0 || reinterpret_cast<uintptr_t>(in) % (4 * vec) != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((num + kTile - 1) / kTile, (win + kTile - 1) / kTile);
-  if (grid.y > 65535u) return static_cast<int>(cudaErrorInvalidValue);
-  stage_transpose_kernel<<<grid, dim3(kTile, kTileRows), 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(in), n, static_cast<uint32_t*>(out),
-      stride, win, num);
-  return static_cast<int>(cudaGetLastError());
+  const uint32_t* src = static_cast<const uint32_t*>(in);
+  uint32_t* dst = static_cast<uint32_t*>(out);
+  K6_ROUTE(4, 32) K6_ROUTE(4, 16) K6_ROUTE(4, 8)
+  K6_ROUTE(2, 32) K6_ROUTE(2, 16) K6_ROUTE(2, 8)
+  K6_ROUTE(1, 32) K6_ROUTE(1, 16) K6_ROUTE(1, 8)
+  return static_cast<int>(cudaErrorInvalidValue);
 }
+#undef K6_ROUTE
 #endif
 
 #undef VITERBI_LAUNCH

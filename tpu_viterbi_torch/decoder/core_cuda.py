@@ -50,6 +50,7 @@ CUDA tensor it launches the kernel or raises — it never falls back.
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 
 import torch
 
@@ -272,14 +273,38 @@ class PlaneKernel(CudaKernel):
                             window)
 
 
+K6_VECS = (4, 2, 1)          # words a load: viterbi.cu's K6 instances
+K6_TILE_ROWS = (32, 16, 8)   # words i a tile (TI; TK = K6_TILE_WORDS / TI)
+K6_TILE_WORDS = 4096         # viterbi.cu's kTrTileWords: 16 KB a tile
+
+
+def transpose_route(data_ptr: int, stride: int, win: int):
+    """(vec, ti): K6's instance for a stream at ``data_ptr``.  vec is the
+    widest load (4, 2 or 1 words) that every row start k * stride + i,
+    i a multiple of vec, keeps aligned: vec divides the stride and the
+    address is a multiple of 4 * vec bytes.  ti is the tile's rows that
+    pad win least (the larger on a tie), so a thin window does not idle
+    most of a tile: 8 at win 6 (HARD, dec_len 32), 32 at 1,056."""
+    vec = next(v for v in K6_VECS
+               if stride % v == 0 and data_ptr % (4 * v) == 0)
+    ti = min(K6_TILE_ROWS, key=lambda t: -(-win // t) * t)
+    return vec, ti
+
+
 class TransposeKernel(CudaKernel):
     """K6: a flat stream of 32-bit words (int32 or float32) -> the
     contiguous (win, num) word-major layout out[i, k] = x[k*stride + i],
-    zero past the stream's end (``core_torch.stage_transpose``)."""
+    zero past the stream's end (``core_torch.stage_transpose``).
+    ``route_launches`` counts the launches of each (vec, ti) instance
+    (``transpose_route``)."""
 
     ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                ctypes.c_void_p]
+                ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_void_p]
+
+    def __init__(self, name: str):
+        super().__init__(name)
+        self.route_launches = Counter()
 
     def __call__(self, x: torch.Tensor, stride: int, win: int,
                  num: int) -> torch.Tensor:
@@ -293,9 +318,11 @@ class TransposeKernel(CudaKernel):
             raise ValueError(f"{self.name} takes a contiguous 1-D int32 or "
                              f"float32 stream, got {x.dtype} "
                              f"{tuple(x.shape)}")
+        route = transpose_route(x.data_ptr(), stride, win)
         out = torch.empty((win, num), dtype=x.dtype, device=x.device)
         self._launch(x.device, x.data_ptr(), x.numel(), out.data_ptr(),
-                     stride, win, num)
+                     stride, win, num, *route)
+        self.route_launches[route] += 1
         return out
 
 

@@ -5,7 +5,7 @@ time a stage over SOFT8's on K13's harness on the TPU.
     python -m tpu_viterbi_torch.scripts.soft16_ablation [variants]
 
 Variants (the JAX script's, :9-17), on K13's harness (``csrc/acs.cuh``'s
-stage, one thread an array, a pack loop of 32 stages):
+stage arithmetic, a pack of 32 stages):
   s8/noup     (16, 128) word blocks a pack, u and d rows 0 and 1, raw, for
               every stage: SOFT8's input traffic, no unpack
   s16/noup    (32, 128) blocks: SOFT16's 2x traffic, no unpack
@@ -14,18 +14,25 @@ stage, one thread an array, a pack loop of 32 stages):
 noup reads every word of its block (the ones it does not use with
 ``ld.volatile``), as the TPU's block DMA did.
 
-Each variant runs N_PACKS packs (8192 stages) at two array counts: the JAX
-script's GRID programs of 128 arrays (2048) and HEADLINE_TILES (15,872, K1's
-occupancy at the headline, as K12 and K18 run).  A time is the median of
-REPS CUDA-event launches after one untimed launch, printed as ns per stage
-per 128-array tile beside the SASS of the stage loop (its LDG count shows
-the loads); then the JAX script's decomposition line at each count.
+Each array runs split over ``lanes`` lanes of a warp (``LANES``; 1 is one
+thread an array); ``lanes_for`` picks the count from the arrays: one lane
+where the arrays alone fill the card, else enough lanes for
+TARGET_THREADS threads.  Each variant runs N_PACKS packs
+(8192 stages) at two array counts, the JAX script's GRID programs of 128
+arrays (2048) and HEADLINE_TILES (15,872, K1's occupancy at the headline,
+as K12 and K18 run), at every lane count.  A time is the median of REPS
+CUDA-event launches after one untimed launch, printed as ns per stage per
+128-array tile and as the pace of a warp (ns per stage per array x the
+warp's arrays) beside the SASS of the stage loop (its LDG count shows the
+loads, its SHFL count the lanes' exchanges); then the JAX script's
+decomposition line at each count, at the lanes ``lanes_for`` picks.
 """
 
 from __future__ import annotations
 
 import ctypes
 import sys
+from collections import Counter
 
 import torch
 
@@ -40,7 +47,36 @@ HEADLINE_TILES = 124
 REPS = 5
 VARIANTS = ("s8/noup", "s16/noup", "s8/unpack", "s16/unpack")
 WPP = {"s8/noup": 16, "s16/noup": 32, "s8/unpack": 16, "s16/unpack": 32}
-LOOP_STAGES = 2         # stages of one pass of the stage loop
+LANES = (1, 2, 4, 8, 16, 32)   # lanes an array: soft16_ablation.cu's
+# One lane an array while the arrays alone give half a warp a scheduler (132
+# SMs x 4 x 16): a split adds work (1.6-3.3x the lane-instructions of an
+# array-stage), which pays only where one lane an array leaves the card
+# waiting on its chains.  Below that, the fewest lanes that give
+# TARGET_THREADS threads (~4 warps a scheduler).
+ONE_LANE_ARRAYS = 8_448
+TARGET_THREADS = 65_536
+
+
+def loop_stages(lanes: int) -> int:
+    """Stages of one pass of the stage loop: K13's two at one lane, the
+    six phases of the lane-split layout."""
+    return 2 if lanes == 1 else 6
+
+
+def lanes_for(arrays: int) -> int:
+    """The lanes an array of ``LANES`` that K25 runs ``arrays`` arrays at:
+    1 from ONE_LANE_ARRAYS arrays, else the fewest that give ``arrays`` x
+    lanes >= TARGET_THREADS, at most 32 (one warp an array)."""
+    if arrays >= ONE_LANE_ARRAYS:
+        return 1
+    return next((n for n in LANES[1:] if arrays * n >= TARGET_THREADS),
+                LANES[-1])
+
+
+def check_lanes(lanes: int) -> None:
+    if type(lanes) is not int or lanes not in LANES:
+        raise ValueError(f"K25 splits an array over one of {LANES} lanes, "
+                         f"got {lanes!r}")
 # lane-operations an array-stage, for the bound: the ACS (chip_smoke.ACS_OPS)
 # and, with the unpack, its two field extracts, an add and a subtract
 OPS = {"s8/noup": 256, "s16/noup": 256, "s8/unpack": 260, "s16/unpack": 260}
@@ -94,27 +130,34 @@ def soft16_ablation_torch(variant: str, words: torch.Tensor,
 
 
 class Soft16AblationKernel(ProbeKernel):
-    """K25, bound to ``viterbi_k25_launch``."""
+    """K25, bound to ``viterbi_k25_launch``.  ``lane_launches`` counts the
+    launches at each lane count."""
 
     def __init__(self):
         super().__init__("K25", "viterbi_k25_launch", "soft16_ablation.cu",
-                         [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                          ctypes.c_int, ctypes.c_int])
+                         [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                          ctypes.c_void_p, ctypes.c_int, ctypes.c_int])
+        self.lane_launches = Counter()
 
-    def __call__(self, variant: str, words: torch.Tensor,
-                 programs: int) -> torch.Tensor:
+    def __call__(self, variant: str, words: torch.Tensor, programs: int,
+                 lanes: int = None) -> torch.Tensor:
         """(programs, 1, 128) int32.  On a CUDA tensor one launch on the
-        current stream, not synchronized; on a CPU tensor its plain
+        current stream, not synchronized, each array over ``lanes`` lanes
+        (``lanes_for`` the arrays when None); on a CPU tensor its plain
         version."""
         n_packs = _check(variant, words, programs)
+        if lanes is None:
+            lanes = lanes_for(programs * LT)
+        check_lanes(lanes)
         if not words.is_contiguous():
             raise ValueError("K25 takes contiguous words")
         if not self.check_device(words):
             return soft16_ablation_torch(variant, words, programs)
         out = torch.empty((programs, 1, LT), dtype=torch.int32,
                           device=words.device)
-        self.launch(words.device, VARIANTS.index(variant), words.data_ptr(),
-                    out.data_ptr(), programs, n_packs)
+        self.launch(words.device, VARIANTS.index(variant), lanes,
+                    words.data_ptr(), out.data_ptr(), programs, n_packs)
+        self.lane_launches[lanes] += 1
         return out
 
 
@@ -134,11 +177,17 @@ def probe_input(programs: int, n_packs: int, wpp: int, device,
 
 
 def sass_counts() -> dict:
-    """{variant: (SASS instructions of its stage loop, {REG, STACK, ...},
-    the loop's opcode mix)} read from the built library."""
-    return sass_table("viterbi_soft16_ablation",
-                      {v: ("soft16_ablation_kernel", f"ILi{i}E")
-                       for i, v in enumerate(VARIANTS)})
+    """{(variant, lanes): (SASS instructions of its stage loop, {REG,
+    STACK, ...}, the loop's opcode mix)} read from the built library."""
+    return sass_table("viterbi_soft16_ablation", {
+        (v, n): ("soft16_ablation_kernel", f"ILi{i}EE") if n == 1 else
+        ("soft16_lanes_kernel", f"ILi{i}ELi{n}EE")
+        for i, v in enumerate(VARIANTS) for n in LANES})
+
+
+def shfl_count(mix: dict) -> int:
+    """SHFL instructions of a stage loop's opcode mix."""
+    return sum(n for op, n in mix.items() if op.startswith("SHFL"))
 
 
 def decomposition(by: dict) -> str:
@@ -149,37 +198,61 @@ def decomposition(by: dict) -> str:
             f"{d - c:+.4f}")
 
 
+def warp_pace(r: dict) -> float:
+    """ns per stage per array x the arrays a warp holds (32 / lanes): the
+    card's time a warp-stage.  At one lane and few arrays it is the chain's
+    latency spread over idle schedulers; it falls with the split until the
+    schedulers' issue, not the chains, sets it."""
+    return r["ms"] * 1e6 / (N_PACKS * 32 * r["arrays"]) * (32 / r["lanes"])
+
+
 def describe(r: dict) -> str:
-    return (describe_stages(r, f"{r['variant']:10s} {r['arrays']:6d} arrays")
-            + f"; LDG in the stage loop {r['ldg']}")
+    return (describe_stages(r, f"{r['variant']:10s} {r['arrays']:6d} arrays "
+                               f"{r['lanes']:2d} lanes")
+            + f"; SHFL a stage {r['shfl_per_stage']:g}; LDG in the stage "
+            f"loop {r['ldg']}; a stage every "
+            f"{r['ms'] * 1e6 / (N_PACKS * 32):.1f} ns; warp pace "
+            f"{warp_pace(r):.4f} ns/stage")
 
 
-def probe(names=VARIANTS) -> list:
+def probe(names=VARIANTS, lanes=LANES) -> list:
     """Time each named variant on the current CUDA device at GRID and
-    HEADLINE_TILES programs and print one line each, and the decomposition
-    line where all four ran; returns the ``time_stages`` results."""
+    HEADLINE_TILES programs at every lane count of ``lanes`` and print one
+    line each, and the decomposition line where all four ran at the count
+    ``lanes_for`` picks; returns the ``time_stages`` results."""
     check_names(names, VARIANTS)
+    for n in lanes:
+        check_lanes(n)
     dev = hardware.resolve_device("cuda")
     sass = sass_counts()
     print(f"{torch.cuda.get_device_name(dev)}: {N_PACKS} packs of 32 stages, "
-          f"CUDA blocks of 64 threads")
+          f"lanes {list(lanes)} an array", flush=True)
     results = []
     for programs in (GRID, HEADLINE_TILES):
+        picked = lanes_for(programs * LT)
         by = {}
         for wpp in sorted({WPP[v] for v in names}):
             words = probe_input(programs, N_PACKS, wpp, dev)
             for v in (v for v in names if WPP[v] == wpp):
-                r = time_stages(lambda: K25(v, words, programs), REPS,
-                                N_PACKS * 32, programs * LT, sass[v],
-                                LOOP_STAGES, variant=v, programs=programs,
-                                ldg=sum(n for op, n in sass[v][2].items()
-                                        if op.startswith("LDG")))
-                results.append(r)
-                by[v] = r["ns_per_stage_tile"]
-                print(describe(r), flush=True)
+                for n in lanes:
+                    mix = sass[v, n][2]
+                    r = time_stages(lambda: K25(v, words, programs, n), REPS,
+                                    N_PACKS * 32, programs * LT, sass[v, n],
+                                    loop_stages(n), variant=v,
+                                    programs=programs, lanes=n,
+                                    picked=n == picked,
+                                    shfl_per_stage=shfl_count(mix) /
+                                    loop_stages(n),
+                                    ldg=sum(k for op, k in mix.items()
+                                            if op.startswith("LDG")))
+                    results.append(r)
+                    if n == picked:
+                        by[v] = r["ns_per_stage_tile"]
+                    print(describe(r), flush=True)
             del words
         if len(by) == len(VARIANTS):
-            print(f"{programs * LT} arrays: {decomposition(by)}", flush=True)
+            print(f"{programs * LT} arrays, {picked} lanes: "
+                  f"{decomposition(by)}", flush=True)
     return results
 
 
