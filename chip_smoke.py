@@ -24,9 +24,11 @@ after holding their kernels against their plain versions.  Phases 31-35
 hold K1's and K3's u/d-word reader against its plain version and K2, and
 drive the last probes (K25 SOFT16 ablation, K26 transpose, K27 FP32
 routes: launches of K1, K2 and K3, K28 interleave); phases 16 and 19 cover
-K11's relayouts and K13's bisect traceback; phase 32 holds K25 at every
-lane count an array (1 to 32) and times each at both array counts, with
-the lanes the wrapper picks.  Phase 14 times K6 on the headline's words
+K11's relayouts and K13's bisect traceback; phases 19, 25 and 32 hold K13,
+K19 and K25 at every lane count an array (1 to 32, csrc/lanes.cuh) and
+time each at both array counts in turn with one lane, with the lanes the
+wrapper picks (common.lanes_for), and K19 and K25 at the counts between,
+where the rule's threshold lies.  Phase 14 times K6 on the headline's words
 and values and on HARD's thinnest window (dec_len 32) with the route
 (load width, tile rows) that ran, and K4 in word
 mode (int16x2 metrics) in turns with K1 and K1_I32 and K5 in turns with K2
@@ -120,8 +122,8 @@ from tpu_viterbi_torch.scripts import (  # noqa: E402
     opt_bench, soft16_ablation, soft16_pieces, staging_cost, swar_probe,
     transpose_bench)
 from tpu_viterbi_torch.scripts.common import (  # noqa: E402
-    PIECE_RUNS, cubin_listings, describe_mix, kernel_opcodes, pick,
-    sass_table)
+    LANES, PIECE_RUNS, TURNS, cubin_listings, describe_mix, kernel_opcodes,
+    lanes_for, pick, sass_table)
 from tpu_viterbi_torch.sharding.simulate import (  # noqa: E402
     DEFAULT_SCALES, build_sharded_simulation, count_errors)
 from tpu_viterbi_torch.sharding import (  # noqa: E402
@@ -290,10 +292,13 @@ def build_phase():
     regs = sorted(set(re.findall(r"Used (\d+) registers", log)), key=int)
     spills = sorted(set(re.findall(r"(\d+) bytes spill stores", log)))
     sources = sorted({str(k.source.relative_to(ROOT)) for k in KERNELS})
+    slowest = sorted(library.build_seconds.items(), key=lambda kv: -kv[1])
     say("2 build", f"{', '.join(k.name for k in KERNELS)} built from "
                    f"{' + '.join(sources)} and bound in {secs:.2f} s "
                    f"(registers per thread {regs or 'cached'}, spill stores "
-                   f"{spills or '-'})")
+                   f"{spills or '-'}; slowest nvcc jobs " + ", ".join(
+                       f"{job} {sec:.1f} s" for job, sec in slowest[:6]) +
+        ")")
 
 
 def seeded_rng(gen) -> np.random.Generator:
@@ -1825,34 +1830,53 @@ def layout_phase(card: str, runs: dict):
     return a["ms"], p_ms, 0, a["bound"]
 
 
+def lane_line(results: list, key=lambda r: r["lanes"]) -> str:
+    """'1: 3.3021 ms (394.5 SASS, 0 SHFL a stage, 40 registers), ...' of
+    ``results`` in their order."""
+    return ", ".join(f"{key(r)}: {r['ms']:.4f} ms ({r['sass_per_stage']:g} "
+                     f"SASS, {r['shfl_per_stage']:g} SHFL a stage, "
+                     f"{r['regs']} registers)" for r in results)
+
+
 def ablation_phase(card: str, runs: dict, k10_ms: float):
-    """K13: every variant's output and survivor store bit-equal to its plain
-    version on all GRID programs at ABLATION_CHECK_PACKS packs, then `python
-    -m tpu_viterbi_torch.scripts.kernel_ablation` with the counts set to 0,
-    and each variant's bound, beside K10 (K4 with every piece, at the same
-    2048 blocks x 8192 stages, ``k10_ms`` in this run; K4 runs the int16x2
-    ACS there, K13's pieces the int32 one).  Returns K13's row:
-    +traceback at the JAX shape beside its plain version there, output and
-    store equal."""
+    """K13: every variant at every lane count, output and survivor store
+    bit-equal to its plain version on all programs of both counts (GRID
+    and HEADLINE_TILES) at ABLATION_CHECK_PACKS packs (pack ends in all
+    three phases of the lane-split pass), then `python -m
+    tpu_viterbi_torch.scripts.kernel_ablation` (every variant at both
+    counts at every lane count in turn with one lane) with the counts set
+    to 0, and each run's bound, beside K10 (K4 with every piece, at the
+    same 2048 blocks x 8192 stages, ``k10_ms`` in this run; K4 runs the
+    int16x2 ACS there, K13's pieces the int32 one).  Prints, at each count,
+    each variant by lanes and what the dump (+dump - +unpack) and the chase
+    (+traceback - +dump) cost at each lane count.  Returns K13's row:
+    +traceback at the JAX shape at the picked lanes beside its plain
+    version there, output and store equal; each lane count's times in the
+    extra keys."""
     ka = kernel_ablation
-    words = ka.probe_input(ka.GRID, ABLATION_CHECK_PACKS, "cuda", seed=SEED)
-    for v in ka.VARIANTS:
-        out, store = K13(v, words, ka.GRID)
-        torch.cuda.synchronize()
-        want, want_store = ka.ablation_torch(v, words, ka.GRID)
-        if not torch.equal(out, want) or (store is None) != (
-                want_store is None) or (store is not None and
-                                        not torch.equal(store, want_store)):
-            raise AssertionError(f"K13 {v} differs from its plain version")
+    for programs in (ka.GRID, ka.HEADLINE_TILES):
+        words = ka.probe_input(programs, ABLATION_CHECK_PACKS, "cuda",
+                               seed=SEED)
+        for v in ka.VARIANTS:
+            want, want_store = ka.ablation_torch(v, words, programs)
+            for n in LANES:
+                what = f"K13 {v} at {programs} programs, {n} lanes"
+                out, store = K13(v, words, programs, n)
+                held(what, out, want)
+                if (store is None) != (want_store is None):
+                    raise AssertionError(f"{what}: a store where none was "
+                                         f"due, or none where one was")
+                if store is not None:
+                    held(f"{what}, survivor store", store, want_store)
     say("19 ablation", f"K13 bit-equal to its plain version on all "
-        f"{len(ka.VARIANTS)} variants, output and survivor store, "
-        f"{ka.GRID} programs of {ABLATION_CHECK_PACKS} packs")
+        f"{len(ka.VARIANTS)} variants at lanes {list(LANES)}, output and "
+        f"survivor store, every program of {ka.GRID} and "
+        f"{ka.HEADLINE_TILES} programs of {ABLATION_CHECK_PACKS} packs")
     results, counts = probe_run(ka.probe)
     record(runs, counts, 1, ["K13"], "ablation probe")
-    arrays = ka.GRID * 128
     stages = ka.N_PACKS * 32
     for r in results:
-        v = r["variant"]
+        v, arrays = r["variant"], r["arrays"]
         read = 4 * ka.WPP if v == "body" else ka.N_PACKS * ka.WPP
         store = ka.N_PACKS * 64 if v in ("+dump",) + ka.TRACEBACKS else 0
         out_rows = ka.n_emit(v, ka.N_PACKS)
@@ -1860,15 +1884,50 @@ def ablation_phase(card: str, runs: dict, k10_ms: float):
                     ka.OPS[v] * arrays * stages)
         r["bound"] = bnd
         say("19 ablation", f"{card}: {v} at {arrays} arrays x {stages} "
-            f"stages: {r['ms']:.4f} ms = {r['ns_per_stage_tile']:.4f} "
-            f"ns/stage/tile; SASS {r['sass_per_stage']:g} a stage; "
-            f"registers {r['regs']}, stack {r['stack']} B; "
+            f"stages, {r['lanes']} lanes: {r['ms']:.4f} ms = "
+            f"{r['ns_per_stage_tile']:.4f} ns/stage/tile; SASS "
+            f"{r['sass_per_stage']:g} and SHFL {r['shfl_per_stage']:g} a "
+            f"stage; registers {r['regs']}, stack {r['stack']} B; "
             f"{share(bnd, r['ms'])}")
-    by = {r["variant"]: r["ns_per_stage_tile"] for r in results}
+    extra = {}
+    for programs in (ka.GRID, ka.HEADLINE_TILES):
+        arrays = programs * 128
+        picked = lanes_for(arrays)
+        mine = [r for r in results if r["programs"] == programs]
+        # the first run at each lane count (one lane's second turn apart)
+        first = {}
+        for r in mine:
+            first.setdefault((r["variant"], r["lanes"]), r)
+        for v in ka.VARIANTS:
+            turns = [r for r in mine if r["variant"] == v]
+            for n, r in zip(TURNS, turns):
+                key = f"{v}_{arrays}_lanes{n}_ms"
+                extra[key if key not in extra else
+                      f"{v}_{arrays}_lanes{n}_again_ms"] = r["ms"]
+            say("19 ablation", f"{card}: {arrays} arrays, {v} by lanes "
+                f"in turn: {lane_line(turns)}")
+        for n in LANES:
+            dump = first["+dump", n]["ms"] - first["+unpack", n]["ms"]
+            chase = first["+traceback", n]["ms"] - first["+dump", n]["ms"]
+            bisect = first["+tb(bisect)", n]["ms"] - first["+dump", n]["ms"]
+            extra.update({f"dump_{arrays}_lanes{n}_ms": dump,
+                          f"chase_{arrays}_lanes{n}_ms": chase})
+            say("19 ablation", f"{card}: {arrays} arrays, {n} lanes"
+                f"{' (picked)' if n == picked else ''}: the dump (+dump - "
+                f"+unpack) {dump:+.4f} ms, the chase (+traceback - +dump) "
+                f"{chase:+.4f} ms, the bisect's (+tb(bisect) - +dump) "
+                f"{bisect:+.4f} ms")
+        tb = first["+traceback", picked]
+        extra.update({f"lanes_at_{arrays}": picked,
+                      f"sass_per_stage_at_{arrays}": tb["sass_per_stage"],
+                      f"shfl_per_stage_at_{arrays}": tb["shfl_per_stage"],
+                      f"registers_at_{arrays}": tb["regs"]})
+    by = {r["variant"]: r["ns_per_stage_tile"] for r in results
+          if r["programs"] == ka.GRID and r["lanes"] == 1}
     say("19 ablation", f"K10 in this run, K4 with every piece at the same "
         f"shape on int16x2 metrics (K13's pieces run the int32 ACS): "
         f"{k10_ms:.4f} ms = {k10_ms * 1e6 / (stages * ka.GRID):.4f} "
-        f"ns/stage/tile; over +dump: +traceback "
+        f"ns/stage/tile; at one lane over +dump: +traceback "
         f"{by['+traceback'] - by['+dump']:+.4f}, +tb(bisect) "
         f"{by['+tb(bisect)'] - by['+dump']:+.4f} ns/stage/tile")
     full = ka.probe_input(ka.GRID, ka.N_PACKS, "cuda", seed=SEED)
@@ -1878,8 +1937,10 @@ def ablation_phase(card: str, runs: dict, k10_ms: float):
     if not (torch.equal(out, want) and torch.equal(store, want_store)):
         raise AssertionError("K13 +traceback differs from its plain version "
                              "at the JAX shape")
-    tb = next(r for r in results if r["variant"] == "+traceback")
-    return tb["ms"], p_ms, 0, tb["bound"]
+    tb = next(r for r in results if r["variant"] == "+traceback" and
+              r["programs"] == ka.GRID and
+              r["lanes"] == lanes_for(ka.GRID * 128))
+    return tb["ms"], p_ms, 0, tb["bound"], None, extra
 
 
 def acs_variants_phase(card: str, runs: dict):
@@ -2073,11 +2134,14 @@ def swar_phase(card: str, runs: dict):
 
 
 def opt_bench_phase(card: str, runs: dict):
-    """K19: every variant at every lt bit-equal to its plain version at two
-    packs over both array counts (4096 and 15,872), then `python -m
-    tpu_viterbi_torch.scripts.opt_bench` with the counts set to 0, and
-    each run's bound.  Returns K19's row: i16 at lt 128 at the JAX shape
-    beside its plain version there."""
+    """K19: every variant at every lt and every lane count bit-equal to its
+    plain version at two packs over both array counts (4096 and 15,872),
+    then `python -m tpu_viterbi_torch.scripts.opt_bench` (every variant at
+    every lt at every lane count in turn with one lane, at both counts,
+    then i16 at lt 128 at every lane count at the counts between) with the
+    counts set to 0, and each run's bound.  Returns K19's row: i16 at lt
+    128 at the JAX shape at the picked lanes beside its plain version
+    there; each lane count's times in the extra keys."""
     ob = opt_bench
     for width in (ob.LANES, ob.HEADLINE_ARRAYS):
         rs = ob.probe_input(PROBE_CHECK_STAGES // ob.BPP, width, "cuda",
@@ -2085,23 +2149,51 @@ def opt_bench_phase(card: str, runs: dict):
         for v in ob.VARIANTS:
             want = ob.opt_bench_torch(v, rs)
             for lt in ob.LTS:
-                if not torch.equal(K19(v, rs, lt), want):
-                    raise AssertionError(f"K19 {v} lt {lt} differs from its "
-                                         f"plain version at {width} arrays")
+                for n in LANES:
+                    held(f"K19 {v} lt {lt} at {width} arrays, {n} lanes",
+                         K19(v, rs, lt, n), want)
     say("25 opt bench", f"K19 bit-equal to its plain version on all "
-        f"{len(ob.VARIANTS)} variants x lt {ob.LTS} at {ob.LANES} and "
-        f"{ob.HEADLINE_ARRAYS} arrays, {PROBE_CHECK_STAGES} stages")
+        f"{len(ob.VARIANTS)} variants x lt {ob.LTS} x lanes {list(LANES)} "
+        f"at {ob.LANES} and {ob.HEADLINE_ARRAYS} arrays, "
+        f"{PROBE_CHECK_STAGES} stages")
     stages = ob.N_PACKS * ob.BPP
     results = probe_results(
         "25 opt bench", card, runs, ob, "K19", "16-bit ACS probe",
         lambda r: bound((stages * 2 + 64) * r["arrays"] * 4,
                         ob.OPS[r["variant"]] * r["arrays"] * stages))
+    extra = {}
+    for width in (ob.LANES, ob.HEADLINE_ARRAYS):
+        for lt in ob.LTS:
+            for v in ob.VARIANTS:
+                turns = [r for r in results if r["arrays"] == width and
+                         r["lt"] == lt and r["variant"] == v]
+                for n, r in zip(TURNS, turns):
+                    key = f"{v}_lt{lt}_{width}_lanes{n}_ms"
+                    extra[key if key not in extra else
+                          f"{v}_lt{lt}_{width}_lanes{n}_again_ms"] = r["ms"]
+                say("25 opt bench", f"{card}: {width} arrays, {v} lt {lt} "
+                    f"by lanes in turn: {lane_line(turns)}")
+    for width in ob.CROSSOVER_ARRAYS:
+        mine = [r for r in results if r["arrays"] == width]
+        for r in mine:
+            extra[f"i16_lt128_{width}_lanes{r['lanes']}_ms"] = r["ms"]
+        best = min(mine, key=lambda r: r["ms"])
+        extra[f"fastest_lanes_at_{width}"] = best["lanes"]
+        say("25 opt bench", f"{card}: {width} arrays, i16 lt 128 by lanes: "
+            f"{lane_line(mine)}; fastest {best['lanes']}, lanes_for picks "
+            f"{lanes_for(width)}")
     full = ob.probe_input(ob.N_PACKS, ob.LANES, "cuda", seed=SEED)
     p_ms = held_to_plain("K19 i16 at the JAX shape", K19("i16", full, 128),
                          lambda: ob.opt_bench_torch("i16", full))
+    picked = lanes_for(ob.LANES)
     row = next(r for r in results if r["variant"] == "i16" and
-               r["lt"] == 128 and r["arrays"] == ob.LANES)
-    return row["ms"], p_ms, 0, row["bound"]
+               r["lt"] == 128 and r["arrays"] == ob.LANES and
+               r["lanes"] == picked)
+    extra.update(lanes_at_4096=picked,
+                 sass_per_stage_at_4096=row["sass_per_stage"],
+                 shfl_per_stage_at_4096=row["shfl_per_stage"],
+                 registers_at_4096=row["regs"])
+    return row["ms"], p_ms, 0, row["bound"], None, extra
 
 
 def genkernel_probe_phase(card: str, runs: dict):
@@ -2368,11 +2460,11 @@ def soft16_ablation_phase(card: str, runs: dict):
             w = sa.probe_input(programs, ABLATION_CHECK_PACKS, sa.WPP[v],
                                "cuda", seed=SEED)
             want = sa.soft16_ablation_torch(v, w, programs)
-            for n in sa.LANES:
+            for n in LANES:
                 held(f"K25 {v} at {programs} programs, {n} lanes",
                      K25(v, w, programs, n), want)
     say("32 soft16 ablation", f"K25 bit-equal to its plain version on all "
-        f"{len(sa.VARIANTS)} variants at lanes {list(sa.LANES)}, every "
+        f"{len(sa.VARIANTS)} variants at lanes {list(LANES)}, every "
         f"program of {sa.GRID} and {sa.HEADLINE_TILES} programs, "
         f"{ABLATION_CHECK_PACKS} packs")
     stages = sa.N_PACKS * 32
@@ -2409,6 +2501,15 @@ def soft16_ablation_phase(card: str, runs: dict):
             f"; {sa.decomposition(by)}; LDG a loop pass " + ", ".join(
                 f"{r['variant']} {r['ldg']}" for r in mine
                 if r["lanes"] == picked))
+    for programs in sa.CROSSOVER_PROGRAMS:
+        arrays = programs * 128
+        mine = [r for r in results if r["programs"] == programs]
+        for r in mine:
+            extra[f"s16_unpack_{arrays}_lanes{r['lanes']}_ms"] = r["ms"]
+        extra[f"fastest_lanes_at_{arrays}"] = sa.fastest(mine)
+        say("32 soft16 ablation", f"{card}: {arrays} arrays, s16/unpack by "
+            f"lanes: {lane_line(mine)}; fastest {sa.fastest(mine)}, "
+            f"lanes_for picks {lanes_for(arrays)}")
     w = sa.probe_input(sa.GRID, sa.N_PACKS, 32, "cuda", seed=SEED)
     p_ms = held_to_plain("K25 s16/unpack at the JAX shape",
                          K25("s16/unpack", w, sa.GRID),
@@ -2903,7 +3004,12 @@ def main() -> int:
     want["K10"] = CANARY_REPS + 1
     want["K11"] = 2 * len(op_cost_probe.VARIANTS) * (op_cost_probe.REPS + 1)
     want["K12"] = 2 * len(layout_probe.VARIANTS) * (layout_probe.REPS + 1)
-    want["K13"] = len(kernel_ablation.VARIANTS) * (kernel_ablation.REPS + 1)
+    # K13: every variant at both counts at each lane count in turn; K19
+    # likewise at every lt, then i16 at the counts between at each lane
+    # count; K25 every variant at both counts and s16/unpack at the counts
+    # between at each lane count
+    want["K13"] = 2 * len(kernel_ablation.VARIANTS) * len(TURNS) * (
+        kernel_ablation.REPS + 1)
     want["K14"] = len(acs_variants_bench.VARIANTS) * (
         acs_variants_bench.REPS + 1)
     want["K15"] = 2 * len(ilp_probe.OCCUPANCIES) * len(ilp_probe.CHAINS) * \
@@ -2913,8 +3019,9 @@ def main() -> int:
     want["K17"] = 2 * len(dtype_throughput.OCCUPANCIES) * len(
         dtype_throughput.DTYPES) * (dtype_throughput.REPS + 1)
     want["K18"] = 2 * len(swar_probe.VARIANTS) * (swar_probe.REPS + 1)
-    want["K19"] = 2 * len(opt_bench.LTS) * len(opt_bench.VARIANTS) * (
-        opt_bench.REPS + 1)
+    want["K19"] = (2 * len(opt_bench.LTS) * len(opt_bench.VARIANTS) *
+                   len(TURNS) + len(opt_bench.CROSSOVER_ARRAYS) *
+                   len(LANES)) * (opt_bench.REPS + 1)
     # K20: tf, the 3 known answers and log_sqrt, then each rate; K21-K24:
     # one warm-up and PIECE_RUNS timed calls a piece (K21: K6 + 3 K1 pieces
     # a dec_len; K22: K6, K4, K6 + K4, and the kernel piece's staging; K23:
@@ -2927,12 +3034,13 @@ def main() -> int:
     want["K22"] = 4 * runs_a_piece + 1
     want["K23"] = runs_a_piece
     want["K24"] = len(soft16_pieces.CONFIGS) * (2 * runs_a_piece + 1)
-    # K25: two array counts at every lane count; K26: torch + consume, each tiling and the
+    # K26: torch + consume, each tiling and the
     # consumer, one warm-up and REPS timed each; K27: the check's 4 decodes,
     # then one warm-up and RUNS timed calls a decoding route; K28: the
     # check's one launch a variant, then two grids
-    want["K25"] = 2 * len(soft16_ablation.VARIANTS) * len(
-        soft16_ablation.LANES) * (soft16_ablation.REPS + 1)
+    want["K25"] = (2 * len(soft16_ablation.VARIANTS) + len(
+        soft16_ablation.CROSSOVER_PROGRAMS)) * len(LANES) * (
+            soft16_ablation.REPS + 1)
     want["K26"] = (len(transpose_bench.TILINGS) + 2) * (
         transpose_bench.REPS + 1)
     want["K27"] = 4 + sum(kind != "staging" for *_, kind in

@@ -881,25 +881,35 @@ def test_k12_matches_plain(gpu, variant):
     assert K12.launches == before + 1
 
 
+@pytest.mark.parametrize("programs", [3, 16])
+@pytest.mark.parametrize("lanes", (None,) + soft16_ablation.LANES)
 @pytest.mark.parametrize("variant", kernel_ablation.VARIANTS)
-def test_k13_matches_plain(gpu, variant):
-    """Three programs of 6 packs: output and survivor store equal the
-    plain version's; one launch; a refused shape raises before any
+def test_k13_matches_plain(gpu, variant, lanes, programs):
+    """Three programs and the JAX grid's 16 of 4, 5 and 6 packs (pack ends
+    in all three phases of the lane-split pass, tails of 2, 4 and 0
+    stages), at the lanes the wrapper picks (None) and split over every
+    lane count: output and survivor store equal the plain version's; one
+    launch each, counted at its lanes; a refused shape raises before any
     launch."""
-    words = kernel_ablation.probe_input(3, 6, gpu, seed=2)
     K13 = kernel_ablation.K13
-    before = K13.launches
-    out, store = K13(variant, words, 3)
-    torch.cuda.synchronize()
-    assert K13.launches == before + 1
-    want, want_store = kernel_ablation.ablation_torch(variant, words, 3)
-    assert torch.equal(out, want)
-    assert (store is None) == (want_store is None)
-    if store is not None:
-        assert torch.equal(store, want_store)
+    n = soft16_ablation.lanes_for(programs * 128) if lanes is None else lanes
+    for n_packs in (4, 5, 6):
+        words = kernel_ablation.probe_input(programs, n_packs, gpu,
+                                            seed=2 + n_packs)
+        before = (K13.launches, K13.lane_launches[n])
+        out, store = K13(variant, words, programs, lanes)
+        torch.cuda.synchronize()
+        assert (K13.launches, K13.lane_launches[n]) == (before[0] + 1,
+                                                        before[1] + 1)
+        want, want_store = kernel_ablation.ablation_torch(variant, words,
+                                                          programs)
+        assert torch.equal(out, want)
+        assert (store is None) == (want_store is None)
+        if store is not None:
+            assert torch.equal(store, want_store)
     with pytest.raises(ValueError):
-        K13(variant, words, 5)
-    assert K13.launches == before + 1
+        K13(variant, words, 7, lanes)
+    assert K13.launches == before[0] + 1
 
 
 @pytest.mark.parametrize("variant", acs_variants_bench.VARIANTS)
@@ -944,14 +954,16 @@ def test_probe_sass_readings(gpu):
     """Every kernel of K12-K19 has a stage (step) loop in the library's
     SASS, a register count and an opcode mix that sums to the loop."""
     for mod, keys in ((layout_probe, layout_probe.VARIANTS),
-                      (kernel_ablation, kernel_ablation.VARIANTS),
+                      (kernel_ablation, list(itertools.product(
+                          kernel_ablation.VARIANTS, soft16_ablation.LANES))),
                       (acs_variants_bench, acs_variants_bench.VARIANTS),
                       (ilp_probe, ilp_probe.CHAINS),
                       (kernel_microbench, kernel_microbench.VARIANTS),
                       (dtype_throughput, dtype_throughput.DTYPES),
                       (swar_probe, swar_probe.VARIANTS),
-                      (opt_bench, [(v, lt) for v in opt_bench.VARIANTS
-                                   for lt in opt_bench.LTS])):
+                      (opt_bench, list(itertools.product(
+                          opt_bench.VARIANTS, opt_bench.LTS,
+                          soft16_ablation.LANES)))):
         counts = mod.sass_counts()
         assert set(counts) == set(keys)
         for loop, res, mix in counts.values():
@@ -1024,25 +1036,32 @@ def test_k18_matches_plain(gpu, variant, programs):
     assert K18.launches == before + 1
 
 
+@pytest.mark.parametrize("lanes", (None,) + soft16_ablation.LANES)
 @pytest.mark.parametrize("width", [opt_bench.LANES,
                                    opt_bench.HEADLINE_ARRAYS, 300])
 @pytest.mark.parametrize("variant", opt_bench.VARIANTS)
-def test_k19_matches_plain(gpu, variant, width):
-    """Two packs at the JAX width (4096 arrays), at 15,872 and at 300 (a
-    ragged block), at every lt: equal to the plain version; one launch
-    each; a refused lt raises before any launch."""
-    rs = opt_bench.probe_input(2, width, gpu, seed=9)
-    want = opt_bench.opt_bench_torch(variant, rs)
+def test_k19_matches_plain(gpu, variant, width, lanes):
+    """One, two and three packs (the output rows mapped back from phases 2,
+    4 and 0 of the lane-split pass) at the JAX width (4096 arrays), at
+    15,872 and at 300 (a ragged block), at every lt, at the lanes the
+    wrapper picks (None) and split over every lane count: equal to the
+    plain version; one launch each, counted at its lanes; a refused lt
+    raises before any launch."""
     K19 = opt_bench.K19
-    before = K19.launches
-    for lt in opt_bench.LTS:
-        got = K19(variant, rs, lt)
-        torch.cuda.synchronize()
-        assert torch.equal(got, want)
-    assert K19.launches == before + len(opt_bench.LTS)
+    n = soft16_ablation.lanes_for(width) if lanes is None else lanes
+    for n_packs in (1, 2, 3):
+        rs = opt_bench.probe_input(n_packs, width, gpu, seed=9 + n_packs)
+        want = opt_bench.opt_bench_torch(variant, rs)
+        before = (K19.launches, K19.lane_launches[n])
+        for lt in opt_bench.LTS:
+            got = K19(variant, rs, lt, lanes)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+        assert (K19.launches, K19.lane_launches[n]) == (
+            before[0] + len(opt_bench.LTS), before[1] + len(opt_bench.LTS))
     with pytest.raises(ValueError):
-        K19(variant, rs, 64)
-    assert K19.launches == before + len(opt_bench.LTS)
+        K19(variant, rs, 64, lanes)
+    assert K19.launches == before[0] + len(opt_bench.LTS)
 
 
 @pytest.mark.parametrize("mod", [kernel_microbench, dtype_throughput,
@@ -1245,15 +1264,18 @@ def test_k28_matches_plain(gpu, variant, reps):
 def test_last_probe_sass_readings(gpu):
     """K25's and K28's loops, K11's relayouts and K13's bisect are in the
     library's SASS; a relayout's step loop holds a SHFL a construct.
-    K25's lane-split loops shuffle (L = 1 does not) and no branch splits
-    their warps around the shuffles."""
+    K25's, K13's and K19's lane-split loops shuffle (L = 1 does not) and no
+    branch splits their warps around the shuffles."""
     sa = soft16_ablation
-    for (v, lanes), (loop, res, mix) in sa.sass_counts().items():
-        assert (sa.shfl_count(mix) > 0) == (lanes > 1), (v, lanes)
-        assert not any("DIV" in op or "COLLECTIVE" in op for op in mix)
+    for table in (sa.sass_counts(), kernel_ablation.sass_counts(),
+                  opt_bench.sass_counts()):
+        for key, (loop, res, mix) in table.items():
+            assert (sa.shfl_count(mix) > 0) == (key[-1] > 1), key
+            assert not any("DIV" in op or "COLLECTIVE" in op for op in mix)
     for mod, keys in ((sa, list(itertools.product(sa.VARIANTS, sa.LANES))),
                       (interleave_bench, interleave_bench.VARIANTS),
-                      (kernel_ablation, kernel_ablation.VARIANTS)):
+                      (kernel_ablation, list(itertools.product(
+                          kernel_ablation.VARIANTS, sa.LANES)))):
         counts = mod.sass_counts()
         assert set(counts) == set(keys)
         for loop, res, mix in counts.values():
@@ -1263,7 +1285,8 @@ def test_last_probe_sass_readings(gpu):
 
 
 @pytest.mark.parametrize("mod,argv", [
-    (soft16_ablation, ["s8/unpack"]), (transpose_bench, []),
+    (soft16_ablation, ["s8/unpack"]), (kernel_ablation, ["+dump"]),
+    (transpose_bench, []),
     (fp32_fused_value_probe, ["2000000"]), (interleave_bench, ["shfl"])],
     ids=lambda p: p.__name__.rsplit(".", 1)[1] if hasattr(p, "__name__")
     else " ".join(p))

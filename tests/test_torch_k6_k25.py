@@ -15,7 +15,8 @@ arithmetic their designs rest on, against the JAX package.
   ``csrc/soft16_ablation.cu`` modelled in numpy at every lane count, each
   lane's branch-metric flips taken apart as the kernel takes them, against
   the plain version, which tests/test_torch_last_probes.py holds against
-  the JAX script's kernel.
+  the JAX script's kernel (the model is tests/lane_model.py, shared with
+  K13's and K19's tests).
 
 The kernels themselves run only on a card (tests/test_torch_cuda.py)."""
 
@@ -32,8 +33,10 @@ from tpu_viterbi.decoder import core_xla
 from tpu_viterbi_torch import library
 from tpu_viterbi_torch.config import from_reference
 from tpu_viterbi_torch.decoder import core_cuda, core_torch
+from tpu_viterbi_torch.scripts import common
 from tpu_viterbi_torch.scripts import soft16_ablation as sa
-from tpu_viterbi_torch.trellis import branch_sign_table
+
+import lane_model
 
 K6 = core_cuda.K6
 K25 = sa.K25
@@ -168,14 +171,15 @@ def test_k6_constants_match_the_source():
 def test_lanes_for_fills_the_card(arrays):
     """L divides 64; one lane from ONE_LANE_ARRAYS arrays, else the fewest
     lanes that reach TARGET_THREADS threads, at most 32; 32 at the JAX
-    script's 2,048 arrays, 1 at the headline's 15,872."""
+    script's 2,048 arrays, 1 at the headline's 15,872 (the rule is
+    scripts/common.py's, shared with K13 and K19)."""
     n = sa.lanes_for(arrays)
     assert n in sa.LANES and 64 % n == 0
-    if arrays >= sa.ONE_LANE_ARRAYS:
+    if arrays >= common.ONE_LANE_ARRAYS:
         assert n == 1
     else:
-        assert arrays * n >= sa.TARGET_THREADS or n == sa.LANES[-1]
-        assert all(arrays * m < sa.TARGET_THREADS
+        assert arrays * n >= common.TARGET_THREADS or n == sa.LANES[-1]
+        assert all(arrays * m < common.TARGET_THREADS
                    for m in sa.LANES[1:] if m < n)
     assert {2048: 32, 15872: 1}.get(arrays, n) == n
 
@@ -201,62 +205,20 @@ def test_k25_lanes_on_cpu_are_the_plain_version(lanes):
                        sa.soft16_ablation_torch("s8/unpack", words, 2))
 
 
-def _rol6(p, f):
-    return ((p << f) | (p >> (6 - f))) & 63 if f else p
-
-
-def _bm_bits_table():
-    """[f][p]: soft16_ablation.cu's bm_bits from the port's trellis: bit 0
-    bm's sign is +, bit 1 bm is +-d, for the pair q position p holds in
-    phase f (state 2q's j=0 branch signs)."""
-    t = branch_sign_table()
-    out = np.zeros((6, 64), np.int64)
-    for f, p in itertools.product(range(6), range(64)):
-        s = t[2 * (_rol6(p, f) & 31), 0]
-        out[f, p] = int(s[0] > 0) | (int(s[0] != s[1]) << 1)
-    return out
-
-
 def _lane_layout(variant, words, programs, lanes):
-    """The lane-split kernel's arithmetic in numpy: lane l holds positions
-    l * S + r; in phase f = t % 6 position P pairs with P ^ (1 << b), b =
-    5 - f (a shuffle when b is a lane bit), bm's choice is the lane's flips
-    XOR the register's bits, and the partner wins on c_part > c_self, or
-    on a tie where P's x bit is 1."""
-    S = 64 // lanes
-    reg_bits = 6 - int(np.log2(lanes))
+    """The lane-split kernel's arithmetic in numpy (tests/lane_model.py):
+    lane l holds positions l * S + r; in phase f = t % 6 position P pairs
+    with P ^ (1 << b), b = 5 - f (a shuffle when b is a lane bit), bm's
+    choice is the lane's flips XOR the register's bits, and the partner
+    wins on c_part > c_self, or on a tie where P's x bit is 1."""
     n_packs = words.shape[0] // programs
-    fields = sa._stage_fields
     wpp = sa.WPP[variant]
     w = words.reshape(programs, n_packs, wpp, 128).permute(1, 2, 0, 3) \
         .reshape(n_packs, wpp, programs * 128)          # int32, as the kernel
-    pm = np.zeros((64, programs * 128), np.int64)
-    pp = np.zeros_like(pm)
-    wrap = lambda v: (v + 2 ** 31) % 2 ** 32 - 2 ** 31   # noqa: E731
-    lane_of, reg_of = np.arange(64) // S, np.arange(64) % S
-    table = _bm_bits_table()
-    for p in range(n_packs):
-        for s, (u, d) in enumerate(fields(variant, w[p])):
-            f = (32 * p + s) % 6
-            b = 5 - f
-            u, d = wrap(u.numpy().astype(np.int64)), wrap(
-                d.numpy().astype(np.int64))
-            bits = table[f, lane_of * S] ^ table[f, reg_of]
-            assert (bits == table[f]).all()
-            bm = np.where((bits & 2)[:, None] > 0, d, u)
-            bm = wrap(np.where((bits & 1)[:, None] > 0, bm, -bm))
-            part = np.arange(64) ^ (1 << b)
-            if b < reg_bits:                 # the pair within a lane
-                assert (lane_of[part] == lane_of).all()
-            else:                            # a shuffle: the same register
-                assert (reg_of[part] == reg_of).all()
-            h = ((np.arange(64) >> b) & 1)[:, None]
-            cs, cp = wrap(pm + bm), wrap(pm[part] - bm)
-            dec = (cp > cs) | ((cp == cs) & (h == 1))
-            pm = np.where(dec, cp, cs)
-            pp = (np.where(dec, pp[part], pp) << 1 | (dec != (h == 1))) \
-                & 0xFFFFFFFF
-    out = wrap(pm[0] + pp[0])
+    pm, pp = lane_model.run_trellis(
+        [sa._stage_fields(variant, w[p]) for p in range(n_packs)], lanes,
+        programs * 128)
+    out = lane_model.wrap32(pm[0] + pp[0])
     return torch.from_numpy(out.astype(np.int32)).reshape(programs, 1, 128)
 
 
@@ -274,11 +236,14 @@ def test_k25_lane_layout_equals_the_plain_version(variant, lanes):
 
 
 def test_k25_constants_match_the_source():
-    """The lane counts the entry takes and the pass of six stages are
-    soft16_ablation.cu's."""
+    """The lane counts the entry takes are soft16_ablation.cu's, and the
+    pass of six stages is that of lanes.cuh, which it includes."""
     src = (library.CSRC / "soft16_ablation.cu").read_text()
     cases = re.search(r"switch \(lanes\) \{(.*?)default", src, re.S).group(1)
     assert tuple(int(c) for c in re.findall(r"case (\d+):", cases)) == \
         sa.LANES
-    assert re.findall(r"constexpr int kPass = (\d+);", src) == \
+    assert '#include "lanes.cuh"' in src
+    assert re.findall(r"constexpr int kPass = (\d+);", src) == []
+    header = (library.CSRC / "lanes.cuh").read_text()
+    assert re.findall(r"constexpr int kPass = (\d+);", header) == \
         [str(sa.loop_stages(2))]

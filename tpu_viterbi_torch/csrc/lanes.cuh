@@ -1,0 +1,160 @@
+// The lane-split layout of an array's 64 states, shared by K25
+// (soft16_ablation.cu), K13 (kernel_ablation.cu) and K19 (opt_bench.cu).
+//
+// An array is split over L lanes of a warp (1, 2, 4, 8, 16 or 32), S = 64 /
+// L positions a lane.  The states move in place: after t stages physical
+// position P = lane * S + register holds logical state rol6(P, t % 6), so
+// stage t pairs P with P ^ (1 << b), b = 5 - t % 6, the two predecessors
+// (x, q) of the children (q, x): a register of the same thread when b <
+// 6 - log2 L, else the same register of lane ^ (1 << (b - 6 + log2 L)),
+// read with __shfl_xor_sync (K12's layout C, csrc/layout_probe.cu, shuffles
+// the same trellis).  Position P keeps child (q, x_P): c_self = pm[P] +
+// bm(q), c_part = pm[P'] - bm(q), the partner taken when c_part > c_self
+// (x_P = 0) or c_part >= c_self (x_P = 1), the j=0 branch winning ties as
+// in acs_stage, and the survivor gets the winner's x.  State 0 stays at P =
+// 0.  bm(q)'s choice among u, -u, d, -d is linear in P's bits: its register
+// part is a compile-time index, its lane part two flip bits a phase read
+// once a thread.  A pass of a stage loop is the six phases; a run of 32 n
+// stages ends with a tail of 0, 2 or 4.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "acs.cuh"
+
+namespace viterbi {
+
+constexpr int kPass = 6;          // stages of a pass of the lane-split loop
+constexpr unsigned kFull = 0xFFFFFFFFu;
+
+__host__ __device__ constexpr int log2_of(int x) {
+  return x <= 1 ? 0 : 1 + log2_of(x / 2);
+}
+// The logical state position p holds after f stages of a pass (p's 6 bits
+// rotated left by f): linear in p's bits, so rol6(lane * S + r, f) =
+// rol6(lane * S, f) | rol6(r, f).
+__host__ __device__ constexpr int rol6(int p, int f) {
+  return f == 0 ? p : ((p << f) | (p >> (6 - f))) & 63;
+}
+// bit 0: bm's sign is + (sign0 > 0); bit 1: sign0 != sign1 (bm is +-d),
+// for the pair q that physical position P holds in phase f.  Both are XORs
+// of P's bits, so bits(lane * S + r) = bits(lane * S) ^ bits(r).
+__host__ __device__ constexpr int bm_bits(int P, int f) {
+  const int q = rol6(P, f) & 31;
+  return (sign0(q) > 0 ? 1 : 0) | (sign0(q) != sign1(q) ? 2 : 0);
+}
+// Whether the lane part of bm_bits can be non-zero in phase f (else the
+// flips are compile-time zero).
+template <int L>
+__host__ __device__ constexpr int lane_bm_bits(int f) {
+  int any = 0;
+  for (int lane = 0; lane < L; ++lane) any |= bm_bits(lane * (kStates / L), f);
+  return any;
+}
+// A lane's flips, OR-ed into `flips`: bit f its sign flip, bit 6 + f its
+// u/d flip in phase f (bm_bits of the lane's part).  K25 writes this loop
+// out in its constructor, where it keeps that kernel's SASS the same as
+// before this header.
+template <int L>
+__device__ __forceinline__ void add_lane_flips(int lane, uint32_t& flips) {
+#pragma unroll
+  for (int f = 0; f < kPass; ++f) {
+    const int b = bm_bits(lane * (kStates / L), f);
+    flips |= static_cast<uint32_t>(b & 1) << f;
+    flips |= static_cast<uint32_t>(b >> 1) << (6 + f);
+  }
+}
+
+// The partner of unit k of a lane's N units (a unit: 2^LOW neighbouring
+// positions, LOW = 0 for a position a register, 1 for an int16x2 pair) in
+// the phase whose pair bit is B >= LOW: register k ^ (1 << (B - LOW)) of
+// the same thread while that bit is a register bit, else the same register
+// of the lane the bit names.
+template <int B, int LOW, int N, typename T>
+__device__ __forceinline__ T lane_partner(const T (&x)[N], int k) {
+  constexpr int kBits = log2_of(N), u = B - LOW;
+  if constexpr (u < kBits)
+    return x[k ^ (1 << u)];
+  else
+    return __shfl_xor_sync(kFull, x[k], 1 << (u - kBits));
+}
+
+// The survivor of a position whose partner won (dec) or not, h its x bit.
+__device__ __forceinline__ uint32_t lane_survivor(uint32_t pp_s, uint32_t pp_p,
+                                                  bool dec, bool h) {
+  return ((dec ? pp_p : pp_s) << 1) | static_cast<uint32_t>(dec != h);
+}
+
+// Position update: (pm_o, pp_o) = the child (q, h) from own (pm_s, pp_s)
+// and the partner's (pm_p, pp_p), h = the position's x bit: the partner
+// wins on c_part > c_self, and on a tie where h = 1 (the j=0 branch is then
+// the partner).  Written without a branch on h, which is a lane's bit in
+// the phases that shuffle: a branch there would split the warp around its
+// shuffles.
+__device__ __forceinline__ void lane_acs(int pm_s, uint32_t pp_s, int pm_p,
+                                         uint32_t pp_p, int bm, bool h,
+                                         int& pm_o, uint32_t& pp_o) {
+  const int cs = add<true>(pm_s, bm);
+  const int cp = sub<true>(pm_p, bm);
+  const bool dec = (cp > cs) | ((cp == cs) & h);
+  pm_o = dec ? cp : cs;
+  pp_o = lane_survivor(pp_s, pp_p, dec, h);
+}
+
+// One int32 stage in phase F of a lane's S = 64 / L positions, from (pm,
+// pp) into (pm_o, pp_o), position r's bm bm_at(r) (r a compile-time index
+// once unrolled); lane: the array's lane.
+template <int L, int F, typename BmAt>
+__device__ __forceinline__ void lane_acs_stage(
+    const int (&pm)[kStates / L], const uint32_t (&pp)[kStates / L],
+    int (&pm_o)[kStates / L], uint32_t (&pp_o)[kStates / L], BmAt bm_at,
+    int lane) {
+  constexpr int S = kStates / L, kRegBits = 6 - log2_of(L), B = 5 - F;
+#pragma unroll
+  for (int r = 0; r < S; ++r) {
+    const int bm = bm_at(r);
+    bool h;
+    if constexpr (B < kRegBits)
+      h = (r >> B) & 1;
+    else
+      h = (lane >> (B - kRegBits)) & 1;
+    const int qm = lane_partner<B, 0>(pm, r);
+    const uint32_t qp = lane_partner<B, 0>(pp, r);
+    lane_acs(pm[r], pp[r], qm, qp, bm, h, pm_o[r], pp_o[r]);
+  }
+}
+
+// One stage of the trellis' ACS (acs_stage's bm choice) in phase F.
+// flips: the lane's (add_lane_flips).
+template <int L, int F>
+__device__ __forceinline__ void lane_stage(const int (&pm)[kStates / L],
+                                           const uint32_t (&pp)[kStates / L],
+                                           int (&pm_o)[kStates / L],
+                                           uint32_t (&pp_o)[kStates / L],
+                                           const Bm& m, uint32_t flips,
+                                           int lane) {
+  constexpr int kLane = lane_bm_bits<L>(F);
+  const bool fp = (kLane & 1) && ((flips >> F) & 1u);
+  const bool fd = (kLane & 2) && ((flips >> (6 + F)) & 1u);
+  // bm of the register part's (sign +, +-d) bits, the lane's flips applied
+  const int su = fd ? m.d : m.u, sun = fd ? m.nd : m.nu;
+  const int sd = fd ? m.u : m.d, sdn = fd ? m.nu : m.nd;
+  const int bm4[4] = {fp ? su : sun, fp ? sun : su, fp ? sd : sdn,
+                      fp ? sdn : sd};
+  lane_acs_stage<L, F>(pm, pp, pm_o, pp_o,
+                       [&](int r) { return bm4[bm_bits(r, F)]; }, lane);
+}
+
+// SOFT8's unpack (K13's +unpack, K1's IntReader<8>): stage J of a pass
+// reads word J / 2 of the pass, its fields MSB first.
+template <int J>
+__device__ __forceinline__ Bm soft8_bm(int word) {
+  const uint32_t x = static_cast<uint32_t>(word) << (J % 2 ? 16 : 0);
+  Bm m;
+  int_bm(static_cast<int>(x) >> 24, static_cast<int>(x << 8) >> 24, m);
+  return m;
+}
+
+}  // namespace viterbi

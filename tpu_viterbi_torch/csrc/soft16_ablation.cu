@@ -31,44 +31,34 @@
 //
 // What the design does about it: each array is split over `lanes` L of a
 // warp (1, 2, 4, 8, 16 or 32; the wrapper picks L from the array count so
-// that the card holds several warps a scheduler), S = 64 / L states a
-// lane.  The states move in place: after t stages physical position P =
-// lane * S + register holds logical state rol6(P, t % 6), so stage t pairs
-// P with P ^ (1 << b), b = 5 - t % 6, the two predecessors (x, q) of the
-// children (q, x): a register of the same thread when b < 6 - log2 L,
-// else the same register of lane ^ (1 << (b - 6 + log2 L)), read with
-// __shfl_xor_sync (K12's layout C, csrc/layout_probe.cu, shuffles the same
-// trellis).  Position P keeps child (q, x_P): c_self = pm[P] + bm(q),
-// c_part = pm[P'] - bm(q), the partner taken when c_part > c_self (x_P = 0)
-// or c_part >= c_self (x_P = 1), the j=0 branch winning ties as in
-// acs_stage, and the survivor gets the winner's x.  State 0 stays at P = 0.
-// bm(q)'s choice among u, -u, d, -d is linear in P's bits: its register
-// part is a compile-time index, its lane part two flip bits a phase read
-// once a thread.  A pass of the stage loop is the six phases; a tail of 2
-// or 4 stages ends a run of 32 n_packs stages.  A pass's words load a pass
-// ahead, each into the register its stage has just read (no moves); every
-// lane of an array loads the same word (one broadcast request).  The words
-// noup does not use are read with ld.volatile, which ptxas may not drop,
-// spread over the array's lanes, so the traffic is real (the probe prints
-// the loop's LDG count); on the TPU the block's DMA read them all.  L = 1
-// is K13's loop of two stages with acs_stage, the pass's words a pass ahead.
+// that the card holds several warps a scheduler), in place, as lanes.cuh
+// lays it out (its rol6, bm_bits, lane_stage and the SOFT8 unpack are
+// shared with K13 and K19).  A pass's words load a pass ahead, each into
+// the register its stage has just read (no moves); every lane of an array
+// loads the same word (one broadcast request).  The words noup does not
+// use are read with ld.volatile, which ptxas may not drop, spread over the
+// array's lanes, so the traffic is real (the probe prints the loop's LDG
+// count); on the TPU the block's DMA read them all.  L = 1 is K13's loop
+// of two stages with acs_stage, the pass's words a pass ahead.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "acs.cuh"
+#include "lanes.cuh"
 
 namespace viterbi_soft16_ablation {
 
 using viterbi::Bm;
+using viterbi::kPass;
 using viterbi::kStates;
+using viterbi::lane_stage;
+using viterbi::soft8_bm;
 
 constexpr int kCols = 128;        // arrays of a program
 constexpr int kThreads = 64;      // K1's CUDA block (lanes = 1)
 constexpr int kLaneThreads = 128; // the lane-split kernels' CUDA block
-constexpr int kPass = 6;          // stages of a pass of the lane-split loop
-constexpr unsigned kFull = 0xFFFFFFFFu;
 
 // A word of the block that is read and not used.
 __device__ __forceinline__ void touch(const int* p) {
@@ -160,82 +150,7 @@ soft16_ablation_kernel(const int* __restrict__ words, int* __restrict__ out,
   out[i] = static_cast<int>(static_cast<uint32_t>(pm_a[0]) + pp_a[0]);
 }
 
-// --- the lane-split layout (lanes >= 2) ---
-
-__host__ __device__ constexpr int log2_of(int x) {
-  return x <= 1 ? 0 : 1 + log2_of(x / 2);
-}
-__host__ __device__ constexpr int rol6(int p, int f) {
-  return f == 0 ? p : ((p << f) | (p >> (6 - f))) & 63;
-}
-// bit 0: bm's sign is + (sign0 > 0); bit 1: sign0 != sign1 (bm is +-d),
-// for the pair q that physical position P holds in phase f.  Both are XORs
-// of P's bits, so bits(lane * S + r) = bits(lane * S) ^ bits(r).
-__host__ __device__ constexpr int bm_bits(int P, int f) {
-  const int q = rol6(P, f) & 31;
-  return (viterbi::sign0(q) > 0 ? 1 : 0) |
-         (viterbi::sign0(q) != viterbi::sign1(q) ? 2 : 0);
-}
-// Whether the lane part of bm_bits can be non-zero in phase f (else the
-// flips are compile-time zero).
-template <int L>
-__host__ __device__ constexpr int lane_bm_bits(int f) {
-  int any = 0;
-  for (int lane = 0; lane < L; ++lane) any |= bm_bits(lane * (kStates / L), f);
-  return any;
-}
-
-// Position update: (pm_o, pp_o) = the child (q, h) from own (pm_s, pp_s)
-// and the partner's (pm_p, pp_p), h = the position's x bit: the partner
-// wins on c_part > c_self, and on a tie where h = 1 (the j=0 branch is then
-// the partner).  Written without a branch on h, which is a lane's bit in
-// the phases that shuffle: a branch there would split the warp around its
-// shuffles.
-__device__ __forceinline__ void lane_acs(int pm_s, uint32_t pp_s, int pm_p,
-                                         uint32_t pp_p, int bm, bool h,
-                                         int& pm_o, uint32_t& pp_o) {
-  const int cs = viterbi::add<true>(pm_s, bm);
-  const int cp = viterbi::sub<true>(pm_p, bm);
-  const bool dec = (cp > cs) | ((cp == cs) & h);
-  pm_o = dec ? cp : cs;
-  pp_o = ((dec ? pp_p : pp_s) << 1) | static_cast<uint32_t>(dec != h);
-}
-
-// One stage in phase F of a lane's S = 64 / L positions, from (pm, pp)
-// into (pm_o, pp_o).  flips: bit F the lane's sign flip, bit 6 + F its
-// u/d flip (bm_bits of the lane's part); lane: the array's lane.
-template <int L, int F>
-__device__ __forceinline__ void lane_stage(const int (&pm)[kStates / L],
-                                           const uint32_t (&pp)[kStates / L],
-                                           int (&pm_o)[kStates / L],
-                                           uint32_t (&pp_o)[kStates / L],
-                                           const Bm& m, uint32_t flips,
-                                           int lane) {
-  constexpr int S = kStates / L, kRegBits = 6 - log2_of(L), B = 5 - F;
-  constexpr int kLane = lane_bm_bits<L>(F);
-  const bool fp = (kLane & 1) && ((flips >> F) & 1u);
-  const bool fd = (kLane & 2) && ((flips >> (6 + F)) & 1u);
-  // bm of the register part's (sign +, +-d) bits, the lane's flips applied
-  const int su = fd ? m.d : m.u, sun = fd ? m.nd : m.nu;
-  const int sd = fd ? m.u : m.d, sdn = fd ? m.nu : m.nd;
-  const int bm4[4] = {fp ? su : sun, fp ? sun : su, fp ? sd : sdn,
-                      fp ? sdn : sd};
-#pragma unroll
-  for (int r = 0; r < S; ++r) {
-    const int bm = bm4[bm_bits(r, F)];
-    if constexpr (B < kRegBits) {
-      const int rp = r ^ (1 << B);
-      lane_acs(pm[r], pp[r], pm[rp], pp[rp], bm, (r >> B) & 1, pm_o[r],
-               pp_o[r]);
-    } else {
-      constexpr int x = 1 << (B - kRegBits);
-      const int qm = __shfl_xor_sync(kFull, pm[r], x);
-      const uint32_t qp = __shfl_xor_sync(kFull, pp[r], x);
-      lane_acs(pm[r], pp[r], qm, qp, bm, (lane >> (B - kRegBits)) & 1,
-               pm_o[r], pp_o[r]);
-    }
-  }
-}
+// --- the lane-split layout (lanes >= 2, lanes.cuh) ---
 
 // One array's lane: its S = 64 / L positions, double-buffered, and the
 // words of the next pass of the stage loop.
@@ -257,9 +172,12 @@ struct LaneArray {
 
   __device__ __forceinline__ LaneArray(const int* col, int packs, int ln)
       : w(col), n_packs(packs), n_words(packs * kWpp), lane(ln), flips(0u) {
+    // lanes.cuh's add_lane_flips written out: through the helper (or any
+    // function that returns the flips) ptxas gives the stage loop other
+    // registers and other SASS counts at 4, 8 and 32 lanes
 #pragma unroll
     for (int f = 0; f < kPass; ++f) {
-      const int b = bm_bits(lane * S, f);
+      const int b = viterbi::bm_bits(lane * S, f);
       flips |= static_cast<uint32_t>(b & 1) << f;
       flips |= static_cast<uint32_t>(b >> 1) << (6 + f);
     }
@@ -308,9 +226,7 @@ struct LaneArray {
                       static_cast<int>(x << 16) >> 16, m);
       if constexpr (AHEAD) pw[J] = load(t0 + kPass + J);
     } else {
-      const uint32_t x = static_cast<uint32_t>(pw[J / 2]) << (J % 2 ? 16 : 0);
-      viterbi::int_bm(static_cast<int>(x) >> 24,
-                      static_cast<int>(x << 8) >> 24, m);
+      m = soft8_bm<J>(pw[J / 2]);
       if constexpr (AHEAD && J % 2 == 1)
         pw[J / 2] = load((t0 + kPass) / 2 + J / 2);
     }

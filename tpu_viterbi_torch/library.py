@@ -24,6 +24,8 @@ import os
 import re
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
@@ -35,6 +37,8 @@ _PARTS = re.compile(r"^// nvcc parts: (\d+)$", re.M)
 
 _library = None     # the loaded ctypes.CDLL of every csrc/*.cu
 build_log = None    # nvcc's -Xptxas -v report of this process' build
+build_seconds = {}  # {"source part i": seconds from the build's start to
+                    # that nvcc's end} of this process' build
 
 
 def find_nvcc() -> str:
@@ -61,8 +65,9 @@ def load_library() -> ctypes.CDLL:
     ``csrc/*.cuh`` headers and the flags) into one library and load it:
     one ``nvcc -c`` per source and build part (``build_parts``), all
     started together, then one ``nvcc -shared`` link.  Sets ``build_log``
-    to ptxas's register/spill report when this process compiled it; it
-    stays None when the library was cached."""
+    to ptxas's register/spill report and ``build_seconds`` to each nvcc's
+    time when this process compiled it; they stay None and empty when the
+    library was cached."""
     global _library, build_log
     if _library is not None:
         return _library
@@ -78,11 +83,18 @@ def load_library() -> ctypes.CDLL:
         jobs = [(src, i, tmp.with_name(f"{tmp.name}.{src.stem}.{i}.o"))
                 for src in sources for i in range(build_parts(src))]
         objs = [obj for _, _, obj in jobs]
+        start = time.monotonic()
         procs = [subprocess.Popen(
             [nvcc, *NVCC_FLAGS, f"-DBUILD_PART={i}", "-c", "-o", str(obj),
              str(src)], stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True) for src, i, obj in jobs]
-        logs = [p.communicate()[1] for p in procs]     # waits for every one
+
+        def finish(p):       # one thread a job: its report and its end
+            log = p.communicate()[1]
+            return log, time.monotonic() - start
+        with ThreadPoolExecutor(len(procs)) as pool:
+            done = list(pool.map(finish, procs))    # waits for every one
+        logs = [log for log, _ in done]
         try:
             for (src, i, _), p, log in zip(jobs, procs, logs):
                 if p.returncode != 0:
@@ -99,6 +111,8 @@ def load_library() -> ctypes.CDLL:
             for obj in objs:
                 obj.unlink(missing_ok=True)
         build_log = "".join(logs)
+        build_seconds.update({f"{src.name} part {i}": sec for (src, i, _),
+                              (_, sec) in zip(jobs, done)})
         os.replace(tmp, lib_path)       # atomic: concurrent builds
     _library = ctypes.CDLL(str(lib_path))
     return _library

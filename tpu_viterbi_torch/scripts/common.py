@@ -1,8 +1,11 @@
 """What the probes' kernels (K11-K28) share: the wrapper that binds a
-kernel's entry point and counts its launches, the timing of a launch, the
-decode-attribution probes' piece timer and attribution block (K21-K24), the
-ACS' branch signs, and what the SASS of the built library says of a kernel
-(its loops' instructions and opcodes, its registers and stack frame).
+kernel's entry point and counts its launches, the lanes an array of the
+kernels that split their arrays over a warp's lanes (K13, K19, K25;
+``csrc/lanes.cuh``) and the rule that picks them, the timing of a launch,
+the decode-attribution probes' piece timer and attribution block
+(K21-K24), the ACS' branch signs, and what the SASS of the built library
+says of a kernel (its loops' instructions and opcodes, its registers and
+stack frame).
 """
 
 from __future__ import annotations
@@ -24,6 +27,49 @@ from ..utils.timing import cuda_ms
 
 LT = 128    # arrays (lanes) of a TPU program: the probes' unit of arrays
 BPP = 32    # stages a pack of the stage-pair input
+
+LANES = (1, 2, 4, 8, 16, 32)   # lanes an array of csrc/lanes.cuh's layout
+# One lane an array from ONE_LANE_ARRAYS arrays: a split adds work (1.6-3.3x
+# the lane-instructions of an array-stage, K25), which pays only where one
+# lane an array leaves the card waiting on its chains.  K25's s16/unpack
+# (K1's int32 stage) on the H100, in two runs: the best split 17-19 % under
+# one lane at 8,192 arrays, 5 % over it at 10,240, crossing near 9,750
+# (76 programs of 128 arrays = 9,728).  K19's lighter stage splits with
+# profit up to 15,872 arrays and beyond; the rule follows K1's.  Below
+# the threshold, the fewest lanes that give TARGET_THREADS threads (~4
+# warps a scheduler; the best split ran 16-65K threads at 4,096-8,192).
+ONE_LANE_ARRAYS = 9_728
+TARGET_THREADS = 65_536
+# the lane counts a probe times in turn: each, then one lane again
+TURNS = LANES + (1,)
+
+
+def lanes_for(arrays: int) -> int:
+    """The lanes an array of ``LANES`` that K13, K19 and K25 run ``arrays``
+    arrays at: 1 from ONE_LANE_ARRAYS arrays, else the fewest that give
+    ``arrays`` x lanes >= TARGET_THREADS, at most 32 (one warp an array)."""
+    if arrays >= ONE_LANE_ARRAYS:
+        return 1
+    return next((n for n in LANES[1:] if arrays * n >= TARGET_THREADS),
+                LANES[-1])
+
+
+def check_lanes(lanes: int, name: str = "K25") -> None:
+    if type(lanes) is not int or lanes not in LANES:
+        raise ValueError(f"{name} splits an array over one of {LANES} "
+                         f"lanes, got {lanes!r}")
+
+
+def loop_stages(lanes: int) -> int:
+    """Stages of one pass of a lane-split probe's stage loop: two at one
+    lane (K13's and K14's loop), the six phases of the lane-split
+    layout."""
+    return 2 if lanes == 1 else 6
+
+
+def shfl_count(mix: dict) -> int:
+    """SHFL instructions of a stage loop's opcode mix."""
+    return sum(n for op, n in mix.items() if op.startswith("SHFL"))
 
 
 def check_stage_pairs(name: str, rs: torch.Tensor) -> None:
@@ -88,6 +134,28 @@ class ProbeKernel:
         if err != 0:
             raise RuntimeError(f"{self.name} launch failed: cudaError_t {err}")
         self.launches += 1
+
+
+class LaneKernel(ProbeKernel):
+    """A probe kernel whose arrays split over ``lanes`` lanes of a warp
+    (K13, K19, K25): ``lane_launches`` counts its launches at each lane
+    count."""
+
+    def __init__(self, *args):
+        super().__init__(*args)
+        self.lane_launches = Counter()
+
+    def pick_lanes(self, arrays: int, lanes) -> int:
+        """``lanes``, or ``lanes_for(arrays)`` when None; raises on a count
+        the kernel is not built for."""
+        lanes = lanes_for(arrays) if lanes is None else lanes
+        check_lanes(lanes, self.name)
+        return lanes
+
+    def launch_lanes(self, device: torch.device, lanes: int, *args) -> None:
+        """``launch`` of a kernel split over ``lanes`` lanes an array."""
+        self.launch(device, *args)
+        self.lane_launches[lanes] += 1
 
 
 def branch_signs() -> Tuple[np.ndarray, np.ndarray]:
@@ -302,22 +370,22 @@ def _tool(name: str) -> str:
 
 def cubin_listings(marker: str) -> Tuple[str, Dict[str, Dict[str, int]]]:
     """(the ``cuobjdump -sass`` listing, the ``-res-usage`` table) of the
-    one cubin of the built library that holds ``marker`` (a kernel's
-    namespace): the cubins are extracted and only that one is read (the
-    decode kernels' listings take seconds)."""
+    cubins of the built library that hold ``marker`` (a kernel's namespace;
+    one cubin a build part of its source): the cubins are extracted and
+    only those are read (the decode kernels' listings take seconds)."""
     lib = library.load_library()
     tool = _tool("cuobjdump")
     with tempfile.TemporaryDirectory() as tmp:
         subprocess.run([tool, "-xelf", "all", lib._name], cwd=tmp,
                        capture_output=True, check=True, timeout=120)
-        cubins = [p for p in Path(tmp).iterdir()
-                  if marker.encode() in p.read_bytes()]
-        if len(cubins) != 1:
-            raise RuntimeError(f"{len(cubins)} cubins of the library hold "
-                               f"{marker}")
-        sass, res = [subprocess.run([tool, flag, str(cubins[0])],
-                                    capture_output=True, text=True,
-                                    check=True, timeout=120).stdout
+        cubins = sorted(p for p in Path(tmp).iterdir()
+                        if marker.encode() in p.read_bytes())
+        if not cubins:
+            raise RuntimeError(f"no cubin of the library holds {marker}")
+        sass, res = ["".join(subprocess.run([tool, flag, str(c)],
+                                            capture_output=True, text=True,
+                                            check=True, timeout=120).stdout
+                             for c in cubins)
                      for flag in ("-sass", "-res-usage")]
     return sass, resource_usage(res)
 

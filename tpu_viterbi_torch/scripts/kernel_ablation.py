@@ -14,11 +14,17 @@ Variants, each adding one piece (JAX :9-19):
               do not wait for the state, +traceback's one load does; the
               output is +traceback's
 
-Each variant runs GRID programs of 128 arrays over N_PACKS packs of 32
-stages: the median of REPS CUDA-event launches after one untimed launch,
-printed as ns per stage per 128-array tile, beside the SASS instructions
-of its stage loop a stage, its registers and stack frame (cuobjdump
--res-usage).
+Each array runs split over ``lanes`` lanes of a warp (``common.LANES``; 1
+is one thread an array, K1's layout); ``common.lanes_for`` picks the count
+from the arrays, as K25's and K19's wrappers do.  Each variant runs N_PACKS
+packs of 32 stages at two array counts, the JAX script's GRID programs of
+128 arrays (2048) and HEADLINE_TILES (15,872, K1's occupancy at the
+headline), at every lane count in turn with one lane (``common.TURNS``: one
+lane first and last): the median of REPS CUDA-event launches after one
+untimed launch, printed as ns per stage per 128-array tile, beside the SASS
+instructions of its stage loop a stage (its SHFL count the lanes'
+exchanges), its registers and stack frame (cuobjdump -res-usage); then the
+decomposition line at each count at one lane and at the picked lanes.
 """
 
 from __future__ import annotations
@@ -30,16 +36,18 @@ import numpy as np
 import torch
 
 from .. import hardware
-from .common import LT, ProbeKernel, branch_signs, sass_table, timed
+from .common import (LANES, LT, TURNS, LaneKernel, branch_signs,
+                     check_lanes, check_names, describe_stages, lanes_for,
+                     loop_stages, sass_table, shfl_count, time_stages)
 from .layout_probe import _interleave
 
 N_PACKS = 256
 WPP = 16                # SOFT8 words of a 32-stage pack
 GRID = 16
+HEADLINE_TILES = 124    # K25's: 15,872 arrays
 REPS = 5
 VARIANTS = ("body", "+unpack", "+dump", "+traceback", "+tb(bisect)")
 TRACEBACKS = ("+traceback", "+tb(bisect)")
-LOOP_STAGES = 2         # stages of one pass of the stage loop
 # lane-operations an array-stage, for the bound: the ACS (chip_smoke.ACS_OPS)
 # and, with the unpack, its two field extracts, an add and a subtract
 OPS = {"body": 256, "+unpack": 260, "+dump": 260, "+traceback": 260,
@@ -48,13 +56,19 @@ OPS = {"body": 256, "+unpack": 260, "+dump": 260, "+traceback": 260,
 
 def _check(variant: str, words: torch.Tensor) -> int:
     """The number of packs in words; raises on what the kernel refuses."""
-    if variant not in VARIANTS:
-        raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS}")
+    check_names([variant], VARIANTS)
     if words.dim() != 3 or words.shape[1:] != (WPP, LT) or \
             words.dtype != torch.int32:
         raise ValueError(f"K13 takes (programs x n_packs, {WPP}, {LT}) int32 "
                          f"words, got {words.dtype} {tuple(words.shape)}")
     return words.shape[0]
+
+
+def lane_block(lanes: int) -> int:
+    """CUDA threads a block of the kernel at ``lanes`` lanes an array
+    (kernel_ablation.cu's: K1's 64 at one lane; else 128, and at least 8
+    arrays, so that the dump's rows cover whole 32-byte sectors)."""
+    return 64 if lanes == 1 else max(128, 8 * lanes)
 
 
 def n_emit(variant: str, n_packs: int) -> int:
@@ -149,25 +163,29 @@ def ablation_torch(variant: str, words: torch.Tensor, programs: int):
         .contiguous(), store
 
 
-class AblationKernel(ProbeKernel):
+class AblationKernel(LaneKernel):
     """K13, bound to ``viterbi_k13_launch``."""
 
     def __init__(self):
         super().__init__("K13", "viterbi_k13_launch", "kernel_ablation.cu",
-                         [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                          ctypes.c_void_p, ctypes.c_int, ctypes.c_int])
+                         [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                          ctypes.c_int])
 
-    def __call__(self, variant: str, words: torch.Tensor, programs: int):
+    def __call__(self, variant: str, words: torch.Tensor, programs: int,
+                 lanes: int = None):
         """(out (programs, n_emit, 128) int32, the survivor store
         (n_packs, 64, programs x 128) int32, or None without the dump).  On
-        a CUDA tensor one launch on the current stream, not synchronized;
-        on a CPU tensor its plain version."""
+        a CUDA tensor one launch on the current stream, not synchronized,
+        each array over ``lanes`` lanes (``lanes_for`` the arrays when
+        None); on a CPU tensor its plain version."""
         rows = _check(variant, words)
         if programs <= 0 or rows % programs or rows // programs < 4 \
                 or not words.is_contiguous():
             raise ValueError(f"K13 takes contiguous words of at least 4 "
                              f"packs a program: {rows} packs, {programs} "
                              f"programs")
+        lanes = self.pick_lanes(programs * LT, lanes)
         if not self.check_device(words):
             return ablation_torch(variant, words, programs)
         n_packs = rows // programs
@@ -177,9 +195,10 @@ class AblationKernel(ProbeKernel):
         store = torch.empty((n_packs, 64, programs * LT), dtype=torch.int32,
                             device=dev) \
             if variant in ("+dump",) + TRACEBACKS else None
-        self.launch(dev, VARIANTS.index(variant), words.data_ptr(),
-                    None if store is None else store.data_ptr(),
-                    out.data_ptr(), programs, n_packs)
+        self.launch_lanes(dev, lanes, VARIANTS.index(variant), lanes,
+                          words.data_ptr(),
+                          None if store is None else store.data_ptr(),
+                          out.data_ptr(), programs, n_packs)
         return out, store
 
 
@@ -196,56 +215,75 @@ def probe_input(programs: int, n_packs: int, device,
 
 
 def sass_counts() -> dict:
-    """{variant: (SASS instructions of its stage loop, {REG, STACK, ...},
-    the loop's opcode mix)} read from the built library."""
-    return sass_table("viterbi_ablation",
-                      {v: ("ablation_kernel", f"ILi{i}E")
-                       for i, v in enumerate(VARIANTS)})
+    """{(variant, lanes): (SASS instructions of its stage loop, {REG,
+    STACK, ...}, the loop's opcode mix)} read from the built library."""
+    return sass_table("viterbi_ablation", {
+        (v, n): ("ablation_kernel", f"ILi{i}E") if n == 1 else
+        ("ablation_lanes_kernel", f"ILi{i}ELi{n}EE")
+        for i, v in enumerate(VARIANTS) for n in LANES})
 
 
-def run(variant: str, words: torch.Tensor, sass: tuple) -> dict:
-    """Time one variant over GRID programs of N_PACKS packs."""
-    ms, all_ms, _ = timed(lambda: K13(variant, words, GRID), REPS)
-    loop, res, _ = sass
-    return dict(variant=variant, ms=ms, all_ms=all_ms,
-                ns_per_stage_tile=ms * 1e6 / (N_PACKS * 32 * GRID),
-                sass_loop=loop, sass_per_stage=loop / LOOP_STAGES,
-                regs=res.get("REG"), stack=res.get("STACK"),
-                local=res.get("LOCAL"))
+def run(variant: str, words: torch.Tensor, programs: int, lanes: int,
+        sass: dict) -> dict:
+    """Time one variant over ``programs`` programs of N_PACKS packs at
+    ``lanes`` lanes an array."""
+    mix = sass[variant, lanes][2]
+    return time_stages(lambda: K13(variant, words, programs, lanes), REPS,
+                       N_PACKS * 32, programs * LT, sass[variant, lanes],
+                       loop_stages(lanes), variant=variant,
+                       programs=programs, lanes=lanes,
+                       picked=lanes == lanes_for(programs * LT),
+                       shfl_per_stage=shfl_count(mix) / loop_stages(lanes))
 
 
 def describe(r: dict) -> str:
-    return (f"{r['variant']:10s}: median {r['ms']:.4f} ms of "
-            f"{[round(t, 4) for t in r['all_ms']]} = "
-            f"{r['ns_per_stage_tile']:.4f} ns/stage/tile; SASS "
-            f"{r['sass_per_stage']:g} a stage ({r['sass_loop']} in the stage "
-            f"loop); registers {r['regs']}, stack {r['stack']} B, local "
-            f"{r['local']} B")
+    return (describe_stages(r, f"{r['variant']:11s} {r['arrays']:6d} arrays "
+                               f"{r['lanes']:2d} lanes")
+            + f"; SHFL a stage {r['shfl_per_stage']:g}")
 
 
-def probe(names=VARIANTS) -> list:
-    """Time each named variant on the current CUDA device and print one
-    line each; returns their ``run`` results."""
-    for v in names:
-        if v not in VARIANTS:
-            raise ValueError(f"unknown variant {v!r}; one of {VARIANTS}")
+def decomposition(results: list) -> str:
+    """Each piece against the variant it adds to, in ns/stage/tile; the
+    bisect, like the JAX line's, against +dump."""
+    by = {r["variant"]: r["ns_per_stage_tile"] for r in results}
+    base = dict(zip(VARIANTS[1:], VARIANTS), **{"+tb(bisect)": "+dump"})
+    return " | ".join(f"{v} {by[v] - by[base[v]]:+.4f}" for v in by
+                      if base.get(v) in by)
+
+
+def probe(names=VARIANTS, lanes=TURNS) -> list:
+    """Time each named variant on the current CUDA device at GRID and
+    HEADLINE_TILES programs at each lane count of ``lanes`` in turn and
+    print one line each, and at each count the decomposition at one lane
+    (its first run) and at the lanes ``lanes_for`` picks; returns the
+    ``run`` results."""
+    check_names(names, VARIANTS)
+    for n in lanes:
+        check_lanes(n, "K13")
     dev = hardware.resolve_device("cuda")
-    words = probe_input(GRID, N_PACKS, dev)
     sass = sass_counts()
-    print(f"{torch.cuda.get_device_name(dev)}: {GRID * LT} arrays x "
-          f"{N_PACKS} packs of 32 stages, CUDA blocks of 64 threads")
+    print(f"{torch.cuda.get_device_name(dev)}: {N_PACKS} packs of 32 stages, "
+          f"lanes {list(lanes)} an array in turn; CUDA blocks of " +
+          ", ".join(f"{lane_block(n)}" for n in LANES) + " threads",
+          flush=True)
     results = []
-    for v in names:
-        results.append(run(v, words, sass[v]))
-        print(describe(results[-1]), flush=True)
-    if len(results) > 1:
-        # each piece against the variant it adds to; the bisect, like the
-        # JAX line's, against +dump
-        by = {r["variant"]: r["ns_per_stage_tile"] for r in results}
-        base = dict(zip(VARIANTS[1:], VARIANTS), **{"+tb(bisect)": "+dump"})
-        steps = [(v, by[v] - by[base[v]]) for v in by if base.get(v) in by]
-        print("decomposition: " + " | ".join(f"{v} {d:+.4f}"
-                                              for v, d in steps))
+    for programs in (GRID, HEADLINE_TILES):
+        words = probe_input(programs, N_PACKS, dev)
+        mine = []
+        for v in names:
+            for n in lanes:
+                mine.append(run(v, words, programs, n, sass))
+                print(describe(mine[-1]), flush=True)
+        del words
+        results += mine
+        picked = lanes_for(programs * LT)
+        for n in dict.fromkeys((1, picked)):
+            first = {}
+            for r in mine:
+                if r["lanes"] == n:
+                    first.setdefault(r["variant"], r)
+            print(f"{programs * LT} arrays, {n} lanes: decomposition: "
+                  f"{decomposition(list(first.values()))}", flush=True)
     return results
 
 

@@ -22,13 +22,19 @@ halves.  i32_split is that butterfly in int32, one state a register.
 The JAX probe's lane-tile width lt (128, 256, 512) only cuts the 4096
 arrays into programs; outputs are equal at every lt (arrays are
 independent).  Here lt is the number of threads a CUDA block, a kernel
-each: at 512 a thread may hold 128 registers, where i32_split spills.  Each
-variant runs N_PACKS packs of 32 stages at each lt, at two array counts:
-the JAX probe's LANES (4096) and HEADLINE_ARRAYS (15,872, K1's occupancy
-at the headline).  A time is the median of REPS CUDA-event launches after
-one untimed launch, printed as ns per stage per 128-array tile beside the
-SASS instructions of the variant's stage loop a stage, its registers and
-stack frame (cuobjdump -res-usage).
+each: at 512 a thread may hold 128 registers, where i32_split spills at
+one lane an array.  Each array runs split over ``lanes`` lanes of a warp
+(``common.LANES``; 1 is one thread an array), ``common.lanes_for`` picking
+the count from the arrays, as K13's and K25's wrappers do; a block holds
+lt / lanes arrays.  Each variant runs N_PACKS packs of 32 stages at each lt
+at every lane count in turn with one lane (``common.TURNS``), at two array
+counts: the JAX probe's LANES (4096) and HEADLINE_ARRAYS (15,872, K1's
+occupancy at the headline); then i16 at lt 128 at every lane count at
+CROSSOVER_ARRAYS, between the two.  A time is the median of REPS
+CUDA-event launches after one untimed launch, printed as ns per stage per
+128-array tile beside the SASS instructions of the variant's stage loop a
+stage (its SHFL count the lanes' exchanges), its registers and stack frame
+(cuobjdump -res-usage).
 """
 
 from __future__ import annotations
@@ -39,20 +45,22 @@ import sys
 import torch
 
 from .. import hardware
-from .common import (BPP, ProbeKernel, check_names, check_stage_pairs,
-                     describe_stages, sass_table,
+from .common import (BPP, TURNS, LaneKernel, check_lanes, check_names,
+                     check_stage_pairs, describe_stages, lanes_for,
+                     loop_stages, sass_table, shfl_count,
                      stage_pairs_input as probe_input, time_stages)
+from .common import LANES as LANE_COUNTS
 from .layout_probe import _interleave
 
 N_PACKS = 66
 LANES = 4096
 HEADLINE_ARRAYS = 15872
+CROSSOVER_ARRAYS = (6144, 8192, 10240, 12288)
 LTS = (128, 256, 512)
 REPS = 5
 VARIANTS = ("i32_split", "i16", "i16_pm")
 PM_DTYPE = dict(i32_split=torch.int32, i16=torch.int16, i16_pm=torch.int16)
 PP_DTYPE = dict(i32_split=torch.int32, i16=torch.int16, i16_pm=torch.int32)
-LOOP_STAGES = 2                     # stages of one pass of the stage loop
 # lane-operations an array-stage, for the bound: the work the function
 # needs.  All 64 states start at zero and see the stage's one bm, so the
 # path metrics stay equal (common.stage_pairs_input): bm's add, the two
@@ -98,28 +106,32 @@ def opt_bench_torch(variant: str, rs: torch.Tensor) -> torch.Tensor:
     return torch.cat([lo + pl.to(pm_dt), hi + ph.to(pm_dt)]).to(torch.int32)
 
 
-class OptBenchKernel(ProbeKernel):
+class OptBenchKernel(LaneKernel):
     """K19, bound to ``viterbi_k19_launch``."""
 
     def __init__(self):
         super().__init__("K19", "viterbi_k19_launch", "opt_bench.cu",
-                         [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                          ctypes.c_int, ctypes.c_int, ctypes.c_int])
+                         [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                          ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_int])
 
-    def __call__(self, variant: str, rs: torch.Tensor,
-                 lt: int = LTS[0]) -> torch.Tensor:
+    def __call__(self, variant: str, rs: torch.Tensor, lt: int = LTS[0],
+                 lanes: int = None) -> torch.Tensor:
         """(64, width) int32.  On a CUDA tensor one launch of blocks of
-        ``lt`` threads on the current stream, not synchronized; on a CPU
+        ``lt`` threads on the current stream, not synchronized, each array
+        over ``lanes`` lanes (``lanes_for`` the arrays when None); on a CPU
         tensor its plain version."""
         _check(variant, rs, lt)
+        lanes = self.pick_lanes(rs.shape[3], lanes)
         if not rs.is_contiguous():
             raise ValueError("K19 takes a contiguous input")
         if not self.check_device(rs):
             return opt_bench_torch(variant, rs)
         out = torch.empty((64, rs.shape[3]), dtype=torch.int32,
                           device=rs.device)
-        self.launch(rs.device, VARIANTS.index(variant), rs.data_ptr(),
-                    out.data_ptr(), rs.shape[0], rs.shape[3], lt)
+        self.launch_lanes(rs.device, lanes, VARIANTS.index(variant), lanes,
+                          rs.data_ptr(), out.data_ptr(), rs.shape[0],
+                          rs.shape[3], lt)
         return out
 
 
@@ -127,42 +139,67 @@ K19 = OptBenchKernel()
 
 
 def sass_counts() -> dict:
-    """{(variant, lt): (SASS instructions of its stage loop, {REG, STACK,
-    ...}, the loop's opcode mix)} read from the built library (a kernel
-    each)."""
-    return sass_table("viterbi_opt_bench",
-                      {(v, lt): ("opt_kernel", f"ILi{i}ELi{lt}E")
-                       for i, v in enumerate(VARIANTS) for lt in LTS})
+    """{(variant, lt, lanes): (SASS instructions of its stage loop, {REG,
+    STACK, ...}, the loop's opcode mix)} read from the built library (a
+    kernel each)."""
+    return sass_table("viterbi_opt_bench", {
+        (v, lt, n): ("opt_kernel", f"ILi{i}ELi{lt}E") if n == 1 else
+        ("opt_lanes_kernel", f"ILi{i}ELi{n}ELi{lt}E")
+        for i, v in enumerate(VARIANTS) for lt in LTS for n in LANE_COUNTS})
 
 
-def run(variant: str, lt: int, rs: torch.Tensor, sass: tuple) -> dict:
-    """Time one variant at one lt on rs."""
-    return time_stages(lambda: K19(variant, rs, lt), REPS, rs.shape[0] * BPP,
-                       rs.shape[3], sass, LOOP_STAGES, variant=variant, lt=lt)
+def run(variant: str, lt: int, lanes: int, rs: torch.Tensor,
+        sass: dict) -> dict:
+    """Time one variant at one lt and lane count on rs."""
+    mix = sass[variant, lt, lanes][2]
+    return time_stages(lambda: K19(variant, rs, lt, lanes), REPS,
+                       rs.shape[0] * BPP, rs.shape[3], sass[variant, lt, lanes],
+                       loop_stages(lanes), variant=variant, lt=lt,
+                       lanes=lanes, picked=lanes == lanes_for(rs.shape[3]),
+                       shfl_per_stage=shfl_count(mix) / loop_stages(lanes))
 
 
 def describe(r: dict) -> str:
-    return describe_stages(r, f"{r['variant']:9s} lt={r['lt']:3d} "
-                              f"{r['arrays']:6d} arrays")
+    return (describe_stages(r, f"{r['variant']:9s} lt={r['lt']:3d} "
+                               f"{r['arrays']:6d} arrays {r['lanes']:2d} "
+                               f"lanes")
+            + f"; SHFL a stage {r['shfl_per_stage']:g}")
 
 
-def probe(names=VARIANTS) -> list:
-    """Time each named variant at every lt on the current CUDA device at
-    LANES and HEADLINE_ARRAYS arrays and print one line each; returns their
-    ``run`` results."""
+def probe(names=VARIANTS, lanes=TURNS) -> list:
+    """Time each named variant at every lt and each lane count of ``lanes``
+    in turn on the current CUDA device at LANES and HEADLINE_ARRAYS arrays
+    and print one line each; then i16, if named, at lt 128 at every lane
+    count at CROSSOVER_ARRAYS, with the fastest lane count at each.
+    Returns the ``run`` results."""
     check_names(names, VARIANTS)
+    for n in lanes:
+        check_lanes(n, "K19")
     dev = hardware.resolve_device("cuda")
     sass = sass_counts()
     print(f"{torch.cuda.get_device_name(dev)}: {N_PACKS * BPP} stages; lt = "
-          f"CUDA threads a block")
+          f"CUDA threads a block; lanes {list(lanes)} an array in turn")
     results = []
     for width in (LANES, HEADLINE_ARRAYS):
         rs = probe_input(N_PACKS, width, dev)
         for lt in LTS:
             for v in names:
-                results.append(run(v, lt, rs, sass[(v, lt)]))
-                print(describe(results[-1]), flush=True)
+                for n in lanes:
+                    results.append(run(v, lt, n, rs, sass))
+                    print(describe(results[-1]), flush=True)
         del rs
+    if "i16" in names:
+        for width in CROSSOVER_ARRAYS:
+            rs = probe_input(N_PACKS, width, dev)
+            mine = [run("i16", LTS[0], n, rs, sass)
+                    for n in dict.fromkeys(lanes)]
+            del rs
+            for r in mine:
+                print(describe(r), flush=True)
+            results += mine
+            best = min(mine, key=lambda r: r["ms"])["lanes"]
+            print(f"{width} arrays: i16 lt {LTS[0]} fastest at {best} "
+                  f"lanes, lanes_for picks {lanes_for(width)}", flush=True)
     return results
 
 

@@ -15,30 +15,33 @@ noup reads every word of its block (the ones it does not use with
 ``ld.volatile``), as the TPU's block DMA did.
 
 Each array runs split over ``lanes`` lanes of a warp (``LANES``; 1 is one
-thread an array); ``lanes_for`` picks the count from the arrays: one lane
-where the arrays alone fill the card, else enough lanes for
-TARGET_THREADS threads.  Each variant runs N_PACKS packs
-(8192 stages) at two array counts, the JAX script's GRID programs of 128
-arrays (2048) and HEADLINE_TILES (15,872, K1's occupancy at the headline,
-as K12 and K18 run), at every lane count.  A time is the median of REPS
-CUDA-event launches after one untimed launch, printed as ns per stage per
-128-array tile and as the pace of a warp (ns per stage per array x the
-warp's arrays) beside the SASS of the stage loop (its LDG count shows the
-loads, its SHFL count the lanes' exchanges); then the JAX script's
-decomposition line at each count, at the lanes ``lanes_for`` picks.
+thread an array); ``lanes_for`` (``common.py``, shared with K13 and K19)
+picks the count from the arrays: one lane where the arrays alone fill the
+card, else enough lanes for TARGET_THREADS threads.  Each variant runs
+N_PACKS packs (8192 stages) at two array counts, the JAX script's GRID
+programs of 128 arrays (2048) and HEADLINE_TILES (15,872, K1's occupancy
+at the headline, as K12 and K18 run), at every lane count; then
+s16/unpack at every lane count at CROSSOVER_PROGRAMS (4,096-12,288
+arrays), where ``lanes_for``'s threshold lies.  A time is the median of
+REPS CUDA-event launches after one untimed launch, printed as ns per
+stage per 128-array tile and as the pace of a warp (ns per stage per
+array x the warp's arrays) beside the SASS of the stage loop (its LDG
+count shows the loads, its SHFL count the lanes' exchanges); then the
+JAX script's decomposition line at each count, at the lanes ``lanes_for``
+picks, and each crossover count's fastest lane count.
 """
 
 from __future__ import annotations
 
 import ctypes
 import sys
-from collections import Counter
 
 import torch
 
 from .. import hardware
-from .common import (LT, ProbeKernel, check_names, describe_stages,
-                     sass_table, time_stages)
+from .common import (LANES, LT, LaneKernel, check_lanes, check_names,
+                     describe_stages, lanes_for, loop_stages, sass_table,
+                     shfl_count, time_stages)
 from .kernel_ablation import natural_stage, stage_signs
 
 N_PACKS = 256           # 8192 stages a program
@@ -47,36 +50,9 @@ HEADLINE_TILES = 124
 REPS = 5
 VARIANTS = ("s8/noup", "s16/noup", "s8/unpack", "s16/unpack")
 WPP = {"s8/noup": 16, "s16/noup": 32, "s8/unpack": 16, "s16/unpack": 32}
-LANES = (1, 2, 4, 8, 16, 32)   # lanes an array: soft16_ablation.cu's
-# One lane an array while the arrays alone give half a warp a scheduler (132
-# SMs x 4 x 16): a split adds work (1.6-3.3x the lane-instructions of an
-# array-stage), which pays only where one lane an array leaves the card
-# waiting on its chains.  Below that, the fewest lanes that give
-# TARGET_THREADS threads (~4 warps a scheduler).
-ONE_LANE_ARRAYS = 8_448
-TARGET_THREADS = 65_536
-
-
-def loop_stages(lanes: int) -> int:
-    """Stages of one pass of the stage loop: K13's two at one lane, the
-    six phases of the lane-split layout."""
-    return 2 if lanes == 1 else 6
-
-
-def lanes_for(arrays: int) -> int:
-    """The lanes an array of ``LANES`` that K25 runs ``arrays`` arrays at:
-    1 from ONE_LANE_ARRAYS arrays, else the fewest that give ``arrays`` x
-    lanes >= TARGET_THREADS, at most 32 (one warp an array)."""
-    if arrays >= ONE_LANE_ARRAYS:
-        return 1
-    return next((n for n in LANES[1:] if arrays * n >= TARGET_THREADS),
-                LANES[-1])
-
-
-def check_lanes(lanes: int) -> None:
-    if type(lanes) is not int or lanes not in LANES:
-        raise ValueError(f"K25 splits an array over one of {LANES} lanes, "
-                         f"got {lanes!r}")
+# s16/unpack at every lane count at these programs too: 4,096, 6,144, 8,192,
+# 10,240 and 12,288 arrays, between the two counts
+CROSSOVER_PROGRAMS = (32, 48, 64, 80, 96)
 # lane-operations an array-stage, for the bound: the ACS (chip_smoke.ACS_OPS)
 # and, with the unpack, its two field extracts, an add and a subtract
 OPS = {"s8/noup": 256, "s16/noup": 256, "s8/unpack": 260, "s16/unpack": 260}
@@ -129,15 +105,13 @@ def soft16_ablation_torch(variant: str, words: torch.Tensor,
     return (pm[0] + pp[0]).reshape(programs, 1, LT)
 
 
-class Soft16AblationKernel(ProbeKernel):
-    """K25, bound to ``viterbi_k25_launch``.  ``lane_launches`` counts the
-    launches at each lane count."""
+class Soft16AblationKernel(LaneKernel):
+    """K25, bound to ``viterbi_k25_launch``."""
 
     def __init__(self):
         super().__init__("K25", "viterbi_k25_launch", "soft16_ablation.cu",
                          [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                           ctypes.c_void_p, ctypes.c_int, ctypes.c_int])
-        self.lane_launches = Counter()
 
     def __call__(self, variant: str, words: torch.Tensor, programs: int,
                  lanes: int = None) -> torch.Tensor:
@@ -146,18 +120,15 @@ class Soft16AblationKernel(ProbeKernel):
         (``lanes_for`` the arrays when None); on a CPU tensor its plain
         version."""
         n_packs = _check(variant, words, programs)
-        if lanes is None:
-            lanes = lanes_for(programs * LT)
-        check_lanes(lanes)
+        lanes = self.pick_lanes(programs * LT, lanes)
         if not words.is_contiguous():
             raise ValueError("K25 takes contiguous words")
         if not self.check_device(words):
             return soft16_ablation_torch(variant, words, programs)
         out = torch.empty((programs, 1, LT), dtype=torch.int32,
                           device=words.device)
-        self.launch(words.device, VARIANTS.index(variant), lanes,
-                    words.data_ptr(), out.data_ptr(), programs, n_packs)
-        self.lane_launches[lanes] += 1
+        self.launch_lanes(words.device, lanes, VARIANTS.index(variant), lanes,
+                          words.data_ptr(), out.data_ptr(), programs, n_packs)
         return out
 
 
@@ -185,11 +156,6 @@ def sass_counts() -> dict:
         for i, v in enumerate(VARIANTS) for n in LANES})
 
 
-def shfl_count(mix: dict) -> int:
-    """SHFL instructions of a stage loop's opcode mix."""
-    return sum(n for op, n in mix.items() if op.startswith("SHFL"))
-
-
 def decomposition(by: dict) -> str:
     """The JAX script's line (:131-133) from {variant: ns/stage/tile}."""
     a, b, c, d = (by[v] for v in VARIANTS)
@@ -215,11 +181,32 @@ def describe(r: dict) -> str:
             f"{warp_pace(r):.4f} ns/stage")
 
 
+def run(v: str, words: torch.Tensor, programs: int, n: int,
+        sass: dict) -> dict:
+    """Time variant v over ``programs`` programs of N_PACKS packs at n
+    lanes an array."""
+    mix = sass[v, n][2]
+    return time_stages(lambda: K25(v, words, programs, n), REPS, N_PACKS * 32,
+                       programs * LT, sass[v, n], loop_stages(n), variant=v,
+                       programs=programs, lanes=n,
+                       picked=n == lanes_for(programs * LT),
+                       shfl_per_stage=shfl_count(mix) / loop_stages(n),
+                       ldg=sum(k for op, k in mix.items()
+                               if op.startswith("LDG")))
+
+
+def fastest(results: list) -> int:
+    """The lane count of the fastest of ``results``."""
+    return min(results, key=lambda r: r["ms"])["lanes"]
+
+
 def probe(names=VARIANTS, lanes=LANES) -> list:
     """Time each named variant on the current CUDA device at GRID and
     HEADLINE_TILES programs at every lane count of ``lanes`` and print one
     line each, and the decomposition line where all four ran at the count
-    ``lanes_for`` picks; returns the ``time_stages`` results."""
+    ``lanes_for`` picks; then s16/unpack, if named, at CROSSOVER_PROGRAMS
+    and the fastest lane count at each.  Returns the ``time_stages``
+    results."""
     check_names(names, VARIANTS)
     for n in lanes:
         check_lanes(n)
@@ -235,16 +222,7 @@ def probe(names=VARIANTS, lanes=LANES) -> list:
             words = probe_input(programs, N_PACKS, wpp, dev)
             for v in (v for v in names if WPP[v] == wpp):
                 for n in lanes:
-                    mix = sass[v, n][2]
-                    r = time_stages(lambda: K25(v, words, programs, n), REPS,
-                                    N_PACKS * 32, programs * LT, sass[v, n],
-                                    loop_stages(n), variant=v,
-                                    programs=programs, lanes=n,
-                                    picked=n == picked,
-                                    shfl_per_stage=shfl_count(mix) /
-                                    loop_stages(n),
-                                    ldg=sum(k for op, k in mix.items()
-                                            if op.startswith("LDG")))
+                    r = run(v, words, programs, n, sass)
                     results.append(r)
                     if n == picked:
                         by[v] = r["ns_per_stage_tile"]
@@ -253,6 +231,18 @@ def probe(names=VARIANTS, lanes=LANES) -> list:
         if len(by) == len(VARIANTS):
             print(f"{programs * LT} arrays, {picked} lanes: "
                   f"{decomposition(by)}", flush=True)
+    if "s16/unpack" in names:
+        for programs in CROSSOVER_PROGRAMS:
+            words = probe_input(programs, N_PACKS, 32, dev)
+            mine = [run("s16/unpack", words, programs, n, sass)
+                    for n in lanes]
+            del words
+            for r in mine:
+                print(describe(r), flush=True)
+            results += mine
+            print(f"{programs * LT} arrays: s16/unpack fastest at "
+                  f"{fastest(mine)} lanes, lanes_for picks "
+                  f"{lanes_for(programs * LT)}", flush=True)
     return results
 
 
