@@ -1778,56 +1778,100 @@ def held_to_plain(what: str, got, plain) -> float:
     return p_ms
 
 
+def lane_turns(tag: str, card: str, results: list, extra: dict,
+               label: str, key: str, picked_as: str = None) -> None:
+    """Print ``results`` (one variant at one count, each lane count in turn
+    with one lane, ``TURNS``) as a lane_line after ``label``, and store each
+    time in ``extra`` under ``key`` + lanes<n>_ms (one lane's second turn
+    under ..._again_ms).  With ``picked_as``, a key holding ``{}``, the
+    picked row's lanes, SASS and SHFL a stage, registers and stack (where
+    the row has it) go in too, each under picked_as with its name in the
+    braces."""
+    for n, r in zip(TURNS, results):
+        k = f"{key}_lanes{n}_ms"
+        extra[k if k not in extra else f"{key}_lanes{n}_again_ms"] = r["ms"]
+    say(tag, f"{card}: {label} by lanes in turn: {lane_line(results)}")
+    if picked_as:
+        p = next(r for r in results if r["picked"])
+        for name, field in (("lanes", "lanes"),
+                            ("sass_per_stage", "sass_per_stage"),
+                            ("shfl_per_stage", "shfl_per_stage"),
+                            ("registers", "regs"), ("stack", "stack")):
+            if field in p:
+                extra[picked_as.format(name)] = p[field]
+
+
 def layout_phase(card: str, runs: dict):
-    """K12: every variant bit-equal to its plain version at
-    PROBE_CHECK_STAGES on every program of both grids (2048 and 15,872
-    arrays), then `python -m tpu_viterbi_torch.scripts.layout_probe` (all
-    variants at both grids, STAGES stages) with the counts set to 0, and
-    each variant's bound (layout_probe.OPS lane-operations an
-    array-stage).  Returns K12's row: A at the JAX shape beside its plain
-    version there, which must agree."""
+    """K12: every variant at every lane count (A and B at LANES, C at its
+    32) bit-equal to its plain version on every program of both grids
+    (2048 and 15,872 arrays) at 32, 64 and 96 stages (tails of 2, 4 and 0
+    stages after the lane-split loop's six-stage passes), then `python -m
+    tpu_viterbi_torch.scripts.layout_probe` (A and B at each lane count in
+    turn with one lane, C, at both grids, STAGES stages) with the counts
+    set to 0, and each run's bound (layout_probe.OPS lane-operations an
+    array-stage, whatever the lanes).  Prints each variant by lanes and A
+    at each lane count against C at each grid.  Returns K12's row: A at
+    the JAX shape at the picked lanes beside its plain version there,
+    which must agree; each lane count's times in the extra keys."""
     lp = layout_probe
     x = lp.probe_input(lp.HEADLINE_TILES, "cuda", seed=SEED)
     for tiles in (lp.GRID, lp.HEADLINE_TILES):
-        for v in lp.VARIANTS:
-            xv = x[:tiles * lp.ROWS]
-            got = K12(v, xv, PROBE_CHECK_STAGES)
-            torch.cuda.synchronize()
-            if not torch.equal(got, lp.layout_torch(v, xv,
-                                                    PROBE_CHECK_STAGES)):
-                raise AssertionError(f"K12 {v} differs from its plain "
-                                     f"version at {tiles} tiles")
+        xv = x[:tiles * lp.ROWS]
+        for stages in (32, 64, 96):
+            for v in lp.VARIANTS:
+                want = lp.layout_torch(v, xv, stages)
+                for n in lp.variant_lanes(v):
+                    held(f"K12 {v} at {tiles} tiles, {stages} stages, {n} "
+                         f"lanes", K12(v, xv, stages, n), want)
     say("18 layout", f"K12 bit-equal to its plain version on all "
-        f"{len(lp.VARIANTS)} variants, every program of {lp.GRID} and "
-        f"{lp.HEADLINE_TILES} tiles, {PROBE_CHECK_STAGES} stages")
+        f"{len(lp.VARIANTS)} variants ({', '.join(lp.SPLIT)} at lanes "
+        f"{list(LANES)}, lanes at {lp.C_LANES}), every program of {lp.GRID} "
+        f"and {lp.HEADLINE_TILES} tiles, 32, 64 and 96 stages")
     results, counts = probe_run(lp.probe)
     record(runs, counts, 1, ["K12"], "layout probe")
-    by = {(r["variant"], r["tiles"]): r for r in results}
     for r in results:
-        bnd = bound(r["tiles"] * lp.ROWS * LT_BYTES + r["tiles"] * 64 *
-                    LT_BYTES, lp.OPS[r["variant"]] * r["arrays"] * lp.STAGES)
-        r["bound"] = bnd
-        say("18 layout", f"{card}: {r['variant']} at {r['arrays']} arrays: "
-            f"{r['ms']:.4f} ms = {r['ns_per_stage_tile']:.4f} ns/stage/tile;"
-            f" SASS {r['sass_per_stage']:g} a stage a thread, "
+        r["bound"] = bound(r["tiles"] * lp.ROWS * LT_BYTES + r["tiles"] * 64 *
+                           LT_BYTES,
+                           lp.OPS[r["variant"]] * r["arrays"] * lp.STAGES)
+        say("18 layout", f"{card}: {r['variant']} at {r['arrays']} arrays, "
+            f"{r['lanes']} lanes: {r['ms']:.4f} ms = "
+            f"{r['ns_per_stage_tile']:.4f} ns/stage/tile; SASS "
+            f"{r['sass_per_stage']:g} and SHFL {r['shfl_per_stage']:g} a "
+            f"stage a thread ({describe_mix(r['mix'], 12)}), "
             f"{r['lane_instr_per_array_stage']:g} lane-instructions an "
             f"array-stage = {r['lane_instr_per_ns']:.1f} a ns; registers "
-            f"{r['regs']}, stack {r['stack']} B; {share(bnd, r['ms'])}")
+            f"{r['regs']}, stack {r['stack']} B; {share(r['bound'], r['ms'])}")
+    extra = {}
     for tiles in (lp.GRID, lp.HEADLINE_TILES):
-        a, c = by[("real", tiles)], by[("lanes", tiles)]
-        say("18 layout", f"A against C at {tiles * 128} arrays: "
-            f"{a['ns_per_stage_tile']:.4f} against "
-            f"{c['ns_per_stage_tile']:.4f} ns/stage/tile (C / A = "
-            f"{c['ms'] / a['ms']:.3f})")
+        arrays = tiles * 128
+        mine = [r for r in results if r["tiles"] == tiles]
+        c = next(r for r in mine if r["variant"] == "lanes")
+        extra[f"lanes_{arrays}_ms"] = c["ms"]
+        for v in lp.SPLIT:
+            turns = [r for r in mine if r["variant"] == v]
+            lane_turns("18 layout", card, turns, extra, f"{arrays} arrays, "
+                       f"{v}", f"{v}_{arrays}", f"{v}_{{}}_at_{arrays}")
+        first = {}
+        for r in mine:
+            if r["variant"] == "real":
+                first.setdefault(r["lanes"], r)
+        c_instr = c["lane_instr_per_array_stage"]
+        say("18 layout", f"{card}: A at each lane count against C at "
+            f"{arrays} arrays (C {c['ms']:.4f} ms, {c['sass_per_stage']:g} "
+            f"SASS a stage a thread, {c_instr:g} lane-instructions an "
+            f"array-stage): " + ", ".join(
+                f"{n}: {a['ms']:.4f} ms = {a['ms'] / c['ms']:.3f} C, "
+                f"{a['lane_instr_per_array_stage']:g} lane-instructions "
+                f"({a['lane_instr_per_array_stage'] / c_instr:.3f} C)"
+                for n, a in first.items()))
     xs = x[:lp.GRID * lp.ROWS]
     got = K12("real", xs, lp.STAGES)
     p_ms, _, want = cuda_ms(lambda: lp.layout_torch("real", xs, lp.STAGES),
                             1)
-    if not torch.equal(got, want):
-        raise AssertionError("K12 real differs from its plain version at "
-                             "the JAX shape")
-    a = by[("real", lp.GRID)]
-    return a["ms"], p_ms, 0, a["bound"]
+    held("K12 real at the JAX shape", got, want)
+    a = next(r for r in results if r["variant"] == "real" and
+             r["tiles"] == lp.GRID and r["picked"])
+    return a["ms"], p_ms, 0, a["bound"], None, extra
 
 
 def lane_line(results: list, key=lambda r: r["lanes"]) -> str:
@@ -1900,12 +1944,8 @@ def ablation_phase(card: str, runs: dict, k10_ms: float):
             first.setdefault((r["variant"], r["lanes"]), r)
         for v in ka.VARIANTS:
             turns = [r for r in mine if r["variant"] == v]
-            for n, r in zip(TURNS, turns):
-                key = f"{v}_{arrays}_lanes{n}_ms"
-                extra[key if key not in extra else
-                      f"{v}_{arrays}_lanes{n}_again_ms"] = r["ms"]
-            say("19 ablation", f"{card}: {arrays} arrays, {v} by lanes "
-                f"in turn: {lane_line(turns)}")
+            lane_turns("19 ablation", card, turns, extra, f"{arrays} arrays, "
+                       f"{v}", f"{v}_{arrays}")
         for n in LANES:
             dump = first["+dump", n]["ms"] - first["+unpack", n]["ms"]
             chase = first["+traceback", n]["ms"] - first["+dump", n]["ms"]
@@ -2104,33 +2144,47 @@ def dtype_phase(card: str, runs: dict):
 
 
 def swar_phase(card: str, runs: dict):
-    """K18: every variant bit-equal to its plain version at
-    PROBE_CHECK_STAGES on every program of both grids (2048 and 15,872
-    arrays), then `python -m tpu_viterbi_torch.scripts.swar_probe` with
-    the counts set to 0, and each variant's bound.  Returns K18's row:
-    swar/stage at the JAX shape beside its plain version there."""
+    """K18: every variant at every lane count bit-equal to its plain
+    version at PROBE_CHECK_STAGES on every program of both grids (2048 and
+    15,872 arrays), then `python -m tpu_viterbi_torch.scripts.swar_probe`
+    (every variant at each lane count in turn with one lane, at both
+    grids) with the counts set to 0, and each run's bound (swar_probe.OPS,
+    whatever the lanes).  Prints each variant by lanes at each grid.
+    Returns K18's row: swar/stage at the JAX shape at the picked lanes
+    beside its plain version there; each lane count's times in the extra
+    keys."""
     sp = swar_probe
     for programs in (sp.GRID, sp.HEADLINE_TILES):
         for v in sp.VARIANTS:
             x = sp.probe_input(v, programs, "cuda", seed=SEED)
-            held_to_plain(f"K18 {v} at {programs} programs",
-                          K18(v, x, PROBE_CHECK_STAGES),
-                          lambda: sp.swar_torch(v, x, PROBE_CHECK_STAGES))
+            want = sp.swar_torch(v, x, PROBE_CHECK_STAGES)
+            for n in LANES:
+                held(f"K18 {v} at {programs} programs, {n} lanes",
+                     K18(v, x, PROBE_CHECK_STAGES, n), want)
     say("24 swar", f"K18 bit-equal to its plain version on all "
-        f"{len(sp.VARIANTS)} variants, every program of {sp.GRID} and "
-        f"{sp.HEADLINE_TILES} programs, {PROBE_CHECK_STAGES} stages")
+        f"{len(sp.VARIANTS)} variants at lanes {list(LANES)}, every program "
+        f"of {sp.GRID} and {sp.HEADLINE_TILES} programs, "
+        f"{PROBE_CHECK_STAGES} stages")
     results = probe_results(
         "24 swar", card, runs, sp, "K18", "SWAR probe",
         lambda r: bound(r["programs"] * (sp.ROWS_IN[r["variant"]] + 64) *
                         LT_BYTES,
                         sp.OPS[r["variant"]] * r["arrays"] * sp.STAGES))
+    extra = {}
+    for programs in (sp.GRID, sp.HEADLINE_TILES):
+        arrays = programs * 128
+        for v in sp.VARIANTS:
+            turns = [r for r in results
+                     if r["programs"] == programs and r["variant"] == v]
+            lane_turns("24 swar", card, turns, extra, f"{arrays} arrays, {v}",
+                       f"{v}_{arrays}", f"{v}_{{}}_at_{arrays}")
     x = sp.probe_input("swar/stage", sp.GRID, "cuda", seed=SEED)
     p_ms = held_to_plain("K18 swar/stage at the JAX shape",
                          K18("swar/stage", x, sp.STAGES),
                          lambda: sp.swar_torch("swar/stage", x, sp.STAGES))
-    row = next(r for r in results
-               if r["variant"] == "swar/stage" and r["programs"] == sp.GRID)
-    return row["ms"], p_ms, 0, row["bound"]
+    row = next(r for r in results if r["variant"] == "swar/stage" and
+               r["programs"] == sp.GRID and r["picked"])
+    return row["ms"], p_ms, 0, row["bound"], None, extra
 
 
 def opt_bench_phase(card: str, runs: dict):
@@ -2167,12 +2221,9 @@ def opt_bench_phase(card: str, runs: dict):
             for v in ob.VARIANTS:
                 turns = [r for r in results if r["arrays"] == width and
                          r["lt"] == lt and r["variant"] == v]
-                for n, r in zip(TURNS, turns):
-                    key = f"{v}_lt{lt}_{width}_lanes{n}_ms"
-                    extra[key if key not in extra else
-                          f"{v}_lt{lt}_{width}_lanes{n}_again_ms"] = r["ms"]
-                say("25 opt bench", f"{card}: {width} arrays, {v} lt {lt} "
-                    f"by lanes in turn: {lane_line(turns)}")
+                lane_turns("25 opt bench", card, turns, extra,
+                           f"{width} arrays, {v} lt {lt}",
+                           f"{v}_lt{lt}_{width}")
     for width in ob.CROSSOVER_ARRAYS:
         mine = [r for r in results if r["arrays"] == width]
         for r in mine:
@@ -3003,7 +3054,9 @@ def main() -> int:
                           *HALO_ROWS), 1)
     want["K10"] = CANARY_REPS + 1
     want["K11"] = 2 * len(op_cost_probe.VARIANTS) * (op_cost_probe.REPS + 1)
-    want["K12"] = 2 * len(layout_probe.VARIANTS) * (layout_probe.REPS + 1)
+    # K12: A and B at both grids at each lane count in turn, and C
+    want["K12"] = 2 * (len(layout_probe.SPLIT) * len(TURNS) + 1) * (
+        layout_probe.REPS + 1)
     # K13: every variant at both counts at each lane count in turn; K19
     # likewise at every lt, then i16 at the counts between at each lane
     # count; K25 every variant at both counts and s16/unpack at the counts
@@ -3018,7 +3071,8 @@ def main() -> int:
         kernel_microbench.REPS + 1)
     want["K17"] = 2 * len(dtype_throughput.OCCUPANCIES) * len(
         dtype_throughput.DTYPES) * (dtype_throughput.REPS + 1)
-    want["K18"] = 2 * len(swar_probe.VARIANTS) * (swar_probe.REPS + 1)
+    want["K18"] = 2 * len(swar_probe.VARIANTS) * len(TURNS) * (
+        swar_probe.REPS + 1)
     want["K19"] = (2 * len(opt_bench.LTS) * len(opt_bench.VARIANTS) *
                    len(TURNS) + len(opt_bench.CROSSOVER_ARRAYS) *
                    len(LANES)) * (opt_bench.REPS + 1)

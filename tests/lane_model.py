@@ -1,6 +1,9 @@
 """The lane-split layout of ``tpu_viterbi_torch/csrc/lanes.cuh`` in numpy,
 for the CPU tests of the kernels that use it: K25
-(tests/test_torch_k6_k25.py), K13 and K19 (tests/test_torch_k13_k19.py).
+(tests/test_torch_k6_k25.py), K13 and K19 (tests/test_torch_k13_k19.py),
+K12's layouts A and B (tests/test_torch_k12_k18.py); and K18's split of
+its 32 predecessor pairs or pm words over lanes, with the sources of its
+repack (csrc/swar_probe.cu), for the same K12/K18 tests.
 
 An array's 64 states are split over ``lanes`` lanes, S = 64 / lanes
 positions a lane (position P = lane * S + register).  After t stages
@@ -86,13 +89,18 @@ def lane_acs_stage(pm, pp, f: int, lanes: int, bm):
             (np.where(dec, pp[part], pp) << 1 | (dec != h)) & 0xFFFFFFFF)
 
 
-def run_trellis(packs, lanes: int, arrays: int, at_pack_end=None):
+def run_trellis(packs, lanes: int, arrays: int, at_pack_end=None,
+                start=None):
     """(pm, pp) by position after the stages of ``packs`` (each pack a list
-    of 32 (u, d) stage fields, (arrays,) int32 tensors or arrays), from
-    zero; ``at_pack_end(p, f, pp)`` after each pack p, f the phase of the
-    stage after it."""
-    pm = np.zeros((64, arrays), np.int64)
-    pp = np.zeros_like(pm)
+    of (u, d) stage fields, (arrays,) int32 tensors or arrays, 32 a pack
+    but K12's one), from zero or from ``start`` = (pm, pp) by position at
+    stage 0, where position P holds state P; ``at_pack_end(p, f, pp)``
+    after each pack p, f the phase of the stage after it."""
+    if start is None:
+        pm = np.zeros((64, arrays), np.int64)
+        pp = np.zeros_like(pm)
+    else:
+        pm, pp = (np.asarray(v, np.int64) for v in start)
     t = 0
     for p, fields in enumerate(packs):
         for u, d in fields:
@@ -104,3 +112,138 @@ def run_trellis(packs, lanes: int, arrays: int, at_pack_end=None):
         if at_pack_end is not None:
             at_pack_end(p, t % 6, pp)
     return pm, pp
+
+
+# --- K12: layouts A and B on this layout ---
+
+def k12_split(x, stages: int, lanes: int, dual: bool):
+    """K12's A (``dual`` False) or B split over ``lanes`` lanes, as
+    csrc/layout_probe.cu's layout_split_kernel computes it: x (tiles x
+    192, 128) int32 -> (programs, 64, 128) int32.  Each column's pm and pp
+    start in natural order, position P as state P; stage t reads row t % 32
+    of u and d; B's program g is tiles 2g and 2g + 1, its two arrays
+    summed position by position; position P's sum goes to row rol6(P,
+    stages % 6)."""
+    t = np.asarray(x, np.int64).reshape(-1, 192, 128)
+    arrays = t.shape[0] * 128
+    cols = t.transpose(1, 0, 2).reshape(192, arrays)    # a = g * 128 + l
+    fields = [(cols[128 + s % 32], cols[160 + s % 32]) for s in range(stages)]
+    pm, pp = run_trellis([fields], lanes, arrays,
+                         start=(cols[:64], cols[64:128]))
+    by_pos = (pm + pp).reshape(64, -1, 128)             # (P, tile, column)
+    if dual:
+        by_pos = by_pos[:, 0::2] + by_pos[:, 1::2]
+    out = np.zeros_like(by_pos)
+    out[[rol6(p, stages % 6) for p in range(64)]] = by_pos
+    return wrap32(out).transpose(1, 0, 2)
+
+
+# --- K18: 32 pairs or words over lanes ---
+
+def swar_owner(lanes: int):
+    """(lane, slot) of predecessor pair or pm word q = 0..31 (its survivors
+    pp[q], pp[q + 32] and bm[q] beside it): lane q mod L, slot q div L."""
+    q = np.arange(32)
+    return q % lanes, q // lanes
+
+
+def swar_repack_sources(lanes: int):
+    """For destination (lane l, slot r) of a repack, as the kernel computes
+    them: ((lane, slot) of word k, (lane, slot) of word k + 16, the half b
+    the lane's selector takes), new word w = r L + l = 2k + b.  At one lane
+    the sources are the thread's own registers (b the slot's bit 0); split,
+    both slots are functions of r alone (compile-time indices) and b of
+    the lane alone (a selector fixed for it)."""
+    S = 32 // lanes
+    out = {}
+    for l in range(lanes):
+        for r in range(S):
+            if lanes == 1:
+                out[l, r] = ((0, r >> 1), (0, (r >> 1) + 16), r & 1)
+                continue
+            src = (l >> 1) + (r & 1) * (lanes // 2)
+            if lanes == 32:
+                out[l, r] = ((src, 0), (src + 16, 0), l & 1)
+            else:
+                out[l, r] = ((src, r >> 1), (src, (r >> 1) + 16 // lanes),
+                             l & 1)
+    return out
+
+
+def byte_perm(x, y, sel: int):
+    """__byte_perm: byte i of the result is byte (sel >> 4 i) & 7 of y:x."""
+    v = (np.asarray(y, np.int64) << 32) | np.asarray(x, np.int64)
+    return sum(((v >> (8 * ((sel >> (4 * i)) & 7))) & 0xFF) << (8 * i)
+               for i in range(4))
+
+
+def vadd2(a, b):
+    """__vadd2: two 16-bit adds, no carry across."""
+    return ((a + b) & 0xFFFF) | ((((a >> 16) + (b >> 16)) & 0xFFFF) << 16)
+
+
+def vibmax_s16x2(a, b):
+    """__vibmax_s16x2: (the larger signed half of each, a >= b of the high
+    half, of the low half)."""
+    def half(w, h):
+        return wrap16((w >> (16 * h)) & 0xFFFF)
+    ge_lo, ge_hi = half(a, 0) >= half(b, 0), half(a, 1) >= half(b, 1)
+    lo = np.where(ge_lo, half(a, 0), half(b, 0)) & 0xFFFF
+    hi = np.where(ge_hi, half(a, 1), half(b, 1)) & 0xFFFF
+    return lo | (hi << 16), ge_hi, ge_lo
+
+
+def k18_split(variant: str, x, stages: int, lanes: int, repack: int):
+    """K18 split over ``lanes`` lanes, as csrc/swar_probe.cu computes it:
+    x (programs x rows, 128) int32 -> (programs, 64, 128) int32.  Every
+    register is a (lane, slot) of swar_owner; a stage reads only its own
+    slot; a repack builds each (lane, slot) from the swar_repack_sources
+    of the stage's maxima, asserting that they hold words k and k + 16."""
+    rows = 160 if variant == "baseline" else 128
+    t = np.asarray(x, np.int64).reshape(-1, rows, 128)
+    lane_of, slot_of = swar_owner(lanes)
+
+    def regs(first):            # rows first + q -> [lane, slot] of q
+        r = np.zeros((lanes, 32 // lanes) + t[:, 0].shape, np.int64)
+        r[lane_of, slot_of] = t[:, first:first + 32].transpose(1, 0, 2)
+        return r
+
+    def rows_of(v):             # [lane, slot] of q -> rows q
+        return v[lane_of, slot_of].transpose(1, 0, 2)
+
+    m32 = 0xFFFFFFFF
+    if variant == "baseline":
+        lo, hi, pl, ph, bm = (regs(f) & m32 for f in (0, 32, 64, 96, 128))
+        for _ in range(stages):
+            c0e, c1e = wrap32(lo + bm), wrap32(hi - bm)
+            c0o, c1o = wrap32(lo - bm), wrap32(hi + bm)
+            de, do = c1e > c0e, c1o > c0o
+            fl, fh = (pl << 1) & m32, ((ph << 1) | 1) & m32
+            lo = np.where(de, c1e, c0e) & m32
+            hi = np.where(do, c1o, c0o) & m32
+            pl, ph = np.where(de, fh, fl), np.where(do, fh, fl)
+        out = np.concatenate([rows_of(lo + pl), rows_of(hi + ph)], 1)
+        return wrap32(out)
+    pmw, pl, ph, bm = (regs(f) & m32 for f in (0, 32, 64, 96))
+    nm = -bm & m32
+    bme, bmo = byte_perm(bm, nm, 0x5410), byte_perm(nm, bm, 0x5410)
+    sources = swar_repack_sources(lanes)
+    for s in range(stages):
+        ce, co = vadd2(pmw, bme), vadd2(pmw, bmo)
+        m, ge_o, ge_e = vibmax_s16x2(byte_perm(ce, co, 0x5410),
+                                     byte_perm(ce, co, 0x7632))
+        fl, fh = (pl << 1) & m32, ((ph << 1) | 1) & m32
+        pl, ph = np.where(ge_e, fl, fh), np.where(ge_o, fl, fh)
+        if s % repack != repack - 1:
+            pmw = m
+            continue
+        new = np.zeros_like(m)
+        for (l, r), ((la, sa), (lb, sb), b) in sources.items():
+            k = (r * lanes + l) >> 1
+            assert (lane_of[k], slot_of[k]) == (la, sa)
+            assert (lane_of[k + 16], slot_of[k + 16]) == (lb, sb)
+            assert b == (r * lanes + l) & 1
+            new[l, r] = byte_perm(m[la, sa], m[lb, sb],
+                                  0x7632 if b else 0x5410)
+        pmw = new
+    return wrap32(np.concatenate([rows_of(pmw + pl), rows_of(pmw + ph)], 1))

@@ -863,22 +863,31 @@ def test_canary_and_timing(gpu):
 
 # --- the probes' kernels K12-K15 ---
 
-@pytest.mark.parametrize("variant", layout_probe.VARIANTS)
-def test_k12_matches_plain(gpu, variant):
-    """Four tiles at 64 stages: every program equals the plain version's;
-    one launch; a refused shape raises before any launch."""
+@pytest.mark.parametrize("variant,lanes", [
+    (v, n) for v in layout_probe.VARIANTS
+    for n in (None,) + layout_probe.variant_lanes(v)])
+def test_k12_matches_plain(gpu, variant, lanes):
+    """Four tiles at 32, 64 and 96 stages (tails of 2, 4 and 0 stages after
+    the lane-split loop's passes), at the lanes the wrapper picks (None)
+    and at every lane count the variant is built for: every program equals
+    the plain version's; one launch each, counted at its lanes; a refused
+    shape raises before any launch."""
     x = layout_probe.probe_input(4, gpu, seed=1)
     K12 = layout_probe.K12
-    before = K12.launches
-    got = K12(variant, x, 64)
-    torch.cuda.synchronize()
-    assert K12.launches == before + 1
-    assert torch.equal(got, layout_probe.layout_torch(variant, x, 64))
+    n = K12.lanes_of(variant, 4 // layout_probe.TILES_A_PROGRAM[variant],
+                          lanes)
+    before = (K12.launches, K12.lane_launches[n])
+    for stages in (32, 64, 96):
+        got = K12(variant, x, stages, lanes)
+        torch.cuda.synchronize()
+        assert torch.equal(got, layout_probe.layout_torch(variant, x, stages))
+    assert (K12.launches, K12.lane_launches[n]) == (before[0] + 3,
+                                                    before[1] + 3)
     with pytest.raises(ValueError):
-        K12(variant, x[:100], 64)
+        K12(variant, x[:100], 64, lanes)
     with pytest.raises(ValueError):
-        K12(variant, x, 40)
-    assert K12.launches == before + 1
+        K12(variant, x, 40, lanes)
+    assert K12.launches == before[0] + 3
 
 
 @pytest.mark.parametrize("programs", [3, 16])
@@ -953,14 +962,17 @@ def test_k15_matches_plain(gpu, chains, occupancy):
 def test_probe_sass_readings(gpu):
     """Every kernel of K12-K19 has a stage (step) loop in the library's
     SASS, a register count and an opcode mix that sums to the loop."""
-    for mod, keys in ((layout_probe, layout_probe.VARIANTS),
+    for mod, keys in ((layout_probe, [
+                          (v, n) for v in layout_probe.VARIANTS
+                          for n in layout_probe.variant_lanes(v)]),
                       (kernel_ablation, list(itertools.product(
                           kernel_ablation.VARIANTS, soft16_ablation.LANES))),
                       (acs_variants_bench, acs_variants_bench.VARIANTS),
                       (ilp_probe, ilp_probe.CHAINS),
                       (kernel_microbench, kernel_microbench.VARIANTS),
                       (dtype_throughput, dtype_throughput.DTYPES),
-                      (swar_probe, swar_probe.VARIANTS),
+                      (swar_probe, list(itertools.product(
+                          swar_probe.VARIANTS, soft16_ablation.LANES))),
                       (opt_bench, list(itertools.product(
                           opt_bench.VARIANTS, opt_bench.LTS,
                           soft16_ablation.LANES)))):
@@ -1017,23 +1029,27 @@ def test_k17_matches_plain(gpu, dtype, occupancy):
     assert K17.launches == before + 2
 
 
+@pytest.mark.parametrize("lanes", (None,) + soft16_ablation.LANES)
 @pytest.mark.parametrize("programs", [swar_probe.GRID,
                                       swar_probe.HEADLINE_TILES])
 @pytest.mark.parametrize("variant", swar_probe.VARIANTS)
-def test_k18_matches_plain(gpu, variant, programs):
+def test_k18_matches_plain(gpu, variant, programs, lanes):
     """64 stages on every program of the JAX grid (2048 arrays) and of
-    15,872 arrays: equal to the plain version; one launch; a refused
-    stage count raises before any launch."""
+    15,872 arrays, at the lanes the wrapper picks (None) and split over
+    every lane count: equal to the plain version; one launch, counted at
+    its lanes; a refused stage count raises before any launch."""
     x = swar_probe.probe_input(variant, programs, gpu, seed=8)
     K18 = swar_probe.K18
-    before = K18.launches
-    got = K18(variant, x, 64)
+    n = soft16_ablation.lanes_for(programs * 128) if lanes is None else lanes
+    before = (K18.launches, K18.lane_launches[n])
+    got = K18(variant, x, 64, lanes)
     torch.cuda.synchronize()
-    assert K18.launches == before + 1
+    assert (K18.launches, K18.lane_launches[n]) == (before[0] + 1,
+                                                    before[1] + 1)
     assert torch.equal(got, swar_probe.swar_torch(variant, x, 64))
     with pytest.raises(ValueError):
-        K18(variant, x, 62)
-    assert K18.launches == before + 1
+        K18(variant, x, 62, lanes)
+    assert K18.launches == before[0] + 1
 
 
 @pytest.mark.parametrize("lanes", (None,) + soft16_ablation.LANES)
@@ -1264,14 +1280,23 @@ def test_k28_matches_plain(gpu, variant, reps):
 def test_last_probe_sass_readings(gpu):
     """K25's and K28's loops, K11's relayouts and K13's bisect are in the
     library's SASS; a relayout's step loop holds a SHFL a construct.
-    K25's, K13's and K19's lane-split loops shuffle (L = 1 does not) and no
-    branch splits their warps around the shuffles."""
+    K25's, K13's, K19's, K12's (A, B and C) and K18's swar lane-split loops
+    shuffle (L = 1 does not; K18's baseline never does), and no branch
+    splits their warps around the shuffles; B spills at neither of its
+    picks (32 and 16 lanes); swar/stage's repack is two shuffles a word."""
     sa = soft16_ablation
+    k12, k18 = layout_probe.sass_counts(), swar_probe.sass_counts()
     for table in (sa.sass_counts(), kernel_ablation.sass_counts(),
-                  opt_bench.sass_counts()):
+                  opt_bench.sass_counts(), k12, k18):
         for key, (loop, res, mix) in table.items():
-            assert (sa.shfl_count(mix) > 0) == (key[-1] > 1), key
+            split = key[-1] > 1 and key[0] != "baseline"
+            assert (sa.shfl_count(mix) > 0) == split, key
             assert not any("DIV" in op or "COLLECTIVE" in op for op in mix)
+    for n in (16, 32):
+        assert k12["dual", n][1]["STACK"] == 0, n
+    for n in sa.LANES[1:]:
+        assert sa.shfl_count(k18["swar/stage", n][2]) == \
+            2 * 32 // n * swar_probe.SPLIT_LOOP_STAGES, n
     for mod, keys in ((sa, list(itertools.product(sa.VARIANTS, sa.LANES))),
                       (interleave_bench, interleave_bench.VARIANTS),
                       (kernel_ablation, list(itertools.product(

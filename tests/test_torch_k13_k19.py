@@ -269,16 +269,19 @@ def test_k13_k19_pick_the_shared_rule(arrays, want):
 
 
 def test_lane_sources_share_one_header():
-    """K13's and K19's entries take the lane counts of ``LANES``; K13's
-    lane-split block is ``lane_block``'s; the layout (rol6, bm_bits,
-    lane_acs, the exchange) is defined once, in lanes.cuh, which K13, K19
-    and K25 include."""
+    """K13's and K19's entries take the lane counts of ``LANES``, through
+    lanes.cuh's dispatch_lanes; K13's lane-split block is
+    ``lane_block``'s; the layout (rol6, bm_bits, lane_acs, the exchange)
+    is defined once, in lanes.cuh, which K13, K19 and K25 include."""
     srcs = {p.name: p.read_text() for p in library.CSRC.glob("*.cu*")}
+    cases = re.search(r"cudaError_t dispatch_lanes\(int lanes.*?switch "
+                      r"\(lanes\) \{(.*?)default", srcs["lanes.cuh"],
+                      re.S).group(1)
+    assert tuple(int(c) for c in re.findall(r"case (\d+):", cases)) == LANES
+    assert [n for n, s in srcs.items() if "switch (lanes)" in s] == \
+        ["lanes.cuh"]
     for name in ("kernel_ablation.cu", "opt_bench.cu"):
-        cases = re.search(r"switch \(lanes\) \{(.*?)default", srcs[name],
-                          re.S).group(1)
-        assert tuple(int(c) for c in re.findall(r"case (\d+):", cases)) \
-            == LANES
+        assert "viterbi::dispatch_lanes(lanes, " in srcs[name]
     for name in ("kernel_ablation.cu", "opt_bench.cu", "soft16_ablation.cu"):
         assert '#include "lanes.cuh"' in srcs[name]
     for fn in (r"int rol6\(", r"int bm_bits\(", r"void lane_acs\(",

@@ -236,14 +236,17 @@ def test_k25_lane_layout_equals_the_plain_version(variant, lanes):
 
 
 def test_k25_constants_match_the_source():
-    """The lane counts the entry takes are soft16_ablation.cu's, and the
-    pass of six stages is that of lanes.cuh, which it includes."""
+    """The lane counts the entry takes are those of lanes.cuh's
+    dispatch_lanes, which soft16_ablation.cu calls, and the pass of six
+    stages is that of lanes.cuh, which it includes."""
     src = (library.CSRC / "soft16_ablation.cu").read_text()
-    cases = re.search(r"switch \(lanes\) \{(.*?)default", src, re.S).group(1)
+    header = (library.CSRC / "lanes.cuh").read_text()
+    cases = re.search(r"cudaError_t dispatch_lanes\(int lanes.*?switch "
+                      r"\(lanes\) \{(.*?)default", header, re.S).group(1)
     assert tuple(int(c) for c in re.findall(r"case (\d+):", cases)) == \
         sa.LANES
+    assert "viterbi::dispatch_lanes(lanes, " in src
     assert '#include "lanes.cuh"' in src
     assert re.findall(r"constexpr int kPass = (\d+);", src) == []
-    header = (library.CSRC / "lanes.cuh").read_text()
     assert re.findall(r"constexpr int kPass = (\d+);", header) == \
         [str(sa.loop_stages(2))]

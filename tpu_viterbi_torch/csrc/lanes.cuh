@@ -21,6 +21,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "acs.cuh"
 
@@ -155,6 +156,27 @@ __device__ __forceinline__ Bm soft8_bm(int word) {
   Bm m;
   int_bm(static_cast<int>(x) >> 24, static_cast<int>(x << 8) >> 24, m);
   return m;
+}
+
+// The one place a launch turns a lane count into a template argument:
+// returns f(std::integral_constant<int, L>{}) for lanes == L, L one of 1,
+// 2, 4, 8, 16 or 32 and at least FIRST (2 where one lane is another
+// kernel's), else cudaErrorInvalidValue.
+template <int FIRST = 1, typename F>
+cudaError_t dispatch_lanes(int lanes, F&& f) {
+  static_assert(FIRST == 1 || FIRST == 2, "FIRST is 1 or 2");
+  switch (lanes) {
+    case 1:
+      if constexpr (FIRST == 1) return f(std::integral_constant<int, 1>{});
+      break;
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 8: return f(std::integral_constant<int, 8>{});
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 32: return f(std::integral_constant<int, 32>{});
+    default: break;
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace viterbi

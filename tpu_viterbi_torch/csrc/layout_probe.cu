@@ -31,25 +31,50 @@
 //
 // What bounds it: instruction issue and, with few warps a scheduler, the
 // ACS' dependency latency; the tile is read once and the output written
-// once.  What the design does about it: nothing beyond K1's own, on
-// purpose.  A is K1's stage body with its loop of two stages, the next two
-// stages' u and d loading while the ACS runs, as K1's reader runs a word
-// ahead, so that a load's latency does not stall the pass that needs it.
-// B doubles the independent work a thread, and its registers: 256 live
-// values against the 255-register cap, so B spills.  C trades A's 64
-// registers of each kind for two and a warp's shuffles, and so fills the
-// SMs with 32 times the threads.
+// once.  At one lane an array (lanes = 1) A is K1's stage body with its
+// loop of two stages, the next two stages' u and d loading while the ACS
+// runs, as K1's reader runs a word ahead, so that a load's latency does
+// not stall the pass that needs it.  B doubles the independent work a
+// thread, and its registers: 256 live values against the 255-register
+// cap, so B spills.  C trades A's 64 registers of each kind for two and a
+// warp's shuffles, and so fills the SMs with 32 times the threads.  At
+// the JAX shape's 2,048 arrays A and B run 32 CTAs of 64 threads on 132
+// SMs, each warp's time its ACS chain's latency.
+//
+// What the design does about it: A and B split each array over `lanes` L
+// of a warp (2-32; the wrapper picks L from the threads they run at one
+// lane, arrays for A, array pairs for B), in place, as lanes.cuh lays it
+// out: a lane holds S = 64 / L positions of each of its arrays, B's two
+// interleaved stage by stage; a loop of six-stage passes, each stage's u
+// and d rows (row t % 32, at a runtime offset, since a pass is not a
+// divisor of 32) loaded a pass ahead, every lane of an array reading the
+// same address, so a warp's row is one request of 32 / L neighbouring
+// words.  The tile's pm and pp are in natural order at t = 0, so position
+// P starts as state P; after `stages` stages it holds state rol6(P,
+// stages % 6), its row of the output.  B's two arrays rotate alike, so its
+// sum is taken position by position.  A lane's positions are
+// double-buffered; B at two lanes has 128 metrics and survivors live.  C
+// is left as it was: it is one warp, 32 lanes, an array.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "acs.cuh"
+#include "build_part.cuh"
+#include "lanes.cuh"
+
+// Build parts (build_part.cuh): part 0 holds the entry point, the one-lane
+// kernels and C, part 1 A's lane-split kernels and part 2 B's.
+// nvcc parts: 3
 
 namespace viterbi_layout {
 
 using viterbi::Bm;
+using viterbi::kPass;
 using viterbi::kStates;
+using viterbi::lane_stage;
+using viterbi::rol6;
 
 constexpr int kCols = 128;     // arrays of a program (the TPU's lanes)
 constexpr int kRows = 192;     // rows of a program
@@ -97,6 +122,7 @@ struct UdRows {
   }
 };
 
+#if IN_PART(0)
 __global__ void __launch_bounds__(kThreadsA)
 layout_real_kernel(const int* __restrict__ x, int* __restrict__ out,
                    int stages, int programs) {
@@ -215,34 +241,189 @@ layout_lanes_kernel(const int* __restrict__ x, int* __restrict__ out,
   int* dst = out + (static_cast<size_t>(g) * kStates + r) * kCols + col;
   *reinterpret_cast<int2*>(dst) = o;
 }
+#endif  // IN_PART(0)
+
+// --- A and B split over lanes (lanes >= 2, lanes.cuh) ---
+
+constexpr int kLaneThreads = 128;  // the lane-split kernels' CUDA block
+
+// A thread's N arrays (A: 1, B: 2, the tiles 2g and 2g + 1), each over L
+// lanes: the lane's S = 64 / L positions of each, double-buffered, and the
+// u and d of each stage of the next pass.
+template <int L, int N>
+struct SplitArrays {
+  static constexpr int S = kStates / L;
+
+  const int* u;  // row 0 of u, column l, of the first array's tile
+  int lane;
+  uint32_t flips;
+  int pm_a[N][S], pm_b[N][S];
+  uint32_t pp_a[N][S], pp_b[N][S];
+  int ru[N][kPass], rd[N][kPass];
+
+  __device__ __forceinline__ SplitArrays(const int* col, int ln)
+      : u(col + kRowU * kCols), lane(ln), flips(0u) {
+    viterbi::add_lane_flips<L>(lane, flips);
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      const int* tile = col + n * kRows * kCols;
+#pragma unroll
+      for (int r = 0; r < S; ++r) {
+        pm_a[n][r] = __ldg(tile + (lane * S + r) * kCols);
+        pp_a[n][r] = static_cast<uint32_t>(
+            __ldg(tile + (kRowPp + lane * S + r) * kCols));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kPass; ++j) rows(j, j);
+  }
+
+  // Stage t's u and d (row t % 32) of every array into slot j (a constant
+  // once unrolled): one address for all L lanes of an array, one 64-bit
+  // add for the thread's loads (the rest are immediate offsets from it).
+  __device__ __forceinline__ void rows(int t, int j) {
+    const int* at = u + (t & 31) * kCols;
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      ru[n][j] = __ldg(at + n * kRows * kCols);
+      rd[n][j] = __ldg(at + n * kRows * kCols + (kRowD - kRowU) * kCols);
+    }
+  }
+
+  // Stage t0 + J, phase J (t0 % 6 == 0), of each array in turn; AHEAD:
+  // then load the next pass's rows into the registers it has read.
+  template <int J, bool AHEAD>
+  __device__ __forceinline__ void stage(int t0) {
+    Bm m[N];
+#pragma unroll
+    for (int n = 0; n < N; ++n) m[n] = bm_of(ru[n][J], rd[n][J]);
+    if constexpr (AHEAD) rows(t0 + kPass + J, J);
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      if constexpr (J % 2 == 0)
+        lane_stage<L, J>(pm_a[n], pp_a[n], pm_b[n], pp_b[n], m[n], flips,
+                         lane);
+      else
+        lane_stage<L, J>(pm_b[n], pp_b[n], pm_a[n], pp_a[n], m[n], flips,
+                         lane);
+    }
+  }
+
+  template <int J, int M, bool AHEAD>
+  __device__ __forceinline__ void pass(int t0) {
+    if constexpr (J < M) {
+      stage<J, AHEAD>(t0);
+      pass<J + 1, M, AHEAD>(t0);
+    }
+  }
+};
+
+// V = 0: A, V = 1: B.  programs x kCols x L threads, whole blocks.
+template <int V, int L>
+__global__ void __launch_bounds__(kLaneThreads)
+layout_split_kernel(const int* __restrict__ x, int* __restrict__ out,
+                    int stages) {
+  constexpr int N = V + 1, S = kStates / L;
+  const int i = blockIdx.x * kLaneThreads + threadIdx.x;
+  const int a = i / L, lane = i % L;  // a: the array (A) or pair (B)
+  const int g = a / kCols, l = a % kCols;
+  SplitArrays<L, N> arr(x + static_cast<size_t>(N * g) * kRows * kCols + l,
+                        lane);
+  int t0 = 0;
+#pragma unroll 1
+  for (; t0 + kPass <= stages; t0 += kPass)
+    arr.template pass<0, kPass, true>(t0);
+  // stages % 32 == 0: a tail of 0, 2 or 4
+  if (stages - t0 == 4)
+    arr.template pass<0, 4, false>(t0);
+  else if (stages - t0 == 2)
+    arr.template pass<0, 2, false>(t0);
+  const int f = stages % kPass;
+  int* o = out + static_cast<size_t>(g) * kStates * kCols + l;
+#pragma unroll
+  for (int r = 0; r < S; ++r) {
+    uint32_t v = 0u;
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+      v += static_cast<uint32_t>(arr.pm_a[n][r]) + arr.pp_a[n][r];
+    o[rol6(lane * S + r, f) * kCols] = static_cast<int>(v);
+  }
+}
+
+template <int V, int L>
+cudaError_t launch_split_at(const int* x, int* out, int stages, int programs,
+                            cudaStream_t s) {
+  static_assert(kCols % kLaneThreads == 0, "whole CUDA blocks");
+  layout_split_kernel<V, L>
+      <<<programs * (kCols / kLaneThreads) * L, kLaneThreads, 0, s>>>(
+          x, out, stages);
+  return cudaGetLastError();
+}
+
+template <int V>
+cudaError_t launch_split(int lanes, const int* x, int* out, int stages,
+                         int programs, cudaStream_t s) {
+  return viterbi::dispatch_lanes<2>(lanes, [&](auto l) {
+    return launch_split_at<V, decltype(l)::value>(x, out, stages, programs,
+                                                  s);
+  });
+}
+
+cudaError_t launch_split_real(int, const int*, int*, int, int, cudaStream_t);
+cudaError_t launch_split_dual(int, const int*, int*, int, int, cudaStream_t);
+
+#if IN_PART(1)
+cudaError_t launch_split_real(int lanes, const int* x, int* out, int stages,
+                              int programs, cudaStream_t s) {
+  return launch_split<0>(lanes, x, out, stages, programs, s);
+}
+#endif
+#if IN_PART(2)
+cudaError_t launch_split_dual(int lanes, const int* x, int* out, int stages,
+                              int programs, cudaStream_t s) {
+  return launch_split<1>(lanes, x, out, stages, programs, s);
+}
+#endif
 
 }  // namespace viterbi_layout
 
 using namespace viterbi_layout;
 
-// Launch variant `variant` (0 real, 1 dual, 2 lanes) for `stages` stages (a
-// multiple of 32) over `programs` programs: x holds programs x 192 rows of
-// 128 int32 (a dual program is two of them), out programs x 64 rows.
-// Returns the cudaError_t of the launch (0 = launched).
-extern "C" int viterbi_k12_launch(int variant, const void* x, void* out,
-                                  int stages, int programs, void* stream) {
+#if IN_PART(0)
+// Launch variant `variant` (0 real, 1 dual, 2 lanes) split over `lanes`
+// lanes an array (A and B: 1, 2, 4, 8, 16 or 32; C: 32, one warp an
+// array) for `stages` stages (a multiple of 32) over `programs` programs:
+// x holds programs x 192 rows of 128 int32 (a dual program is two of
+// them), out programs x 64 rows.  Returns the cudaError_t of the launch (0
+// = launched).
+extern "C" int viterbi_k12_launch(int variant, int lanes, const void* x,
+                                  void* out, int stages, int programs,
+                                  void* stream) {
   const int* xi = static_cast<const int*>(x);
   int* o = static_cast<int*>(out);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (stages < 0 || stages % 32 != 0 || programs <= 0 || x == nullptr ||
-      out == nullptr)
+      out == nullptr || lanes < 1 ||
+      static_cast<long long>(programs) * kCols * lanes > INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   const int threads = programs * kCols;
   switch (variant) {
     case 0:
+      if (lanes > 1)
+        return static_cast<int>(
+            launch_split_real(lanes, xi, o, stages, programs, s));
       layout_real_kernel<<<(threads + kThreadsA - 1) / kThreadsA, kThreadsA,
                            0, s>>>(xi, o, stages, programs);
       break;
     case 1:
+      if (lanes > 1)
+        return static_cast<int>(
+            launch_split_dual(lanes, xi, o, stages, programs, s));
       layout_dual_kernel<<<(threads + kThreadsA - 1) / kThreadsA, kThreadsA,
                            0, s>>>(xi, o, stages, programs);
       break;
     case 2:
+      if (lanes != 32) return static_cast<int>(cudaErrorInvalidValue);
       layout_lanes_kernel<<<threads * 32 / kThreadsC, kThreadsC, 0, s>>>(
           xi, o, stages, programs);
       break;
@@ -251,3 +432,4 @@ extern "C" int viterbi_k12_launch(int variant, const void* x, void* out,
   }
   return static_cast<int>(cudaGetLastError());
 }
+#endif  // IN_PART(0)

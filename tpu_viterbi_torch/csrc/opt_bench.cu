@@ -62,19 +62,12 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "build_part.cuh"
 #include "lanes.cuh"
 
-// Build parts: library.load_library compiles this file once per part, all
-// started together, with -DBUILD_PART=<i> for each i below the count on the
-// next line; part i holds the kernels of one block size (128, 256, 512),
-// part 0 the entry point.  Built by hand without the macro, one object
-// holds every kernel.
+// Build parts (build_part.cuh): part i holds the kernels of one block size
+// (128, 256, 512), part 0 the entry point.
 // nvcc parts: 3
-#ifdef BUILD_PART
-#define IN_PART(i) (BUILD_PART == (i))
-#else
-#define IN_PART(i) 1
-#endif
 
 namespace viterbi_opt_bench {
 
@@ -396,15 +389,10 @@ cudaError_t launch_lt(const int* rs, int* out, int n_packs, int width,
 template <int V, int THREADS>
 cudaError_t launch_lanes(int lanes, const int* rs, int* out, int n_packs,
                          int width, cudaStream_t s) {
-  switch (lanes) {
-    case 1: return launch_lt<V, 1, THREADS>(rs, out, n_packs, width, s);
-    case 2: return launch_lt<V, 2, THREADS>(rs, out, n_packs, width, s);
-    case 4: return launch_lt<V, 4, THREADS>(rs, out, n_packs, width, s);
-    case 8: return launch_lt<V, 8, THREADS>(rs, out, n_packs, width, s);
-    case 16: return launch_lt<V, 16, THREADS>(rs, out, n_packs, width, s);
-    case 32: return launch_lt<V, 32, THREADS>(rs, out, n_packs, width, s);
-    default: return cudaErrorInvalidValue;
-  }
+  return viterbi::dispatch_lanes(lanes, [&](auto l) {
+    return launch_lt<V, decltype(l)::value, THREADS>(rs, out, n_packs, width,
+                                                     s);
+  });
 }
 
 // Every kernel of block size THREADS (one build part's).

@@ -332,19 +332,8 @@ extern "C" int viterbi_k25_launch(int variant, int lanes, const void* words,
       variant < 0 || variant > 3 ||
       static_cast<long long>(programs) * kCols * lanes > INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
-  switch (lanes) {
-    case 1: return static_cast<int>(launch_variant<1>(variant, w, o, programs,
-                                                      n_packs, s));
-    case 2: return static_cast<int>(launch_variant<2>(variant, w, o, programs,
-                                                      n_packs, s));
-    case 4: return static_cast<int>(launch_variant<4>(variant, w, o, programs,
-                                                      n_packs, s));
-    case 8: return static_cast<int>(launch_variant<8>(variant, w, o, programs,
-                                                      n_packs, s));
-    case 16: return static_cast<int>(launch_variant<16>(variant, w, o,
-                                                        programs, n_packs, s));
-    case 32: return static_cast<int>(launch_variant<32>(variant, w, o,
-                                                        programs, n_packs, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return static_cast<int>(viterbi::dispatch_lanes(lanes, [&](auto l) {
+    return launch_variant<decltype(l)::value>(variant, w, o, programs,
+                                              n_packs, s);
+  }));
 }

@@ -128,20 +128,13 @@
 #include <type_traits>
 
 #include "acs.cuh"
+#include "build_part.cuh"
 
-// Build parts: library.load_library compiles this file once per part, all
-// started together, with -DBUILD_PART=<i> for each i below the count on the
-// next line; a part holds the entry points of its group (K1 K2 K6 and
-// K1_I32 K2_I32 | K3 K3_I32 | K4's word mode | K4's value mode and K5 |
-// K1's tail-halo instances | K3's), so the ptxas work of the ~80 decode
-// instances runs on six cores.  Built by hand without the macro, one
-// object holds every entry point.
+// Build parts (build_part.cuh): a part holds the entry points of its group
+// (K1 K2 K6 and K1_I32 K2_I32 | K3 K3_I32 | K4's word mode | K4's value
+// mode and K5 | K1's tail-halo instances | K3's), so the ptxas work of the
+// ~80 decode instances runs on six cores.
 // nvcc parts: 6
-#ifdef BUILD_PART
-#define IN_PART(i) (BUILD_PART == (i))
-#else
-#define IN_PART(i) 1
-#endif
 
 namespace viterbi {
 

@@ -11,15 +11,22 @@ Variants (the JAX probe's, on the same tile of rows pm | pp | u | d):
   lanes  C: one warp per array, two states a lane, __shfl_xor_sync
             butterflies (the JAX kernel's states on lanes)
 
-Each variant runs STAGES stages at two array counts: the JAX probe's GRID
-programs of 128 arrays (2048, the canary's shape) and HEADLINE_TILES (15,872
-arrays: the headline's 15,625 time-blocks rounded up to an even number of
-128-array tiles, so that B's programs of two tiles divide it).  All three
-read one input: B reads tiles 2g and 2g+1 as its program g.  A time is the
-median of REPS CUDA-event launches after one untimed launch (one launch is
-one sample, as in utils.timing); printed as ns per stage per 128-array tile
-(the JAX probe's unit and canary_ns'), beside the SASS instructions of the
-variant's stage loop per stage and per array-stage, its registers and
+A and B run each array split over ``lanes`` lanes of a warp
+(``common.LANES``; 1 is one thread an array, K1's layout) in the layout of
+``csrc/lanes.cuh``, ``common.lanes_for`` picking the count from the
+threads a variant runs at one lane (arrays for A, array pairs for B), as
+K13's, K19's and K25's wrappers do; C is one warp an array, 32 lanes,
+whatever the count.  Each variant runs STAGES stages, A and B at every
+lane count in turn with one lane (``common.TURNS``), at two array counts:
+the JAX probe's GRID programs of 128 arrays (2048, the canary's shape) and
+HEADLINE_TILES (15,872 arrays: the headline's 15,625 time-blocks rounded
+up to an even number of 128-array tiles, so that B's programs of two tiles
+divide it).  All three read one input: B reads tiles 2g and 2g+1 as its
+program g.  A time is the median of REPS CUDA-event launches after one
+untimed launch (one launch is one sample, as in utils.timing); printed as
+ns per stage per 128-array tile (the JAX probe's unit and canary_ns'),
+beside the SASS instructions of the variant's stage loop per stage (its
+SHFL count the lanes' exchanges) and per array-stage, its registers and
 stack frame (cuobjdump -res-usage).
 """
 
@@ -32,7 +39,9 @@ import numpy as np
 import torch
 
 from .. import hardware
-from .common import LT, ProbeKernel, branch_signs, sass_table, timed
+from .common import (LANES, LT, TURNS, LaneKernel, branch_signs,
+                     check_lanes, describe_mix, loop_stages, sass_table,
+                     shfl_count, timed)
 
 STAGES = 8192
 GRID = 16
@@ -41,10 +50,9 @@ REPS = 5
 ROWS = 192                          # a tile's program: pm, pp, u, d
 VARIANTS = ("real", "dual", "lanes")
 TILES_A_PROGRAM = dict(real=1, dual=2, lanes=1)
-# stages of one pass of the stage loop, arrays a thread, threads an array
-LOOP_STAGES = dict(real=2, dual=2, lanes=32)
 ARRAYS_A_THREAD = dict(real=1, dual=2, lanes=1)
-THREADS_AN_ARRAY = dict(real=1, dual=1, lanes=32)
+SPLIT = ("real", "dual")            # the variants split over LANES
+C_LANES = 32                        # C: one warp an array
 # lane-operations an array-stage, for the bound: the ACS' 2 adds, max and
 # select a state (chip_smoke.ACS_OPS); C adds the exchange of pm and pp a
 # state (a shuffle each, or a register swap)
@@ -145,28 +153,55 @@ def layout_torch(variant: str, x: torch.Tensor, stages: int) -> torch.Tensor:
     return out
 
 
-class LayoutKernel(ProbeKernel):
+def variant_lanes(variant: str) -> tuple:
+    """The lane counts a variant is built for: LANES for A and B, C's 32."""
+    return LANES if variant in SPLIT else (C_LANES,)
+
+
+def stage_loop_stages(variant: str, lanes: int) -> int:
+    """Stages of one pass of a variant's stage loop: C's 32, else two at
+    one lane and a six-stage pass split (common.loop_stages)."""
+    return 32 if variant == "lanes" else loop_stages(lanes)
+
+
+class LayoutKernel(LaneKernel):
     """K12, bound to ``viterbi_k12_launch``."""
 
     def __init__(self):
         super().__init__("K12", "viterbi_k12_launch", "layout_probe.cu",
-                         [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                          ctypes.c_int, ctypes.c_int])
+                         [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                          ctypes.c_void_p, ctypes.c_int, ctypes.c_int])
 
-    def __call__(self, variant: str, x: torch.Tensor,
-                 stages: int) -> torch.Tensor:
+    def lanes_of(self, variant: str, programs: int, lanes) -> int:
+        """A's and B's ``pick_lanes`` of the threads they run at one lane
+        (programs x 128: arrays for A, array pairs for B); C's 32, which it
+        also takes as ``lanes``.  Raises on a count the variant is not
+        built for."""
+        if variant in SPLIT:
+            return self.pick_lanes(programs * LT, lanes)
+        if lanes is not None:
+            check_lanes(lanes, self.name)
+            if lanes != C_LANES:
+                raise ValueError(f"K12 lanes is one warp an array: it takes "
+                                 f"lanes None or {C_LANES}, got {lanes}")
+        return C_LANES
+
+    def __call__(self, variant: str, x: torch.Tensor, stages: int,
+                 lanes: int = None) -> torch.Tensor:
         """(programs, 64, 128) int32: every program's pm + pp after
         ``stages`` stages.  On a CUDA tensor one launch on the current
-        stream, not synchronized; on a CPU tensor its plain version."""
+        stream, not synchronized, each array over ``lanes`` lanes
+        (``lanes_of``); on a CPU tensor its plain version."""
         programs = _check(variant, x, stages)
+        lanes = self.lanes_of(variant, programs, lanes)
         if not x.is_contiguous():
             raise ValueError("K12 takes a contiguous tile")
         if not self.check_device(x):
             return layout_torch(variant, x, stages)
         out = torch.empty((programs, 64, LT), dtype=torch.int32,
                           device=x.device)
-        self.launch(x.device, VARIANTS.index(variant), x.data_ptr(),
-                    out.data_ptr(), int(stages), programs)
+        self.launch_lanes(x.device, lanes, VARIANTS.index(variant), lanes,
+                          x.data_ptr(), out.data_ptr(), int(stages), programs)
         return out
 
 
@@ -181,26 +216,32 @@ def probe_input(tiles: int, device, seed: int = 0) -> torch.Tensor:
 
 
 def sass_counts() -> dict:
-    """{variant: (SASS instructions of its stage loop, {REG, STACK, ...},
-    the loop's opcode mix)} read from the built library."""
-    return sass_table("viterbi_layout", {v: (KERNEL[v],) for v in VARIANTS})
+    """{(variant, lanes): (SASS instructions of its stage loop, {REG, STACK,
+    ...}, the loop's opcode mix)} read from the built library."""
+    return sass_table("viterbi_layout", {
+        (v, n): (KERNEL[v],) if n == 1 or v == "lanes" else
+        ("layout_split_kernel", f"ILi{SPLIT.index(v)}ELi{n}EE")
+        for v in VARIANTS for n in variant_lanes(v)})
 
 
-def run(variant: str, x: torch.Tensor, tiles: int, sass: tuple) -> dict:
-    """Time one variant at STAGES stages over ``tiles`` tiles of x."""
+def run(variant: str, lanes: int, x: torch.Tensor, tiles: int,
+        sass: dict) -> dict:
+    """Time one variant at one lane count at STAGES stages over ``tiles``
+    tiles of x."""
     programs = tiles // TILES_A_PROGRAM[variant]
-    rows = programs * ROWS * TILES_A_PROGRAM[variant]
-    xv = x[:rows]
-    ms, all_ms, _ = timed(lambda: K12(variant, xv, STAGES), REPS)
-    loop, res, _ = sass
-    per_stage = loop / LOOP_STAGES[variant]
-    lane_instr = per_stage * THREADS_AN_ARRAY[variant] / \
-        ARRAYS_A_THREAD[variant]
+    xv = x[:programs * ROWS * TILES_A_PROGRAM[variant]]
+    ms, all_ms, _ = timed(lambda: K12(variant, xv, STAGES, lanes), REPS)
+    loop, res, mix = sass[variant, lanes]
+    per_stage = loop / stage_loop_stages(variant, lanes)
+    lane_instr = per_stage * lanes / ARRAYS_A_THREAD[variant]
     arrays = tiles * LT
-    return dict(variant=variant, tiles=tiles, arrays=arrays, ms=ms,
-                all_ms=all_ms,
+    return dict(variant=variant, lanes=lanes, tiles=tiles, arrays=arrays,
+                picked=lanes == K12.lanes_of(variant, programs, None),
+                ms=ms, all_ms=all_ms,
                 ns_per_stage_tile=ms * 1e6 / (STAGES * tiles),
-                sass_loop=loop, sass_per_stage=per_stage,
+                sass_loop=loop, sass_per_stage=per_stage, mix=mix,
+                shfl_per_stage=shfl_count(mix) / stage_loop_stages(variant,
+                                                                   lanes),
                 lane_instr_per_array_stage=lane_instr,
                 lane_instr_per_ns=arrays * STAGES * lane_instr / (ms * 1e6),
                 regs=res.get("REG"), stack=res.get("STACK"),
@@ -208,33 +249,41 @@ def run(variant: str, x: torch.Tensor, tiles: int, sass: tuple) -> dict:
 
 
 def describe(r: dict) -> str:
-    return (f"{r['variant']:5s} {r['arrays']:6d} arrays: median "
-            f"{r['ms']:.4f} ms of {[round(t, 4) for t in r['all_ms']]} = "
+    return (f"{r['variant']:5s} {r['arrays']:6d} arrays {r['lanes']:2d} "
+            f"lanes: median {r['ms']:.4f} ms of "
+            f"{[round(t, 4) for t in r['all_ms']]} = "
             f"{r['ns_per_stage_tile']:.4f} ns/stage/tile; SASS "
             f"{r['sass_per_stage']:g} a stage a thread ({r['sass_loop']} in "
-            f"the stage loop), {r['lane_instr_per_array_stage']:g} "
-            f"lane-instructions an array-stage = "
-            f"{r['lane_instr_per_ns']:.1f} a ns; registers {r['regs']}, "
-            f"stack {r['stack']} B, local {r['local']} B")
+            f"the stage loop: {describe_mix(r['mix'])}), SHFL "
+            f"{r['shfl_per_stage']:g} a stage, "
+            f"{r['lane_instr_per_array_stage']:g} lane-instructions an "
+            f"array-stage = {r['lane_instr_per_ns']:.1f} a ns; registers "
+            f"{r['regs']}, stack {r['stack']} B, local {r['local']} B")
 
 
-def probe(names=VARIANTS) -> list:
+def probe(names=VARIANTS, lanes=TURNS) -> list:
     """Time each named variant on the current CUDA device at GRID and
-    HEADLINE_TILES tiles and print one line each; returns their ``run``
+    HEADLINE_TILES tiles, A and B at each lane count of ``lanes`` in turn
+    (C at its 32), and print one line each; returns their ``run``
     results."""
     for v in names:
         if v not in VARIANTS:
             raise ValueError(f"unknown variant {v!r}; one of {VARIANTS}")
+    for n in lanes:
+        check_lanes(n, "K12")
     dev = hardware.resolve_device("cuda")
     x = probe_input(HEADLINE_TILES, dev)
     sass = sass_counts()
-    print(f"{torch.cuda.get_device_name(dev)}: {STAGES} stages; A and B in "
-          f"CUDA blocks of 64 threads, C of 4 warps")
+    print(f"{torch.cuda.get_device_name(dev)}: {STAGES} stages; A and B "
+          f"over lanes {list(lanes)} an array in turn, in CUDA blocks of 64 "
+          f"threads at one lane and 128 split; C one warp an array, in "
+          f"blocks of 4 warps")
     results = []
     for tiles in (GRID, HEADLINE_TILES):
         for v in names:
-            results.append(run(v, x, tiles, sass[v]))
-            print(describe(results[-1]), flush=True)
+            for n in (lanes if v in SPLIT else (C_LANES,)):
+                results.append(run(v, n, x, tiles, sass))
+                print(describe(results[-1]), flush=True)
     return results
 
 

@@ -19,12 +19,19 @@ compare-select is a __byte_perm pair and one DPX __vibmax_s16x2, whose
 predicate (a >= b) is inverted to JAX's strict hi > lo; the repack is
 __byte_perm.
 
-Each runs STAGES stages at two array counts: the JAX probe's GRID programs
-of 128 arrays (2048) and HEADLINE_TILES (15,872, K1's occupancy at the
-headline).  A time is the median of REPS CUDA-event launches after one
-untimed launch, printed as ns per stage per 128-array tile beside the SASS
-instructions of the variant's stage loop a stage, its registers and stack
-frame (cuobjdump -res-usage).
+Each array runs split over ``lanes`` lanes of a warp (``common.LANES``; 1
+is one thread an array), ``common.lanes_for`` picking the count from the
+arrays, as K13's, K19's and K25's wrappers do: predecessor pair or pm word
+q in lane q mod L, slot q div L, its survivors and bm beside it, so the
+baseline exchanges nothing and the swar variants only their repack (two
+shuffles a word).  Each variant runs STAGES stages at every lane count in
+turn with one lane (``common.TURNS``), at two array counts: the JAX
+probe's GRID programs of 128 arrays (2048) and HEADLINE_TILES (15,872,
+K1's occupancy at the headline).  A time is the median of REPS CUDA-event
+launches after one untimed launch, printed as ns per stage per 128-array
+tile beside the SASS instructions of the variant's stage loop a stage
+(its SHFL count the repack's exchanges), its registers and stack frame
+(cuobjdump -res-usage).
 """
 
 from __future__ import annotations
@@ -36,8 +43,9 @@ import numpy as np
 import torch
 
 from .. import hardware
-from .common import (LT, ProbeKernel, check_names, describe_stages,
-                     sass_table, time_stages)
+from .common import (LANES, LT, TURNS, LaneKernel, check_lanes,
+                     check_names, describe_stages, lanes_for, sass_table,
+                     shfl_count, time_stages)
 
 STAGES = 8192
 GRID = 16
@@ -46,17 +54,23 @@ REPS = 5
 VARIANTS = ("baseline", "swar/stage", "swar/4stages")
 ROWS_IN = {"baseline": 160, "swar/stage": 128, "swar/4stages": 128}
 REPACK = {"baseline": 1, "swar/stage": 1, "swar/4stages": 4}
-LOOP_STAGES = REPACK                # stages of one pass of the stage loop
-# lane-operations an array-stage, for the bound, a predecessor pair q each:
-# baseline the JAX docstring's 4 adds, 2 compares, 4 selects and 3
-# register-exchange ops (13, :10-13); swar in packed lane-operations, two
-# 16-bit states each: 2 packed adds, one packed max that also gives both
-# decisions, and the survivors' 5 ops as baseline (8).  The JAX count of
-# the swar stage (28: its mask-fix adds and half extractions, :15-25)
-# counts the TPU's emulation of packed arithmetic that Hopper has, and
-# would put the bound above the card's time; the half alignment and the
-# repack are relayouts, not counted.  32 pairs an array.
-OPS = {"baseline": 416, "swar/stage": 256, "swar/4stages": 256}
+SPLIT_LOOP_STAGES = 4               # the lane-split kernels' stage loop
+# lane-operations an array-stage, for the bound, a predecessor pair q each,
+# counted as chip_smoke's ACS_OPS counts K1's stage (an add a candidate,
+# one max that also gives its decision, a select a survivor): baseline 10
+# on Hopper, 4 adds, 2 maxima with their decisions (__vibmax_s32 gives
+# max(a, b) and a >= b in one instruction), 2 survivor selects, the low
+# survivor's shift and the high one's shift-or.  The compiled one-lane
+# stage issues a compare beside each max (387 SASS a stage), so it sits
+# above this count.  swar in packed lane-operations, two 16-bit states
+# each: 2 packed adds, one packed max that also gives both decisions
+# (__vibmax_s16x2), and the survivors' 4 as baseline (7).  The JAX counts
+# (13 a pair, :10-13; 28 for the swar stage, :15-25) count a register
+# exchange the in-place stage does not need and the TPU's emulation of
+# packed arithmetic that Hopper has, and would put the bound above the
+# card's time; the half alignment and the repack are relayouts, not
+# counted.  32 pairs an array, at any lanes.
+OPS = {"baseline": 320, "swar/stage": 224, "swar/4stages": 224}
 _M32 = 0xFFFFFFFF
 
 
@@ -154,28 +168,37 @@ def swar_torch(variant: str, x: torch.Tensor, stages: int) -> torch.Tensor:
     return _swar(blocks, stages, REPACK[variant])
 
 
-class SwarKernel(ProbeKernel):
+def stage_loop_stages(variant: str, lanes: int) -> int:
+    """Stages of one pass of a variant's stage loop: REPACK's at one lane,
+    SPLIT_LOOP_STAGES split."""
+    return REPACK[variant] if lanes == 1 else SPLIT_LOOP_STAGES
+
+
+class SwarKernel(LaneKernel):
     """K18, bound to ``viterbi_k18_launch``."""
 
     def __init__(self):
         super().__init__("K18", "viterbi_k18_launch", "swar_probe.cu",
-                         [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                          ctypes.c_int, ctypes.c_int])
+                         [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                          ctypes.c_void_p, ctypes.c_int, ctypes.c_int])
 
-    def __call__(self, variant: str, x: torch.Tensor,
-                 stages: int) -> torch.Tensor:
+    def __call__(self, variant: str, x: torch.Tensor, stages: int,
+                 lanes: int = None) -> torch.Tensor:
         """(programs, 64, 128) int32: every program's output after
         ``stages`` stages.  On a CUDA tensor one launch on the current
-        stream, not synchronized; on a CPU tensor its plain version."""
+        stream, not synchronized, each array over ``lanes`` lanes
+        (``lanes_for`` the arrays when None); on a CPU tensor its plain
+        version."""
         programs = _check(variant, x, stages)
+        lanes = self.pick_lanes(programs * LT, lanes)
         if not x.is_contiguous():
             raise ValueError("K18 takes a contiguous block")
         if not self.check_device(x):
             return swar_torch(variant, x, stages)
         out = torch.empty((programs, 64, LT), dtype=torch.int32,
                           device=x.device)
-        self.launch(x.device, VARIANTS.index(variant), x.data_ptr(),
-                    out.data_ptr(), int(stages), programs)
+        self.launch_lanes(x.device, lanes, VARIANTS.index(variant), lanes,
+                          x.data_ptr(), out.data_ptr(), int(stages), programs)
         return out
 
 
@@ -192,40 +215,54 @@ def probe_input(variant: str, programs: int, device,
 
 
 def sass_counts() -> dict:
-    """{variant: (SASS instructions of its stage loop, {REG, STACK, ...},
-    the loop's opcode mix)} read from the built library."""
-    return sass_table("viterbi_swar", {v: ("swar_kernel", f"ILi{i}E")
-                                       for i, v in enumerate(VARIANTS)})
+    """{(variant, lanes): (SASS instructions of its stage loop, {REG, STACK,
+    ...}, the loop's opcode mix)} read from the built library."""
+    return sass_table("viterbi_swar", {
+        (v, n): ("swar_kernel", f"ILi{i}E") if n == 1 else
+        ("swar_lanes_kernel", f"ILi{i}ELi{n}EE")
+        for i, v in enumerate(VARIANTS) for n in LANES})
 
 
-def run(variant: str, x: torch.Tensor, programs: int, sass: tuple) -> dict:
-    """Time one variant at STAGES stages over the first ``programs``
-    programs of x."""
+def run(variant: str, lanes: int, x: torch.Tensor, programs: int,
+        sass: dict) -> dict:
+    """Time one variant at one lane count at STAGES stages over the first
+    ``programs`` programs of x."""
     xv = x[:programs * ROWS_IN[variant]]
-    return time_stages(lambda: K18(variant, xv, STAGES), REPS, STAGES,
-                       programs * LT, sass, LOOP_STAGES[variant],
-                       variant=variant, programs=programs)
+    mix = sass[variant, lanes][2]
+    return time_stages(lambda: K18(variant, xv, STAGES, lanes), REPS, STAGES,
+                       programs * LT, sass[variant, lanes],
+                       stage_loop_stages(variant, lanes), variant=variant,
+                       programs=programs, lanes=lanes,
+                       picked=lanes == lanes_for(programs * LT),
+                       shfl_per_stage=shfl_count(mix) /
+                       stage_loop_stages(variant, lanes))
 
 
 def describe(r: dict) -> str:
-    return describe_stages(r, f"{r['variant']:12s} {r['arrays']:6d} arrays")
+    return (describe_stages(r, f"{r['variant']:12s} {r['arrays']:6d} arrays "
+                               f"{r['lanes']:2d} lanes")
+            + f"; SHFL a stage {r['shfl_per_stage']:g}")
 
 
-def probe(names=VARIANTS) -> list:
-    """Time each named variant on the current CUDA device at GRID and
-    HEADLINE_TILES programs and print one line each; returns their ``run``
-    results."""
+def probe(names=VARIANTS, lanes=TURNS) -> list:
+    """Time each named variant at each lane count of ``lanes`` in turn on
+    the current CUDA device at GRID and HEADLINE_TILES programs and print
+    one line each; returns their ``run`` results."""
     check_names(names, VARIANTS)
+    for n in lanes:
+        check_lanes(n, "K18")
     dev = hardware.resolve_device("cuda")
     xs = {v: probe_input(v, HEADLINE_TILES, dev) for v in names}
     sass = sass_counts()
-    print(f"{torch.cuda.get_device_name(dev)}: {STAGES} stages, CUDA blocks "
-          f"of 64 threads")
+    print(f"{torch.cuda.get_device_name(dev)}: {STAGES} stages, lanes "
+          f"{list(lanes)} an array in turn; CUDA blocks of 64 threads at "
+          f"one lane, 128 split")
     results = []
     for programs in (GRID, HEADLINE_TILES):
         for v in names:
-            results.append(run(v, xs[v], programs, sass[v]))
-            print(describe(results[-1]), flush=True)
+            for n in lanes:
+                results.append(run(v, n, xs[v], programs, sass))
+                print(describe(results[-1]), flush=True)
     return results
 
 
