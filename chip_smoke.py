@@ -24,15 +24,17 @@ after holding their kernels against their plain versions.  Phases 31-35
 hold K1's and K3's u/d-word reader against its plain version and K2, and
 drive the last probes (K25 SOFT16 ablation, K26 transpose, K27 FP32
 routes: launches of K1, K2 and K3, K28 interleave); phases 16 and 19 cover
-K11's relayouts and K13's bisect traceback; phases 19, 25 and 32 hold K13,
-K19 and K25 at every lane count an array (1 to 32, csrc/lanes.cuh) and
-time each at both array counts in turn with one lane, with the lanes the
-wrapper picks (common.lanes_for), and K19 and K25 at the counts between,
-where the rule's threshold lies.  Phase 14 times K6 on the headline's words
-and values and on HARD's thinnest window (dec_len 32) with the route
-(load width, tile rows) that ran, and K4 in word
-mode (int16x2 metrics) in turns with K1 and K1_I32 and K5 in turns with K2
-and K2_I32 at the headline, K4's value modes beside them, each held
+K11's relayouts and K13's bisect traceback; phases 18-20, 22, 24, 25 and
+32 hold K12, K13, K14, K16, K18, K19 and K25 at every lane count an array
+(1 to 32, csrc/lanes.cuh) and time each in turn with one lane, with the
+lanes the wrapper picks (common.lanes_for), and K19 and K25 at the counts
+between, where the rule's threshold lies; phases 20 and 22 print the
+digests of K14's and K16's one-lane kernels' SASS and each variant's
+share of its own construct's issue bound beside the row's.  Phase 14
+times K6 on the headline's words and values and on HARD's thinnest window
+(dec_len 32) with the route (load width, tile rows) that ran, and K4 in
+word mode (int16x2 metrics) in turns with K1 and K1_I32 and K5 in turns
+with K2 and K2_I32 at the headline, K4's value modes beside them, each held
 against its int32 and int16 plain versions, with the SASS a stage, F2I a
 stage and registers of each b32 instance.  Phase 5b times K1's int16x2
 path metrics against K1_I32, its int32 instances kept for that A/B (never
@@ -1876,10 +1878,12 @@ def layout_phase(card: str, runs: dict):
 
 def lane_line(results: list, key=lambda r: r["lanes"]) -> str:
     """'1: 3.3021 ms (394.5 SASS, 0 SHFL a stage, 40 registers), ...' of
-    ``results`` in their order."""
+    ``results`` in their order, the stack where it is not 0."""
     return ", ".join(f"{key(r)}: {r['ms']:.4f} ms ({r['sass_per_stage']:g} "
                      f"SASS, {r['shfl_per_stage']:g} SHFL a stage, "
-                     f"{r['regs']} registers)" for r in results)
+                     f"{r['regs']} registers"
+                     f"{', stack %d B' % r['stack'] if r['stack'] else ''})"
+                     for r in results)
 
 
 def ablation_phase(card: str, runs: dict, k10_ms: float):
@@ -1983,33 +1987,99 @@ def ablation_phase(card: str, runs: dict, k10_ms: float):
     return tb["ms"], p_ms, 0, tb["bound"], None, extra
 
 
+def split_checks(tag: str, kernel, mod, plain, widths) -> dict:
+    """Every variant of K14 or K16 (``kernel``, its module ``mod``) at every
+    lane count bit-equal to its plain version ``plain`` at one pack (32
+    stages), PROBE_CHECK_STAGES and the probe's N_PACKS x 32 stages on each
+    width of ``widths``: tails of 2, 4 and 0 stages after the split loop's
+    six-stage passes.  Returns {(variant, width): the plain version's ms at
+    the full stages}."""
+    plain_ms = {}
+    packs = (1, PROBE_CHECK_STAGES // mod.BPP, mod.N_PACKS)
+    for width in widths:
+        for n_packs in packs:
+            rs = mod.probe_input(n_packs, width, "cuda", seed=SEED)
+            for v in mod.VARIANTS:
+                p_ms, _, want = cuda_ms(lambda: plain(v, rs), 1)
+                plain_ms[v, width] = p_ms
+                for n in LANES:
+                    held(f"{kernel.name} {v} at {width} arrays, "
+                         f"{n_packs * mod.BPP} stages, {n} lanes",
+                         kernel(v, rs, n), want)
+            del rs
+    say(tag, f"{kernel.name} bit-equal to its plain version on all "
+        f"{len(mod.VARIANTS)} variants at lanes {list(LANES)}, "
+        f"{' and '.join(map(str, widths))} arrays, "
+        f"{', '.join(str(n * mod.BPP) for n in packs)} stages")
+    digests = mod.one_lane_digests()
+    say(tag, f"{kernel.name}'s one-lane kernels (SASS instructions, their "
+        f"digest, registers, stack B): " + "; ".join(
+            f"{v} {n} {d} {reg} {stack}"
+            for v, (n, d, reg, stack) in digests.items()))
+    return plain_ms
+
+
+def split_results(tag: str, card: str, runs: dict, mod, name: str,
+                  what: str, nbytes) -> tuple:
+    """K14's or K16's probe (``mod.probe()``: every variant at each lane
+    count in turn with one lane) through ``probe_results``, each run's
+    bound the function's (mod.OPS, what the row counts) and its construct's
+    (mod.CONSTRUCT_OPS, the 64 states' update as the variant defines it,
+    unfolded: no bound where ptxas folds the variant, so a share over 100 %
+    there says folded, not miscounted),
+    the input's and output's bytes ``nbytes(r)``.  Prints each variant by
+    lanes, its fastest lane count beside lanes_for's pick and both shares
+    at each.  Returns the results and the extra keys (each lane count's
+    times; the picked row's lanes, SASS, SHFL, registers and stack)."""
+    stages = mod.N_PACKS * mod.BPP
+    results = probe_results(
+        tag, card, runs, mod, name, what,
+        lambda r: bound(nbytes(r), mod.OPS[r["variant"]] * r["arrays"] *
+                        stages))
+    extra = {}
+    for r in results:
+        r["construct_bound"] = bound(nbytes(r), mod.CONSTRUCT_OPS[
+            r["variant"]] * r["arrays"] * stages)
+    for arrays in dict.fromkeys(r["arrays"] for r in results):
+        for v in mod.VARIANTS:
+            turns = [r for r in results
+                     if r["arrays"] == arrays and r["variant"] == v]
+            lane_turns(tag, card, turns, extra, f"{arrays} arrays, {v}",
+                       f"{v}_{arrays}", f"{v}_{{}}_at_{arrays}")
+            best = min(turns, key=lambda r: r["ms"])
+            pick = next(r for r in turns if r["picked"])
+            extra[f"{v}_fastest_lanes_at_{arrays}"] = best["lanes"]
+            say(tag, f"{card}: {arrays} arrays, {v}: fastest at "
+                f"{best['lanes']} lanes ({best['ms']:.4f} ms), lanes_for "
+                f"picks {pick['lanes']} ({pick['ms']:.4f} ms); at the pick "
+                f"{share(pick['bound'], pick['ms'])}, construct's "
+                f"{share(pick['construct_bound'], pick['ms'])}; fastest "
+                f"{share(best['construct_bound'], best['ms'])} of the "
+                f"construct's (its unfolded update: over 100 % where ptxas "
+                f"folds it)")
+    return results, extra
+
+
 def acs_variants_phase(card: str, runs: dict):
-    """K14: every variant bit-equal to its plain version on the JAX width
-    at two packs, then `python -m
-    tpu_viterbi_torch.scripts.acs_variants_bench` with the counts set to
-    0, and each variant's bound.  Returns K14's row: eo (the true even/odd
-    ACS) at the JAX shape beside its plain version there."""
+    """K14: every variant at every lane count bit-equal to its plain version
+    on the JAX width (2048 arrays) at 32 stages, PROBE_CHECK_STAGES and the
+    full N_PACKS x 32 stages, the one-lane kernels' SASS digests, then
+    `python -m tpu_viterbi_torch.scripts.acs_variants_bench` (every variant
+    at each lane count in turn with one lane) with the counts set to 0, and
+    each run's bounds (``split_results``).  Returns K14's row: eo (the true
+    even/odd ACS) at the JAX shape at the picked lanes beside its plain
+    version there; each lane count's times in the extra keys."""
     av = acs_variants_bench
     width = av.N_TILES * 128
-    rs = av.probe_input(PROBE_CHECK_STAGES // av.BPP, width, "cuda",
-                        seed=SEED)
-    for v in av.VARIANTS:
-        held_to_plain(f"K14 {v}", K14(v, rs),
-                      lambda: av.acs_variants_torch(v, rs))
-    say("20 acs variants", f"K14 bit-equal to its plain version on all "
-        f"{len(av.VARIANTS)} variants, {width} arrays, "
-        f"{PROBE_CHECK_STAGES} stages")
     stages = av.N_PACKS * av.BPP
-    results = probe_results(
+    plain_ms = split_checks("20 acs variants", K14, av,
+                            av.acs_variants_torch, (width,))
+    results, extra = split_results(
         "20 acs variants", card, runs, av, "K14", "ACS variants probe",
-        lambda r: bound(((stages if r["variant"] == "bit_tb" else 2 * stages)
-                         + 64) * width * 4,
-                        av.OPS[r["variant"]] * width * stages))
-    full = av.probe_input(av.N_PACKS, width, "cuda", seed=SEED)
-    p_ms = held_to_plain("K14 eo at the JAX shape", K14("eo", full),
-                         lambda: av.acs_variants_torch("eo", full))
-    eo = next(r for r in results if r["variant"] == "eo")
-    return eo["ms"], p_ms, 0, eo["bound"]
+        lambda r: ((stages if r["variant"] == "bit_tb" else 2 * stages) +
+                   64) * r["arrays"] * 4)
+    eo = next(r for r in results if r["variant"] == "eo" and r["picked"])
+    return eo["ms"], plain_ms["eo", width], 0, eo["bound"], None, extra
 
 
 def ilp_phase(card: str, runs: dict):
@@ -2061,33 +2131,27 @@ DTYPE_CHECK_STEPS = 256
 
 
 def microbench_phase(card: str, runs: dict):
-    """K16: every variant bit-equal to its plain version over the full
-    N_PACKS x 32 stages at both array counts (2048 and 15,872), then
-    `python -m tpu_viterbi_torch.scripts.kernel_microbench` with the counts
-    set to 0, and each variant's bound (kernel_microbench.OPS: one state's
-    work a stage, the 64 states being equal).  Returns K16's row: concat
-    (its 32 distinct children computed, not folded) at the JAX shape
-    beside its plain version there."""
+    """K16: every variant at every lane count bit-equal to its plain version
+    at 32 stages, PROBE_CHECK_STAGES and the full N_PACKS x 32 stages at
+    both array counts (2048 and 15,872), the one-lane kernels' SASS
+    digests, then `python -m tpu_viterbi_torch.scripts.kernel_microbench`
+    (every variant at each lane count in turn with one lane, at both
+    counts) with the counts set to 0, and each run's bounds (``split_results``; OPS: one
+    state's work a stage, the 64 states being equal).  Returns K16's row:
+    concat (its 32 distinct children computed, not folded) at the JAX shape
+    at the picked lanes beside its plain version there; each lane count's
+    times in the extra keys."""
     km = kernel_microbench
     stages = km.N_PACKS * km.BPP
-    plain_ms = {}
-    for tiles in (km.N_TILES, km.HEADLINE_TILES):
-        rs = km.probe_input(km.N_PACKS, tiles * 128, "cuda", seed=SEED)
-        for v in km.VARIANTS:
-            plain_ms[v, tiles] = held_to_plain(
-                f"K16 {v} at {tiles} tiles", K16(v, rs),
-                lambda: km.microbench_torch(v, rs))
-        del rs
-    say("22 microbench", f"K16 bit-equal to its plain version on all "
-        f"{len(km.VARIANTS)} variants at {km.N_TILES * 128} and "
-        f"{km.HEADLINE_TILES * 128} arrays, {stages} stages")
-    results = probe_results(
+    width = km.N_TILES * 128
+    plain_ms = split_checks("22 microbench", K16, km, km.microbench_torch,
+                            (width, km.HEADLINE_TILES * 128))
+    results, extra = split_results(
         "22 microbench", card, runs, km, "K16", "construct microbenchmark",
-        lambda r: bound((stages * 2 + 64) * r["arrays"] * 4,
-                        km.OPS[r["variant"]] * r["arrays"] * stages))
+        lambda r: (stages * 2 + 64) * r["arrays"] * 4)
     row = next(r for r in results if r["variant"] == "concat" and
-               r["arrays"] == km.N_TILES * 128)
-    return row["ms"], plain_ms["concat", km.N_TILES], 0, row["bound"]
+               r["arrays"] == width and r["picked"])
+    return row["ms"], plain_ms["concat", width], 0, row["bound"], None, extra
 
 
 def dtype_phase(card: str, runs: dict):
@@ -3063,11 +3127,13 @@ def main() -> int:
     # between at each lane count
     want["K13"] = 2 * len(kernel_ablation.VARIANTS) * len(TURNS) * (
         kernel_ablation.REPS + 1)
-    want["K14"] = len(acs_variants_bench.VARIANTS) * (
+    # K14 every variant at each lane count in turn; K16 likewise at both
+    # counts
+    want["K14"] = len(acs_variants_bench.VARIANTS) * len(TURNS) * (
         acs_variants_bench.REPS + 1)
     want["K15"] = 2 * len(ilp_probe.OCCUPANCIES) * len(ilp_probe.CHAINS) * \
         (ilp_probe.REPS + 1)
-    want["K16"] = 2 * len(kernel_microbench.VARIANTS) * (
+    want["K16"] = 2 * len(kernel_microbench.VARIANTS) * len(TURNS) * (
         kernel_microbench.REPS + 1)
     want["K17"] = 2 * len(dtype_throughput.OCCUPANCIES) * len(
         dtype_throughput.DTYPES) * (dtype_throughput.REPS + 1)

@@ -1,9 +1,14 @@
 """The lane-split layout of ``tpu_viterbi_torch/csrc/lanes.cuh`` in numpy,
 for the CPU tests of the kernels that use it: K25
 (tests/test_torch_k6_k25.py), K13 and K19 (tests/test_torch_k13_k19.py),
-K12's layouts A and B (tests/test_torch_k12_k18.py); and K18's split of
-its 32 predecessor pairs or pm words over lanes, with the sources of its
-repack (csrc/swar_probe.cu), for the same K12/K18 tests.
+K12's layouts A and B (tests/test_torch_k12_k18.py), K14's forward
+variants and K16's bcast and no_pp (tests/test_torch_k14_k16.py, with the
+survivors keyed by fixed rows that K14's pp_noshuf and decbits put back
+together); K18's split of its 32 predecessor pairs or pm words over lanes,
+with the sources of its repack (csrc/swar_probe.cu), for the same K12/K18
+tests; K16's fixed-partner layout (no_acs, concat, pltpu_repeat) and K14's
+chase over spans of stages (csrc/kernel_microbench.cu,
+csrc/acs_variants.cu).
 
 An array's 64 states are split over ``lanes`` lanes, S = 64 / lanes
 positions a lane (position P = lane * S + register).  After t stages
@@ -247,3 +252,127 @@ def k18_split(variant: str, x, stages: int, lanes: int, repack: int):
                                   0x7632 if b else 0x5410)
         pmw = new
     return wrap32(np.concatenate([rows_of(pmw + pl), rows_of(pmw + ph)], 1))
+
+
+# --- K14 and K16 ---
+
+M32 = 0xFFFFFFFF
+
+
+def probe_stage(pm, pp, f: int, lanes: int, bm, same: bool, mode: str):
+    """lanes.cuh's lane_probe_stage in phase f, bm the stage's one (arrays,)
+    bm: ``same`` (both children of a pair take max(lo + bm, hi - bm)) makes
+    the position holding hi (h = 1) add -bm to itself and +bm to its
+    partner, else every position adds +bm (the even/odd butterfly); the
+    survivor is exchanged (``mode`` "exchange", lane_acs_stage), shifts the
+    stage's bit in place ("shift") or counts ("count")."""
+    part, h = pairs(lanes, f)
+    h = (h == 1)[:, None]
+    b = wrap32(np.where(h & same, -bm, bm))
+    if mode == "exchange":
+        return lane_acs_stage(pm, pp, f, lanes, b)
+    cs, cp = wrap32(pm + b), wrap32(pm[part] - b)
+    dec = (cp > cs) | ((cp == cs) & h)
+    pm_o = np.where(dec, cp, cs)
+    if mode == "count":
+        return pm_o, (pp + 1) & M32
+    return pm_o, ((pp << 1) | (dec != h)) & M32
+
+
+def stage_bms(rs):
+    """Each stage's (arrays,) bm = r0 + r1 of the stage-pair input, wrapping
+    (rs (n_packs, 32, 2, arrays))."""
+    x = np.asarray(rs, np.int64)
+    return [wrap32(x[t // 32, t % 32, 0] + x[t // 32, t % 32, 1])
+            for t in range(x.shape[0] * 32)]
+
+
+def ror6(p, f):
+    """The position that holds logical state p f stages into a pass."""
+    return rol6(p, (6 - f) % 6)
+
+
+def probe_split(rs, lanes: int, same: bool, mode: str, key=None):
+    """(64, arrays) output of a trellis variant on the in-place layout from
+    zero after the input's stages: row rol6(P, T % 6) gets position P's
+    pm + pp.  With ``key`` (mode "shift": survivors keyed by fixed rows),
+    row s's word is put back together bit by bit: bit j from stage T - 1 -
+    j, phase f, whose bit the position that then held logical state key(s)
+    shifted in."""
+    bms = stage_bms(rs)
+    arrays = bms[0].shape[0]
+    pm = np.zeros((64, arrays), np.int64)
+    pp = np.zeros_like(pm)
+    for t, bm in enumerate(bms):
+        pm, pp = probe_stage(pm, pp, t % 6, lanes, bm[None, :], same, mode)
+    T = len(bms)
+    out = np.zeros_like(pm)
+    for P in range(64):
+        s = rol6(P, T % 6)
+        if key is None:
+            word = pp[P]
+        else:
+            word = np.zeros(arrays, np.int64)
+            for j in range(min(32, T)):
+                f = (T - 1 - j) % 6
+                src = ror6(key(s), f)
+                assert rol6(src, f) == key(s)
+                word |= pp[src] & (1 << j)
+        out[s] = wrap32(pm[P] + word)
+    return out
+
+
+def fixed_split(rs, lanes: int, variant: str):
+    """K16's no_acs, concat or pltpu_repeat in the fixed-partner layout:
+    pair q = slot * L + lane (swar_owner) holds rows q and q + 32 in its
+    lane, and a stage reads only that lane's registers."""
+    bms = stage_bms(rs)
+    arrays = bms[0].shape[0]
+    S = 32 // lanes
+    pm = np.zeros((lanes, S, 2, arrays), np.int64)   # [lane, slot, x]
+    pp = np.zeros_like(pm)
+    for bm in bms:
+        if variant == "no_acs":
+            pm, pp = wrap32(pm + bm), (pp + 1) & M32
+            continue
+        c0, c1 = wrap32(pm[:, :, 0] + bm), wrap32(pm[:, :, 1] - bm)
+        dec = c1 > c0
+        m = np.where(dec, c1, c0)
+        p = ((np.where(dec, pp[:, :, 1], pp[:, :, 0]) << 1) | dec) & M32
+        pm, pp = np.stack([m, m], 2), np.stack([p, p], 2)
+    lane_of, slot_of = swar_owner(lanes)
+    v = wrap32(pm + pp)[lane_of, slot_of]            # [q, x, arrays]
+    return np.concatenate([v[:, 0], v[:, 1]])
+
+
+def chase_split(rs, lanes: int, shift: bool = True):
+    """K14's bit_tb with its T stages split into spans of n = T / L over the
+    lanes: each lane chases and sums its span from state 0; round k joins
+    lanes l and l ^ k (spans of n k stages), the sums added, the earlier
+    span's state shifted right by the later one's stages (``shift`` False:
+    a control that only ORs them).  Returns (64, arrays), every row acc +
+    state."""
+    x = np.asarray(rs, np.int64)
+    n_packs, arrays = x.shape[0], x.shape[3]
+    T = n_packs * 32
+    n = T // lanes
+    state = np.zeros((lanes, arrays), np.int64)
+    acc = np.zeros_like(state)
+    for lane in range(lanes):
+        for t in range(lane * n, (lane + 1) * n):
+            pack = x[t % n_packs, t % 32, 0]
+            d = (pack >> (31 - t % 32)) & 1
+            state[lane] = (state[lane] >> 1) | (d << 5)
+            acc[lane] = wrap32(acc[lane] + pack)
+    k = 1
+    while k < lanes:
+        partner = np.arange(lanes) ^ k
+        later = (np.arange(lanes) & k)[:, None] > 0
+        first = np.where(later, state[partner], state)
+        second = np.where(later, state, state[partner])
+        gap = n * k if shift else 0
+        state = (first >> gap if gap < 6 else 0) | second
+        acc = wrap32(acc + acc[partner])
+        k *= 2
+    assert (state == state[0]).all() and (acc == acc[0]).all()
+    return np.broadcast_to(wrap32(acc[0] + state[0]), (64, arrays)).copy()

@@ -921,21 +921,28 @@ def test_k13_matches_plain(gpu, variant, lanes, programs):
     assert K13.launches == before[0] + 1
 
 
+@pytest.mark.parametrize("lanes", (None,) + soft16_ablation.LANES)
 @pytest.mark.parametrize("variant", acs_variants_bench.VARIANTS)
-def test_k14_matches_plain(gpu, variant):
-    """Three packs on 300 arrays (a ragged CUDA block): equal to the plain
-    version; one launch; a refused shape raises before any launch."""
-    rs = acs_variants_bench.probe_input(3, 300, gpu, seed=3)
+def test_k14_matches_plain(gpu, variant, lanes):
+    """One, two and three packs (32, 64 and 96 stages: tails of 2, 4 and
+    0 stages after the lane-split loop's six-stage passes) on 300 arrays
+    (a ragged CUDA block), at the lanes the wrapper picks (None) and split
+    over every lane count: equal to the plain version; one launch each,
+    counted at its lanes; a refused shape raises before any launch."""
     K14 = acs_variants_bench.K14
-    before = K14.launches
-    got = K14(variant, rs)
-    torch.cuda.synchronize()
-    assert K14.launches == before + 1
-    assert torch.equal(got,
-                       acs_variants_bench.acs_variants_torch(variant, rs))
+    n = soft16_ablation.lanes_for(300) if lanes is None else lanes
+    before = (K14.launches, K14.lane_launches[n])
+    for n_packs in (1, 2, 3):
+        rs = acs_variants_bench.probe_input(n_packs, 300, gpu, seed=3)
+        got = K14(variant, rs, lanes)
+        torch.cuda.synchronize()
+        assert torch.equal(got,
+                           acs_variants_bench.acs_variants_torch(variant, rs))
+    assert (K14.launches, K14.lane_launches[n]) == (before[0] + 3,
+                                                    before[1] + 3)
     with pytest.raises(ValueError):
-        K14(variant, rs[:, :16].contiguous())
-    assert K14.launches == before + 1
+        K14(variant, rs[:, :16].contiguous(), lanes)
+    assert K14.launches == before[0] + 3
 
 
 @pytest.mark.parametrize("occupancy", ilp_probe.OCCUPANCIES)
@@ -967,9 +974,13 @@ def test_probe_sass_readings(gpu):
                           for n in layout_probe.variant_lanes(v)]),
                       (kernel_ablation, list(itertools.product(
                           kernel_ablation.VARIANTS, soft16_ablation.LANES))),
-                      (acs_variants_bench, acs_variants_bench.VARIANTS),
+                      (acs_variants_bench, list(itertools.product(
+                          acs_variants_bench.VARIANTS,
+                          soft16_ablation.LANES))),
                       (ilp_probe, ilp_probe.CHAINS),
-                      (kernel_microbench, kernel_microbench.VARIANTS),
+                      (kernel_microbench, list(itertools.product(
+                          kernel_microbench.VARIANTS,
+                          soft16_ablation.LANES))),
                       (dtype_throughput, dtype_throughput.DTYPES),
                       (swar_probe, list(itertools.product(
                           swar_probe.VARIANTS, soft16_ablation.LANES))),
@@ -985,23 +996,31 @@ def test_probe_sass_readings(gpu):
 
 # --- the ACS-arithmetic probes' kernels K16-K19 ---
 
+@pytest.mark.parametrize("lanes", (None,) + soft16_ablation.LANES)
 @pytest.mark.parametrize("width", [kernel_microbench.N_TILES * 128,
                                    kernel_microbench.HEADLINE_TILES * 128])
 @pytest.mark.parametrize("variant", kernel_microbench.VARIANTS)
-def test_k16_matches_plain(gpu, variant, width):
-    """Two packs at the JAX width (2048 arrays) and at 15,872: equal to the
-    plain version; one launch; a refused shape raises before any
+def test_k16_matches_plain(gpu, variant, width, lanes):
+    """One, two and three packs (32, 64 and 96 stages: tails of 2, 4 and
+    0 stages after the lane-split loop's six-stage passes) at the JAX width
+    (2048 arrays) and at 15,872, at the lanes the wrapper picks (None) and
+    split over every lane count: equal to the plain version; one launch
+    each, counted at its lanes; a refused shape raises before any
     launch."""
-    rs = kernel_microbench.probe_input(2, width, gpu, seed=6)
     K16 = kernel_microbench.K16
-    before = K16.launches
-    got = K16(variant, rs)
-    torch.cuda.synchronize()
-    assert K16.launches == before + 1
-    assert torch.equal(got, kernel_microbench.microbench_torch(variant, rs))
+    n = soft16_ablation.lanes_for(width) if lanes is None else lanes
+    before = (K16.launches, K16.lane_launches[n])
+    for n_packs in (1, 2, 3):
+        rs = kernel_microbench.probe_input(n_packs, width, gpu, seed=6)
+        got = K16(variant, rs, lanes)
+        torch.cuda.synchronize()
+        assert torch.equal(got,
+                           kernel_microbench.microbench_torch(variant, rs))
+    assert (K16.launches, K16.lane_launches[n]) == (before[0] + 3,
+                                                    before[1] + 3)
     with pytest.raises(ValueError):
-        K16(variant, rs[:, :16].contiguous())
-    assert K16.launches == before + 1
+        K16(variant, rs[:, :16].contiguous(), lanes)
+    assert K16.launches == before[0] + 3
 
 
 @pytest.mark.parametrize("occupancy", dtype_throughput.OCCUPANCIES)
@@ -1280,16 +1299,21 @@ def test_k28_matches_plain(gpu, variant, reps):
 def test_last_probe_sass_readings(gpu):
     """K25's and K28's loops, K11's relayouts and K13's bisect are in the
     library's SASS; a relayout's step loop holds a SHFL a construct.
-    K25's, K13's, K19's, K12's (A, B and C) and K18's swar lane-split loops
-    shuffle (L = 1 does not; K18's baseline never does), and no branch
-    splits their warps around the shuffles; B spills at neither of its
-    picks (32 and 16 lanes); swar/stage's repack is two shuffles a word."""
+    K25's, K13's, K19's, K12's (A, B and C), K18's swar, K14's forward and
+    K16's trellis (bcast, no_pp) lane-split loops shuffle (L = 1 does not;
+    K18's baseline, K16's fixed-partner variants and K14's chase loop
+    never do), and no branch splits their warps around the shuffles; B
+    spills at neither of its picks (32 and 16 lanes); swar/stage's repack
+    is two shuffles a word."""
     sa = soft16_ablation
     k12, k18 = layout_probe.sass_counts(), swar_probe.sass_counts()
+    no_shfl = ("baseline", "no_acs", "concat", "pltpu_repeat", "bit_tb")
     for table in (sa.sass_counts(), kernel_ablation.sass_counts(),
-                  opt_bench.sass_counts(), k12, k18):
+                  opt_bench.sass_counts(), k12, k18,
+                  acs_variants_bench.sass_counts(),
+                  kernel_microbench.sass_counts()):
         for key, (loop, res, mix) in table.items():
-            split = key[-1] > 1 and key[0] != "baseline"
+            split = key[-1] > 1 and key[0] not in no_shfl
             assert (sa.shfl_count(mix) > 0) == split, key
             assert not any("DIV" in op or "COLLECTIVE" in op for op in mix)
     for n in (16, 32):

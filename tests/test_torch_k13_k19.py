@@ -269,10 +269,11 @@ def test_k13_k19_pick_the_shared_rule(arrays, want):
 
 
 def test_lane_sources_share_one_header():
-    """K13's and K19's entries take the lane counts of ``LANES``, through
-    lanes.cuh's dispatch_lanes; K13's lane-split block is
-    ``lane_block``'s; the layout (rol6, bm_bits, lane_acs, the exchange)
-    is defined once, in lanes.cuh, which K13, K19 and K25 include."""
+    """K13's, K19's, K14's and K16's entries take the lane counts of
+    ``LANES``, through lanes.cuh's dispatch_lanes; K13's lane-split block
+    is ``lane_block``'s; the layout (rol6, bm_bits, lane_acs, the exchange,
+    the x bit, K14's and K16's trellis stage and stage-pair passes) is
+    defined once, in lanes.cuh, which K13, K19, K25, K14 and K16 include."""
     srcs = {p.name: p.read_text() for p in library.CSRC.glob("*.cu*")}
     cases = re.search(r"cudaError_t dispatch_lanes\(int lanes.*?switch "
                       r"\(lanes\) \{(.*?)default", srcs["lanes.cuh"],
@@ -280,12 +281,19 @@ def test_lane_sources_share_one_header():
     assert tuple(int(c) for c in re.findall(r"case (\d+):", cases)) == LANES
     assert [n for n, s in srcs.items() if "switch (lanes)" in s] == \
         ["lanes.cuh"]
-    for name in ("kernel_ablation.cu", "opt_bench.cu"):
+    for name in ("kernel_ablation.cu", "opt_bench.cu", "acs_variants.cu",
+                 "kernel_microbench.cu"):
         assert "viterbi::dispatch_lanes(lanes, " in srcs[name]
-    for name in ("kernel_ablation.cu", "opt_bench.cu", "soft16_ablation.cu"):
+    for name in ("kernel_ablation.cu", "opt_bench.cu", "soft16_ablation.cu",
+                 "acs_variants.cu", "kernel_microbench.cu"):
         assert '#include "lanes.cuh"' in srcs[name]
+    for name in ("acs_variants.cu", "kernel_microbench.cu"):
+        assert "viterbi::ProbeLane<" in srcs[name]
+        assert "viterbi::pair_stages(a, in);" in srcs[name]
     for fn in (r"int rol6\(", r"int bm_bits\(", r"void lane_acs\(",
-               r"T lane_partner\("):
+               r"T lane_partner\(", r"bool lane_x\(",
+               r"void lane_probe_stage\(", r"struct ProbeLane ",
+               r"struct PairPass ", r"void pair_stages\("):
         assert [n for n, s in srcs.items() if re.search(fn, s)] == \
             ["lanes.cuh"], fn
     block = re.search(r"constexpr int lane_block\(\) \{\s*return (.*?);",

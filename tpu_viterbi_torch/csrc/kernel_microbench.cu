@@ -26,15 +26,37 @@
 // What bounds it: the function needs one state's ACS a stage, so reading
 // the input; the code issues what ptxas keeps of 64 states' ACS, at one
 // thread an array, and at few warps a scheduler its dependency latency.
-// What the design does about it: K14's shape (64 threads a block, metrics
-// and survivors in registers, a loop of two stages whose next input loads
-// while it runs), so that the variants differ in the construct alone.
+// At one lane an array the design is K14's shape (64 threads a block,
+// metrics and survivors in registers, a loop of two stages whose next input
+// loads while it runs), so that the variants differ in the construct alone.
+//
+// What the design does about it: each array is split over `lanes` L of a warp
+// (2-32; the wrapper picks L from the array count), each variant keeping its
+// construct, all 64 states' update a stage as the variant defines it, S = 64
+// / L of them a lane, in a loop of six-stage passes whose input loads a pass
+// ahead (lanes.cuh's PairPass).  no_acs, concat and pltpu_repeat take the
+// fixed-partner layout: pair q = k L + lane holds rows q and q + 32 in its
+// lane, in natural order, so concat's children, whose predecessors are always
+// rows i mod 32 and i mod 32 + 32, never leave the lane and no stage
+// shuffles.  bcast and no_pp run the trellis' src = i / 2 wiring, so they
+// take lanes.cuh's in-place layout (lane_probe_stage, SAME: the position
+// holding hi adds -bm to itself, +bm to its partner; the tie rule turns with
+// the position's x bit, and no_pp's survivors count in place); after T stages
+// row rol6(P, T % 6) gets position P's sum.  Blocks of 64 threads hold 64 / L
+// arrays.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
-#include "acs.cuh"
+#include "build_part.cuh"
+#include "lanes.cuh"
+
+// Build parts (build_part.cuh): part 0 holds no_acs, no_pp and the entry
+// point, part 1 concat and pltpu_repeat, part 2 bcast, each variant at
+// every lane count.
+// nvcc parts: 3
 
 namespace viterbi_microbench {
 
@@ -105,35 +127,180 @@ microbench_kernel(const int* __restrict__ rs, int* __restrict__ out,
     out[i * w + c] = add<true>(pm_a[i], static_cast<int>(pp_a[i]));
 }
 
-template <int V>
+// --- the lane-split layouts (lanes >= 2) ---
+
+// The parent's stage over a lane's Q = 32 / L pairs of the fixed-partner
+// layout: register i holds row (i mod Q) L + lane + 32 (i / Q), and its
+// child reads registers i mod Q and i mod Q + Q, rows q and q + 32 of its
+// pair (concat's i mod 32 and i mod 32 + 32).
+template <int V, int Q>
+__device__ __forceinline__ void fixed_stage(const int (&pm)[2 * Q],
+                                            const uint32_t (&pp)[2 * Q],
+                                            int (&pmo)[2 * Q],
+                                            uint32_t (&ppo)[2 * Q], int bm) {
+#pragma unroll
+  for (int i = 0; i < 2 * Q; ++i) {
+    if constexpr (V == 0) {
+      pmo[i] = add<true>(pm[i], bm);
+      ppo[i] = pp[i] + 1u;
+    } else {
+      const int src = i % Q;
+      const int c0 = add<true>(pm[src], bm), c1 = sub<true>(pm[src + Q], bm);
+      const bool dec = c1 > c0;
+      pmo[i] = dec ? c1 : c0;
+      ppo[i] = ((dec ? pp[src + Q] : pp[src]) << 1) | (dec ? 1u : 0u);
+    }
+  }
+}
+
+// One array's lane in the fixed-partner layout (no_acs, concat,
+// pltpu_repeat): pair q = k L + lane, k < Q = 32 / L, in registers k (row
+// q) and Q + k (row q + 32), double-buffered as lanes.cuh's ProbeLane.
+template <int V, int L>
+struct FixedLane {
+  static constexpr int Q = 32 / L, S = 2 * Q;
+  int lane;
+  int pm_a[S], pm_b[S];
+  uint32_t pp_a[S], pp_b[S];
+
+  __device__ __forceinline__ explicit FixedLane(int ln) : lane(ln) {
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      pm_a[k] = 0;
+      pp_a[k] = 0u;
+    }
+  }
+
+  template <int J>
+  __device__ __forceinline__ void stage(int bm) {
+    if constexpr (J % 2 == 0)
+      fixed_stage<V, Q>(pm_a, pp_a, pm_b, pp_b, bm);
+    else
+      fixed_stage<V, Q>(pm_b, pp_b, pm_a, pp_a, bm);
+  }
+
+  // Each register's pm + pp into its row of column c (natural order).
+  __device__ __forceinline__ void store(int* out, size_t w, int c, int,
+                                        bool live) const {
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      const int v = add<true>(pm_a[k], static_cast<int>(pp_a[k]));
+      if (live) out[((k % Q) * L + lane + 32 * (k / Q)) * w + c] = v;
+    }
+  }
+};
+
+// A variant's lane: bcast and no_pp on lanes.cuh's in-place layout, the
+// others in the fixed-partner layout.
+template <int V, int L>
+using MicroLane = std::conditional_t<
+    V == 2 || V == 3,
+    viterbi::ProbeLane<L, true,
+                       V == 2 ? viterbi::LanePp::kCount
+                              : viterbi::LanePp::kExchange>,
+    FixedLane<V, L>>;
+
+template <int V, int L>
+__global__ void __launch_bounds__(kThreads)
+microbench_lanes_kernel(const int* __restrict__ rs, int* __restrict__ out,
+                        int n_packs, int width) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  const int c = i / L, lane = i % L;
+  // a ragged last block's spare arrays run on the last column, store
+  // nothing, and keep their warps whole for the shuffles
+  const bool live = c < width;
+  const int stages = n_packs * kBpp;
+  viterbi::PairPass in(rs + (live ? c : width - 1), width, stages);
+  MicroLane<V, L> a(lane);
+  viterbi::pair_stages(a, in);
+  a.store(out, static_cast<size_t>(width), c, stages, live);
+}
+
+template <int V, int L>
 cudaError_t launch(const int* rs, int* out, int n_packs, int width,
                    cudaStream_t stream) {
-  microbench_kernel<V>
-      <<<(width + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-          rs, out, n_packs, width);
+  if constexpr (L == 1) {
+    microbench_kernel<V>
+        <<<(width + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+            rs, out, n_packs, width);
+  } else {
+    microbench_lanes_kernel<V, L>
+        <<<(width * L + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+            rs, out, n_packs, width);
+  }
   return cudaGetLastError();
 }
+
+// Every kernel of variant V: one lane the parent's, 2-32 lanes the split.
+template <int V>
+cudaError_t launch_variant(int lanes, const int* rs, int* out, int n_packs,
+                           int width, cudaStream_t s) {
+  return viterbi::dispatch_lanes(lanes, [&](auto l) {
+    return launch<V, decltype(l)::value>(rs, out, n_packs, width, s);
+  });
+}
+
+// The variants of each build part.
+cudaError_t launch_part0(int, int, const int*, int*, int, int, cudaStream_t);
+cudaError_t launch_part1(int, int, const int*, int*, int, int, cudaStream_t);
+cudaError_t launch_part2(int, int, const int*, int*, int, int, cudaStream_t);
+
+#if IN_PART(0)
+cudaError_t launch_part0(int v, int n, const int* rs, int* out, int n_packs,
+                         int width, cudaStream_t s) {
+  switch (v) {
+    case 0: return launch_variant<0>(n, rs, out, n_packs, width, s);
+    case 2: return launch_variant<2>(n, rs, out, n_packs, width, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+#endif
+#if IN_PART(1)
+cudaError_t launch_part1(int v, int n, const int* rs, int* out, int n_packs,
+                         int width, cudaStream_t s) {
+  switch (v) {
+    case 1: return launch_variant<1>(n, rs, out, n_packs, width, s);
+    case 4: return launch_variant<4>(n, rs, out, n_packs, width, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+#endif
+#if IN_PART(2)
+cudaError_t launch_part2(int v, int n, const int* rs, int* out, int n_packs,
+                         int width, cudaStream_t s) {
+  return v == 3 ? launch_variant<3>(n, rs, out, n_packs, width, s)
+                : cudaErrorInvalidValue;
+}
+#endif
 
 }  // namespace viterbi_microbench
 
 using namespace viterbi_microbench;
 
+#if IN_PART(0)
 // Launch variant `variant` (0 no_acs, 1 concat, 2 no_pp, 3 bcast, 4
-// pltpu_repeat) on rs, (n_packs, 32, 2, width) int32, into out, (64,
-// width) int32.  Returns the cudaError_t of the launch (0 = launched).
+// pltpu_repeat) split over `lanes` (1, 2, 4, 8, 16 or 32) lanes an array on
+// rs, (n_packs, 32, 2, width) int32, into out, (64, width) int32.  Returns
+// the cudaError_t of the launch (0 = launched).
 extern "C" int viterbi_k16_launch(int variant, const void* rs, void* out,
-                                  int n_packs, int width, void* stream) {
+                                  int n_packs, int width, int lanes,
+                                  void* stream) {
   const int* r = static_cast<const int*>(rs);
   int* o = static_cast<int*>(out);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_packs <= 0 || width <= 0 || rs == nullptr || out == nullptr)
+  if (n_packs <= 0 || width <= 0 || rs == nullptr || out == nullptr ||
+      static_cast<long long>(width) * lanes > INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (variant) {
-    case 0: return static_cast<int>(launch<0>(r, o, n_packs, width, s));
-    case 1: return static_cast<int>(launch<1>(r, o, n_packs, width, s));
-    case 2: return static_cast<int>(launch<2>(r, o, n_packs, width, s));
-    case 3: return static_cast<int>(launch<3>(r, o, n_packs, width, s));
-    case 4: return static_cast<int>(launch<4>(r, o, n_packs, width, s));
+    case 0:
+    case 2: return static_cast<int>(launch_part0(variant, lanes, r, o,
+                                                 n_packs, width, s));
+    case 1:
+    case 4: return static_cast<int>(launch_part1(variant, lanes, r, o,
+                                                 n_packs, width, s));
+    case 3: return static_cast<int>(launch_part2(variant, lanes, r, o,
+                                                 n_packs, width, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+#endif  // IN_PART(0)

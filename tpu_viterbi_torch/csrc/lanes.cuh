@@ -1,5 +1,8 @@
 // The lane-split layout of an array's 64 states, shared by K25
-// (soft16_ablation.cu), K13 (kernel_ablation.cu) and K19 (opt_bench.cu).
+// (soft16_ablation.cu), K13 (kernel_ablation.cu), K19 (opt_bench.cu), K12's
+// layouts A and B (layout_probe.cu), and K14's and K16's trellis variants
+// (acs_variants.cu, kernel_microbench.cu: lane_probe_stage, ProbeLane and
+// the stage-pair passes below).
 //
 // An array is split over L lanes of a warp (1, 2, 4, 8, 16 or 32), S = 64 /
 // L positions a lane.  The states move in place: after t stages physical
@@ -82,6 +85,18 @@ __device__ __forceinline__ T lane_partner(const T (&x)[N], int k) {
     return __shfl_xor_sync(kFull, x[k], 1 << (u - kBits));
 }
 
+// The x bit in phase F of register r of `lane`'s positions (P = lane * S +
+// r): P's pair bit b = 5 - F, a compile-time constant once unrolled while b
+// is a register bit, else the lane's bit.
+template <int L, int F>
+__device__ __forceinline__ bool lane_x(int r, int lane) {
+  constexpr int kRegBits = 6 - log2_of(L), B = 5 - F;
+  if constexpr (B < kRegBits)
+    return (r >> B) & 1;
+  else
+    return (lane >> (B - kRegBits)) & 1;
+}
+
 // The survivor of a position whose partner won (dec) or not, h its x bit.
 __device__ __forceinline__ uint32_t lane_survivor(uint32_t pp_s, uint32_t pp_p,
                                                   bool dec, bool h) {
@@ -112,15 +127,11 @@ __device__ __forceinline__ void lane_acs_stage(
     const int (&pm)[kStates / L], const uint32_t (&pp)[kStates / L],
     int (&pm_o)[kStates / L], uint32_t (&pp_o)[kStates / L], BmAt bm_at,
     int lane) {
-  constexpr int S = kStates / L, kRegBits = 6 - log2_of(L), B = 5 - F;
+  constexpr int S = kStates / L, B = 5 - F;
 #pragma unroll
   for (int r = 0; r < S; ++r) {
     const int bm = bm_at(r);
-    bool h;
-    if constexpr (B < kRegBits)
-      h = (r >> B) & 1;
-    else
-      h = (lane >> (B - kRegBits)) & 1;
+    const bool h = lane_x<L, F>(r, lane);
     const int qm = lane_partner<B, 0>(pm, r);
     const uint32_t qp = lane_partner<B, 0>(pp, r);
     lane_acs(pm[r], pp[r], qm, qp, bm, h, pm_o[r], pp_o[r]);
@@ -146,6 +157,165 @@ __device__ __forceinline__ void lane_stage(const int (&pm)[kStates / L],
                       fp ? sdn : sd};
   lane_acs_stage<L, F>(pm, pp, pm_o, pp_o,
                        [&](int r) { return bm4[bm_bits(r, F)]; }, lane);
+}
+
+// --- K14's and K16's trellis variants on this layout ---
+//
+// Their input gives every pair of a stage one bm (stage_pairs_input), and
+// their variants differ in the candidates and in the survivor.  SAME: both
+// children of pair q take max(lo + bm, hi - bm) (K14's full and pp_noshuf,
+// K16's bcast and no_pp), so the position holding hi (x bit h = 1) adds
+// -bm to itself and +bm to its partner; else the even child takes that and
+// the odd child max(lo - bm, hi + bm) (K14's eo and decbits: K1's
+// butterfly), +bm to itself at every position.  The tie rule, the decision
+// and the survivor's bit (the winner's x bit) are lane_acs's.
+
+// How a position's survivor moves: the exchange (lane_survivor), a shift-in
+// of the stage's bit in place (the word of the row the position held, for
+// survivors keyed by fixed rows: K14's pp_noshuf and decbits, put back
+// together at the end), or a count (pp + 1: K16's no_pp).
+enum class LanePp { kExchange, kShiftIn, kCount };
+
+// One stage in phase F of a lane's S = 64 / L positions, from (pm, pp) into
+// (pm_o, pp_o).  SAME's sign is taken arithmetically, (bm ^ m) - m with m =
+// -h: a select on a lane's bit may compile to a branch around the
+// shuffles.
+template <int L, int F, bool SAME, LanePp PP>
+__device__ __forceinline__ void lane_probe_stage(
+    const int (&pm)[kStates / L], const uint32_t (&pp)[kStates / L],
+    int (&pm_o)[kStates / L], uint32_t (&pp_o)[kStates / L], int bm,
+    int lane) {
+  constexpr int S = kStates / L, B = 5 - F;
+#pragma unroll
+  for (int r = 0; r < S; ++r) {
+    const bool h = lane_x<L, F>(r, lane);
+    const int m = SAME ? -static_cast<int>(h) : 0;
+    const int b = sub<true>(bm ^ m, m);
+    const int qm = lane_partner<B, 0>(pm, r);
+    if constexpr (PP == LanePp::kExchange) {
+      lane_acs(pm[r], pp[r], qm, lane_partner<B, 0>(pp, r), b, h, pm_o[r],
+               pp_o[r]);
+    } else {
+      const int cs = add<true>(pm[r], b);
+      const int cp = sub<true>(qm, b);
+      const bool dec = (cp > cs) | ((cp == cs) & h);
+      pm_o[r] = dec ? cp : cs;
+      if constexpr (PP == LanePp::kCount)
+        pp_o[r] = pp[r] + 1u;
+      else
+        pp_o[r] = (pp[r] << 1) | static_cast<uint32_t>(dec != h);
+    }
+  }
+}
+
+// One array's lane of a K14 / K16 trellis variant: its S positions' metrics
+// and survivors from zero, double-buffered (stage J of a pass reads the a
+// registers when J is even); after an even number of stages the a
+// registers hold them.
+template <int L, bool SAME, LanePp PP>
+struct ProbeLane {
+  static constexpr int S = kStates / L;
+  int lane;
+  int pm_a[S], pm_b[S];
+  uint32_t pp_a[S], pp_b[S];
+
+  __device__ __forceinline__ explicit ProbeLane(int ln) : lane(ln) {
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      pm_a[k] = 0;
+      pp_a[k] = 0u;
+    }
+  }
+
+  template <int J>
+  __device__ __forceinline__ void stage(int bm) {
+    if constexpr (J % 2 == 0)
+      lane_probe_stage<L, J, SAME, PP>(pm_a, pp_a, pm_b, pp_b, bm, lane);
+    else
+      lane_probe_stage<L, J, SAME, PP>(pm_b, pp_b, pm_a, pp_a, bm, lane);
+  }
+
+  // Position k's pm + pp, wrapping, into its logical state's row
+  // rol6(lane * S + k, stages % 6) of column c (the exchange and the count;
+  // a shift-in's words are keyed by rows, not positions).
+  __device__ __forceinline__ void store(int* out, size_t w, int c, int stages,
+                                        bool live) const {
+    const int f = stages % kPass;
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      const int v = add<true>(pm_a[k], static_cast<int>(pp_a[k]));
+      if (live) out[rol6(lane * S + k, f) * w + c] = v;
+    }
+  }
+};
+
+// The stage pairs of K14's and K16's input, rs (n_packs, 32, 2, width)
+// int32 (stage t's pair at rows 2t, 2t + 1 of an array's column), a pass
+// of six read a pass ahead of the stages that take them.  Each load is one
+// address from the pass's row pointer and an offset held in a register
+// (the stride is the run's width), with no bound test while the next pass
+// is whole: K19's OptLanes computes each address and tests each stage.
+struct PairPass {
+  const int* r;                // the column at row 2 t0 of the running pass
+  size_t step;                 // a pass' rows: 2 * 6 * width
+  int stages;
+  int off[2 * kPass];          // (2 j + k) width: stage t0 + j's value k
+  int x[kPass], y[kPass];      // each stage's pair
+
+  __device__ __forceinline__ PairPass(const int* col, int width, int n_stages)
+      : r(col), step(static_cast<size_t>(2 * kPass) * width),
+        stages(n_stages) {
+#pragma unroll
+    for (int i = 0; i < 2 * kPass; ++i) off[i] = i * width;
+    // every run has at least 32 stages: the first pass is whole
+#pragma unroll
+    for (int j = 0; j < kPass; ++j) {
+      x[j] = __ldg(r + off[2 * j]);
+      y[j] = __ldg(r + off[2 * j + 1]);
+    }
+  }
+};
+
+// How a pass loads the next one's pairs: all six (the next pass is whole),
+// those of stages j < `ahead` (the last whole pass: the tail's), or none.
+enum class Ahead { kAll, kSome, kNone };
+
+// Stages t0 + J .. t0 + N - 1 of a pass into `a` (a.stage<J>(bm), phase J),
+// each stage's registers then loading the next pass's pair from `next`.
+template <int J, int N, Ahead A, typename Arr>
+__device__ __forceinline__ void pair_pass(Arr& a, PairPass& in,
+                                          const int* next, int ahead) {
+  if constexpr (J < N) {
+    const int bm = add<true>(in.x[J], in.y[J]);
+    if constexpr (A == Ahead::kAll) {
+      in.x[J] = __ldg(next + in.off[2 * J]);
+      in.y[J] = __ldg(next + in.off[2 * J + 1]);
+    } else if constexpr (A == Ahead::kSome) {
+      in.x[J] = J < ahead ? __ldg(next + in.off[2 * J]) : 0;
+      in.y[J] = J < ahead ? __ldg(next + in.off[2 * J + 1]) : 0;
+    }
+    a.template stage<J>(bm);
+    pair_pass<J + 1, N, A>(a, in, next, ahead);
+  }
+}
+
+// Every stage of `in` into `a`: passes of six while the next one is whole,
+// the last whole pass, then a tail of 0, 2 or 4 stages (32 n_packs % 6).
+template <typename Arr>
+__device__ __forceinline__ void pair_stages(Arr& a, PairPass& in) {
+  int t0 = 0;
+#pragma unroll 1
+  for (; t0 + 2 * kPass <= in.stages; t0 += kPass) {
+    const int* next = in.r + in.step;
+    pair_pass<0, kPass, Ahead::kAll>(a, in, next, 0);
+    in.r = next;
+  }
+  const int tail = in.stages - t0 - kPass;  // 0, 2 or 4
+  pair_pass<0, kPass, Ahead::kSome>(a, in, in.r + in.step, tail);
+  if (tail == 4)
+    pair_pass<0, 4, Ahead::kNone>(a, in, nullptr, 0);
+  else if (tail == 2)
+    pair_pass<0, 2, Ahead::kNone>(a, in, nullptr, 0);
 }
 
 // SOFT8's unpack (K13's +unpack, K1's IntReader<8>): stage J of a pass

@@ -1,7 +1,10 @@
 """ACS variants on the card: kernel K14, the counterpart of
 ``scripts/acs_variants_bench.py``, which isolated the costs of the TPU's
 ACS formulations.  Here it weighs K1's register exchange against decision
-bits and a bit-granular traceback.
+bits and a bit-granular traceback, each array on one thread (K1's shape)
+or split over ``lanes`` lanes of a warp (``common.LANES``,
+``common.lanes_for`` picking the count from the arrays), each variant
+keeping its construct.
 
     python -m tpu_viterbi_torch.scripts.acs_variants_bench [variants]
 
@@ -13,11 +16,19 @@ Variants (JAX :3-11; some decode wrongly by design, they time arithmetic):
   decbits    as eo, pp rows [dec_e; dec_o]: decision bits, no exchange
   bit_tb     the bit-granular traceback chase alone
 
+Split, the forward variants run all 64 states in place (csrc/lanes.cuh),
+full and eo exchanging their survivors across lanes; pp_noshuf's and
+decbits' survivors, keyed by fixed rows, shift in place and are put back
+together from the positions that held each row once, at the end; bit_tb
+splits the stage range over the lanes and joins their sums and states by
+shuffles.
+
 Each runs N_TILES x 128 arrays over N_PACKS packs of 32 stages (2112
-stages, K1's per-thread count at the headline): the median of REPS
-CUDA-event launches after one untimed launch, printed as ns per stage per
-128-array tile, beside the SASS instructions of its stage loop a stage, its
-registers and stack frame (cuobjdump -res-usage).
+stages, K1's per-thread count at the headline) at every lane count in turn
+with one lane (``common.TURNS``): the median of REPS CUDA-event launches
+after one untimed launch, printed as ns per stage per 128-array tile,
+beside the SASS instructions of its stage loop a stage (its SHFL count the
+lanes' exchanges), its registers and stack frame (cuobjdump -res-usage).
 """
 
 from __future__ import annotations
@@ -28,8 +39,10 @@ import sys
 import torch
 
 from .. import hardware
-from .common import (BPP, LT, ProbeKernel, check_names, check_stage_pairs,
-                     describe_stages, sass_table,
+from .common import (BPP, LANES, LT, TURNS, LaneKernel, check_lanes,
+                     check_names, check_stage_pairs, describe_stages,
+                     lanes_for, loop_stages, pick, sass_digests,
+                     sass_table, shfl_count,
                      stage_pairs_input as probe_input, time_stages)
 from .layout_probe import _interleave
 
@@ -37,7 +50,6 @@ N_PACKS = 66
 N_TILES = 16
 REPS = 5
 VARIANTS = ("full", "pp_noshuf", "eo", "decbits", "bit_tb")
-LOOP_STAGES = dict(full=2, pp_noshuf=2, eo=2, decbits=2, bit_tb=1)
 # lane-operations an array-stage, for the bound: the work the function
 # needs.  All 64 states start at zero and see the stage's one bm, so the
 # path metrics stay equal (common.stage_pairs_input): bm's add, the 2
@@ -48,6 +60,22 @@ LOOP_STAGES = dict(full=2, pp_noshuf=2, eo=2, decbits=2, bit_tb=1)
 # only where a recent bm is 0).  The chase: its shift, and, two shift-ors
 # and the sum's add.
 OPS = dict(full=5, pp_noshuf=5, eo=69, decbits=7, bit_tb=5)
+# lane-operations an array-stage of each variant's own construct, its 64
+# states' update as the TPU probe writes it (chip_smoke.ACS_OPS' count: a
+# state's 2 candidate adds, its max with the decision, its survivor
+# update), for the construct's issue bound beside the function's: what the
+# variant would take if nothing were folded.  The chase is OPS' own.  No
+# bound where ptxas folds the equal metrics (full at one lane, pp_noshuf
+# split): it issues less than this counts, and a share over 100 % there
+# says folded, not miscounted.
+CONSTRUCT_OPS = dict(full=256, pp_noshuf=256, eo=256, decbits=256, bit_tb=5)
+
+
+def loop_stages_of(variant: str, lanes: int) -> int:
+    """Stages of one pass of the variant's stage loop: the chase's loop
+    takes one at every lane count, the forward variants'
+    ``common.loop_stages``."""
+    return 1 if variant == "bit_tb" else loop_stages(lanes)
 
 
 def _check(variant: str, rs: torch.Tensor) -> None:
@@ -101,64 +129,94 @@ def acs_variants_torch(variant: str, rs: torch.Tensor) -> torch.Tensor:
     return pm + pp
 
 
-class AcsVariantsKernel(ProbeKernel):
+class AcsVariantsKernel(LaneKernel):
     """K14, bound to ``viterbi_k14_launch``."""
 
     def __init__(self):
         super().__init__("K14", "viterbi_k14_launch", "acs_variants.cu",
                          [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                          ctypes.c_int, ctypes.c_int])
+                          ctypes.c_int, ctypes.c_int, ctypes.c_int])
 
-    def __call__(self, variant: str, rs: torch.Tensor) -> torch.Tensor:
+    def __call__(self, variant: str, rs: torch.Tensor,
+                 lanes: int = None) -> torch.Tensor:
         """(64, width) int32.  On a CUDA tensor one launch on the current
-        stream, not synchronized; on a CPU tensor its plain version."""
+        stream, not synchronized, each array over ``lanes`` lanes
+        (``lanes_for`` the arrays when None); on a CPU tensor its plain
+        version."""
         _check(variant, rs)
+        lanes = self.pick_lanes(rs.shape[3], lanes)
         if not rs.is_contiguous():
             raise ValueError("K14 takes a contiguous input")
         if not self.check_device(rs):
             return acs_variants_torch(variant, rs)
         out = torch.empty((64, rs.shape[3]), dtype=torch.int32,
                           device=rs.device)
-        self.launch(rs.device, VARIANTS.index(variant), rs.data_ptr(),
-                    out.data_ptr(), rs.shape[0], rs.shape[3])
+        self.launch_lanes(rs.device, lanes, VARIANTS.index(variant),
+                          rs.data_ptr(), out.data_ptr(), rs.shape[0],
+                          rs.shape[3], lanes)
         return out
 
 
 K14 = AcsVariantsKernel()
 
 
+def _kernel(i: int, lanes: int) -> tuple:
+    """The parts of variant i's kernel name at ``lanes``."""
+    return (("acs_kernel", f"ILi{i}E") if lanes == 1 else
+            ("acs_lanes_kernel", f"ILi{i}ELi{lanes}E"))
+
+
 def sass_counts() -> dict:
-    """{variant: (SASS instructions of its stage loop, {REG, STACK, ...},
-    the loop's opcode mix)} read from the built library."""
+    """{(variant, lanes): (SASS instructions of its stage loop, {REG,
+    STACK, ...}, the loop's opcode mix)} read from the built library (a
+    kernel each)."""
     return sass_table("viterbi_acs_variants",
-                      {v: ("acs_kernel", f"ILi{i}E")
-                       for i, v in enumerate(VARIANTS)})
+                      {(v, n): _kernel(i, n) for i, v in enumerate(VARIANTS)
+                       for n in LANES})
 
 
-def run(variant: str, rs: torch.Tensor, sass: tuple) -> dict:
-    """Time one variant on rs."""
-    return time_stages(lambda: K14(variant, rs), REPS, rs.shape[0] * BPP,
-                       rs.shape[3], sass, LOOP_STAGES[variant],
-                       variant=variant)
+def one_lane_digests() -> dict:
+    """{variant: (SASS instructions, digest, registers, stack)} of the
+    one-lane kernels in the built library (``common.sass_digests``)."""
+    d = sass_digests("viterbi_acs_variants")
+    return {v: pick(d, *_kernel(i, 1)) for i, v in enumerate(VARIANTS)}
+
+
+def run(variant: str, lanes: int, rs: torch.Tensor, sass: dict) -> dict:
+    """Time one variant at one lane count on rs."""
+    mix = sass[variant, lanes][2]
+    per = loop_stages_of(variant, lanes)
+    return time_stages(lambda: K14(variant, rs, lanes), REPS,
+                       rs.shape[0] * BPP, rs.shape[3], sass[variant, lanes],
+                       per, variant=variant, lanes=lanes,
+                       picked=lanes == lanes_for(rs.shape[3]),
+                       shfl_per_stage=shfl_count(mix) / per)
 
 
 def describe(r: dict) -> str:
-    return describe_stages(r, f"{r['variant']:9s} {r['arrays']:6d} arrays")
+    return (describe_stages(r, f"{r['variant']:9s} {r['arrays']:6d} arrays "
+                               f"{r['lanes']:2d} lanes")
+            + f"; SHFL a stage {r['shfl_per_stage']:g}")
 
 
-def probe(names=VARIANTS) -> list:
-    """Time each named variant on the current CUDA device and print one
-    line each; returns their ``run`` results."""
+def probe(names=VARIANTS, lanes=TURNS) -> list:
+    """Time each named variant at each lane count of ``lanes`` in turn on
+    the current CUDA device and print one line each; returns their ``run``
+    results."""
     check_names(names, VARIANTS)
+    for n in lanes:
+        check_lanes(n, "K14")
     dev = hardware.resolve_device("cuda")
     rs = probe_input(N_PACKS, N_TILES * LT, dev)
     sass = sass_counts()
     print(f"{torch.cuda.get_device_name(dev)}: {N_TILES * LT} arrays x "
-          f"{N_PACKS * BPP} stages, CUDA blocks of 64 threads")
+          f"{N_PACKS * BPP} stages, CUDA blocks of 64 threads, lanes "
+          f"{list(lanes)} an array in turn")
     results = []
     for v in names:
-        results.append(run(v, rs, sass[v]))
-        print(describe(results[-1]), flush=True)
+        for n in lanes:
+            results.append(run(v, n, rs, sass))
+            print(describe(results[-1]), flush=True)
     return results
 
 

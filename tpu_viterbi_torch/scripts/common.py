@@ -1,16 +1,17 @@
 """What the probes' kernels (K11-K28) share: the wrapper that binds a
 kernel's entry point and counts its launches, the lanes an array of the
-kernels that split their arrays over a warp's lanes (K13, K19, K25;
-``csrc/lanes.cuh``) and the rule that picks them, the timing of a launch,
-the decode-attribution probes' piece timer and attribution block
+kernels that split their arrays over a warp's lanes (K12-K14, K16, K18,
+K19, K25; ``csrc/lanes.cuh``) and the rule that picks them, the timing of
+a launch, the decode-attribution probes' piece timer and attribution block
 (K21-K24), the ACS' branch signs, and what the SASS of the built library
 says of a kernel (its loops' instructions and opcodes, its registers and
-stack frame).
+stack frame, a digest of its instructions).
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import re
 import subprocess
 import tempfile
@@ -45,9 +46,10 @@ TURNS = LANES + (1,)
 
 
 def lanes_for(arrays: int) -> int:
-    """The lanes an array of ``LANES`` that K13, K19 and K25 run ``arrays``
-    arrays at: 1 from ONE_LANE_ARRAYS arrays, else the fewest that give
-    ``arrays`` x lanes >= TARGET_THREADS, at most 32 (one warp an array)."""
+    """The lanes an array of ``LANES`` that the lane-split probes (K12-K14,
+    K16, K18, K19, K25) run ``arrays`` arrays at: 1 from ONE_LANE_ARRAYS
+    arrays, else the fewest that give ``arrays`` x lanes >= TARGET_THREADS,
+    at most 32 (one warp an array)."""
     if arrays >= ONE_LANE_ARRAYS:
         return 1
     return next((n for n in LANES[1:] if arrays * n >= TARGET_THREADS),
@@ -62,8 +64,9 @@ def check_lanes(lanes: int, name: str = "K25") -> None:
 
 def loop_stages(lanes: int) -> int:
     """Stages of one pass of a lane-split probe's stage loop: two at one
-    lane (K13's and K14's loop), the six phases of the lane-split
-    layout."""
+    lane (K13's, K16's and K14's forward variants' loop), the six phases of
+    the lane-split layout (K14's bit_tb loops a stage at every lane count,
+    ``acs_variants_bench.loop_stages_of``)."""
     return 2 if lanes == 1 else 6
 
 
@@ -138,8 +141,8 @@ class ProbeKernel:
 
 class LaneKernel(ProbeKernel):
     """A probe kernel whose arrays split over ``lanes`` lanes of a warp
-    (K13, K19, K25): ``lane_launches`` counts its launches at each lane
-    count."""
+    (K12-K14, K16, K18, K19, K25): ``lane_launches`` counts its launches at
+    each lane count."""
 
     def __init__(self, *args):
         super().__init__(*args)
@@ -368,15 +371,19 @@ def _tool(name: str) -> str:
     return str(Path(library.find_nvcc()).with_name(name))
 
 
-def cubin_listings(marker: str) -> Tuple[str, Dict[str, Dict[str, int]]]:
+def cubin_listings(marker: str, lib_path: str = None
+                   ) -> Tuple[str, Dict[str, Dict[str, int]]]:
     """(the ``cuobjdump -sass`` listing, the ``-res-usage`` table) of the
-    cubins of the built library that hold ``marker`` (a kernel's namespace;
-    one cubin a build part of its source): the cubins are extracted and
-    only those are read (the decode kernels' listings take seconds)."""
-    lib = library.load_library()
+    cubins of the built library (or of the library at ``lib_path``) that
+    hold ``marker`` (a kernel's namespace; one cubin a build part of its
+    source): the cubins are extracted and only those are read (the decode
+    kernels' listings take seconds)."""
+    if lib_path is None:
+        lib_path = library.load_library()._name
     tool = _tool("cuobjdump")
     with tempfile.TemporaryDirectory() as tmp:
-        subprocess.run([tool, "-xelf", "all", lib._name], cwd=tmp,
+        subprocess.run([tool, "-xelf", "all", str(Path(lib_path).resolve())],
+                       cwd=tmp,
                        capture_output=True, check=True, timeout=120)
         cubins = sorted(p for p in Path(tmp).iterdir()
                         if marker.encode() in p.read_bytes())
@@ -388,6 +395,25 @@ def cubin_listings(marker: str) -> Tuple[str, Dict[str, Dict[str, int]]]:
                              for c in cubins)
                      for flag in ("-sass", "-res-usage")]
     return sass, resource_usage(res)
+
+
+def sass_digests(marker: str, lib_path: str = None
+                 ) -> Dict[str, Tuple[int, str, int, int]]:
+    """{mangled kernel name: (its SASS instructions, the first 16 hex digits
+    of the SHA-256 of their text, registers, stack bytes)} of the kernels in
+    the cubins that hold ``marker``, in the built library or in the one at
+    ``lib_path`` (another tree's build, ``scripts/sass_compare.py``): two
+    builds of a kernel with the same four compiled to the same code."""
+    sass, res = cubin_listings(marker, lib_path)
+    pieces = _FUNCTION.split(sass)
+    digests = {}
+    for name, body in zip(pieces[1::2], pieces[2::2]):
+        text = [m.group(2) for m in _INSTR.finditer(body)]
+        use = res.get(name, {})
+        digests[name] = (len(text), hashlib.sha256(
+            "\n".join(text).encode()).hexdigest()[:16], use.get("REG"),
+            use.get("STACK"))
+    return digests
 
 
 def sass_table(marker: str, parts: Dict[object, Tuple[str, ...]]) -> dict:
