@@ -1637,6 +1637,24 @@ def hardware_phase(card: str, gen, runs: dict):
 
 
 OP_COST_CHECK_STEPS = 256
+# The integer-ALU pipe's opcodes (64 lanes a clock an SM, half the issue
+# rate): a loop of them alone runs at most at that pipe's rate.  Uniform
+# datapath opcodes (U...) issue off it; other opcodes count only in the
+# issue bound.
+INT_ALU_OPS = ("IADD3", "LOP3", "SHF", "ISETP", "SEL", "IMNMX", "LEA",
+               "PRMT", "PLOP3", "MOV")
+INT_ALU_PER_SM_CLOCK = 64
+
+
+def pipe_classes(mix: dict) -> dict:
+    """A loop's opcode mix in {"alu": integer-ALU pipe, "uniform": U...,
+    "other": the rest} instructions."""
+    out = Counter()
+    for op, n in mix.items():
+        base = op.split(".")[0]
+        out["uniform" if base.startswith("U") else
+            "alu" if base in INT_ALU_OPS else "other"] += n
+    return {k: out[k] for k in ("alu", "uniform", "other")}
 
 
 def op_cost_phase(card: str, runs: dict):
@@ -1678,6 +1696,19 @@ def op_cost_phase(card: str, runs: dict):
         f"block-stage, {ACS_OPS} instructions, {rate:.1f} lane-instructions"
         f"/ns; semantic add4 {add4['lane_ops_per_ns']:.1f} lane-ops/ns); "
         f"table: {hardware.alu_model()}")
+    mix = op_cost_probe.sass_loop_mixes()["add4"]
+    cls = pipe_classes(mix)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    pipe_ms = lanes * steps * cls["alu"] / (
+        sms * INT_ALU_PER_SM_CLOCK * hardware.sm_clock_hz()) * 1e3
+    say("16 op cost", f"{card}: add4's step loop ({add4['sass_loop']} SASS:"
+        f" {describe_mix(mix, 12)}): {cls['alu']} on the integer-ALU pipe, "
+        f"{cls['uniform']} uniform, {cls['other']} other; the issue bound "
+        f"{bnd[0]:.4f} ms ({bnd[0] / k_ms:.0%} of {k_ms:.4f}), the ALU "
+        f"pipe's bound at {INT_ALU_PER_SM_CLOCK} lanes a clock an SM "
+        f"{pipe_ms:.4f} ms ({pipe_ms / k_ms:.0%})")
+    extra = dict(add4_loop_mix=mix, add4_pipe_classes=cls,
+                 alu_pipe_bound_ms=pipe_ms)
     by = {r["variant"]: r for r in results}
     n_ops = op_cost_probe.N_OPS
     say("16 op cost", f"{card}: relayouts, a warp a column (constructs a "
@@ -1687,7 +1718,7 @@ def op_cost_phase(card: str, runs: dict):
                   for v in op_cost_probe.RELAYOUTS) +
         f"; add {by['add']['ops_per_clock_per_sm']:.2f} "
         f"({by['add']['sass_loop']})")
-    return k_ms, p_ms, 0, bnd
+    return k_ms, p_ms, 0, bnd, None, extra
 
 
 CANARY_CALLS = 3
@@ -1781,7 +1812,8 @@ def held_to_plain(what: str, got, plain) -> float:
 
 
 def lane_turns(tag: str, card: str, results: list, extra: dict,
-               label: str, key: str, picked_as: str = None) -> None:
+               label: str, key: str, picked_as: str = None,
+               per: str = "stage") -> None:
     """Print ``results`` (one variant at one count, each lane count in turn
     with one lane, ``TURNS``) as a lane_line after ``label``, and store each
     time in ``extra`` under ``key`` + lanes<n>_ms (one lane's second turn
@@ -1792,12 +1824,13 @@ def lane_turns(tag: str, card: str, results: list, extra: dict,
     for n, r in zip(TURNS, results):
         k = f"{key}_lanes{n}_ms"
         extra[k if k not in extra else f"{key}_lanes{n}_again_ms"] = r["ms"]
-    say(tag, f"{card}: {label} by lanes in turn: {lane_line(results)}")
+    say(tag, f"{card}: {label} by lanes in turn: "
+        f"{lane_line(results, per=per)}")
     if picked_as:
         p = next(r for r in results if r["picked"])
         for name, field in (("lanes", "lanes"),
-                            ("sass_per_stage", "sass_per_stage"),
-                            ("shfl_per_stage", "shfl_per_stage"),
+                            (f"sass_per_{per}", f"sass_per_{per}"),
+                            (f"shfl_per_{per}", f"shfl_per_{per}"),
                             ("registers", "regs"), ("stack", "stack")):
             if field in p:
                 extra[picked_as.format(name)] = p[field]
@@ -1876,11 +1909,13 @@ def layout_phase(card: str, runs: dict):
     return a["ms"], p_ms, 0, a["bound"], None, extra
 
 
-def lane_line(results: list, key=lambda r: r["lanes"]) -> str:
+def lane_line(results: list, key=lambda r: r["lanes"],
+              per: str = "stage") -> str:
     """'1: 3.3021 ms (394.5 SASS, 0 SHFL a stage, 40 registers), ...' of
-    ``results`` in their order, the stack where it is not 0."""
-    return ", ".join(f"{key(r)}: {r['ms']:.4f} ms ({r['sass_per_stage']:g} "
-                     f"SASS, {r['shfl_per_stage']:g} SHFL a stage, "
+    ``results`` in their order (SASS and SHFL a ``per``: a stage, or K28's
+    rep), the stack where it is not 0."""
+    return ", ".join(f"{key(r)}: {r['ms']:.4f} ms ({r[f'sass_per_{per}']:g} "
+                     f"SASS, {r[f'shfl_per_{per}']:g} SHFL a {per}, "
                      f"{r['regs']} registers"
                      f"{', stack %d B' % r['stack'] if r['stack'] else ''})"
                      for r in results)
@@ -2453,35 +2488,83 @@ def bench_split_phase(card: str, runs: dict):
                                               plan, runs_pm16(K4, bs.CFG))
 
 
+K23_CHECK_DEC_LENS = (64, 96)    # 128 and 160 stages: tails 2 and 4
+
+
+def lane_pick_line(tag: str, card: str, rows: list, label: str,
+                   extra: dict, key: str) -> None:
+    """Print ``rows``' (one case at each lane count in turn) fastest lane
+    count beside the pick, each with its share of ``r['bound']``, and keep
+    the fastest's lanes in ``extra`` under ``key``."""
+    best = min(rows, key=lambda r: r["ms"])
+    pick = next(r for r in rows if r["picked"])
+    extra[key] = best["lanes"]
+    say(tag, f"{card}: {label}: fastest at {best['lanes']} lanes "
+        f"({best['ms']:.4f} ms, {share(best['bound'], best['ms'])}), the "
+        f"pick {pick['lanes']} ({pick['ms']:.4f} ms, "
+        f"{share(pick['bound'], pick['ms'])})")
+
+
 def staging_cost_phase(card: str, runs: dict):
-    """K23: the roll kernel bit-equal to its plain version over the full
+    """K23: every lane count bit-equal to one plain decode over the full
     grid at the script's shape (32M bits, dec_len 8192: every block of
-    every tile), then `python -m tpu_viterbi_torch.scripts.staging_cost`
-    with the counts set to 0.  Returns K23's row, bound by its body bytes
-    and its ACS."""
+    every tile, the split's clusters and their halo exchange; 8,256
+    stages, a tail of 0 after the split's six-stage passes) and at dec_len
+    64 and 96 (tails of 2 and 4) on 300-block plans, then `python -m
+    tpu_viterbi_torch.scripts.staging_cost` (roll at each lane count in
+    turn with one lane) with the counts set to 0.  Prints K23's lane table
+    (ms, SASS, SHFL and registers a stage), the fastest lane count beside
+    the pick and their shares of the bound (body bytes, int32 ACS).
+    Returns K23's row: roll at the pick beside its plain version; each
+    lane count's times in the extra keys."""
     sc = staging_cost
-    plan, _ = sc.make_plans(sc.N_BITS)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
-    xp = torch.randint(-2 ** 31, 2 ** 31, (sc.need_words(sc.CFG, plan),),
-                       generator=gen, device="cuda",
-                       dtype=torch.int64).to(torch.int32)
-    got = K23(xp, sc.CFG, plan)
+
+    def words(plan):
+        return torch.randint(-2 ** 31, 2 ** 31, (sc.need_words(sc.CFG, plan),),
+                             generator=gen, device="cuda",
+                             dtype=torch.int64).to(torch.int32)
+
+    plan, _ = sc.make_plans(sc.N_BITS)
+    xp = words(plan)
     p_ms, _, want = cuda_ms(lambda: sc.roll_decode_torch(xp, sc.CFG, plan), 1)
-    held("K23 over the full grid", got, want)
+    for n in LANES:
+        held(f"K23 over the full grid at {n} lanes", K23(xp, sc.CFG, plan, n),
+             want)
+    del want
+    for dec_len in K23_CHECK_DEC_LENS:
+        splan = plan_blocks(dec_len * 300 - 32, 32, dec_len)
+        xs = words(splan)
+        ws = sc.roll_decode_torch(xs, sc.CFG, splan)
+        for n in LANES:
+            held(f"K23 at dec_len {dec_len}, {n} lanes",
+                 K23(xs, sc.CFG, splan, n), ws)
     pplan = sc.padded_plan(plan)
-    say("29 staging cost", f"K23 bit-equal to its plain version over "
-        f"{pplan.num_blocks} blocks ({pplan.num_blocks // 128} tiles, the "
-        f"last block of each wrapping) at dec_len {plan.dec_len}")
-    t, counts = probe_run(sc.probe)
+    say("29 staging cost", f"K23 bit-equal to its plain version at lanes "
+        f"{list(LANES)} over {pplan.num_blocks} blocks "
+        f"({pplan.num_blocks // 128} tiles, the last block of each "
+        f"wrapping) at dec_len {plan.dec_len},"
+        f" and over 384 blocks at dec_len "
+        f"{' and '.join(map(str, K23_CHECK_DEC_LENS))}")
+    res, counts = probe_run(sc.probe)
     record(runs, counts, 1, ["K23"], "staging cost")
+    t, rows = res["ms"], res["roll"]
     wpb, _ = words_per_block(sc.CFG, plan)
     bnd = decode_bound(pplan.num_blocks * wpb * 4, sc.CFG, pplan)
+    for r in rows:
+        r["bound"] = bnd
     say("29 staging cost", f"{card}: " + ", ".join(
         f"{v} {t[v]:.4f}" for v in sc.VARIANTS) + f" ms; views - pre "
         f"{t['views'] - t['pre']:.4f}, roll - views "
         f"{t['roll'] - t['views']:.4f} ms; K23 {share(bnd, t['roll'])}")
-    return t["roll"], p_ms, 0, bnd
+    extra = {}
+    lane_turns("29 staging cost", card, rows, extra,
+               f"K23 roll at {pplan.num_blocks} blocks x "
+               f"{pplan.n_packs * 32} stages", "roll", "roll_{}")
+    lane_pick_line("29 staging cost", card, rows, "K23 roll", extra,
+                   "roll_fastest_lanes")
+    return t["roll"], p_ms, 0, bnd, None, extra
 
 
 def soft16_pieces_phase(card: str, runs: dict):
@@ -2748,22 +2831,34 @@ INTERLEAVE_CHECK_REPS = 13          # two passes of 6 and a tail rep
 
 
 def interleave_phase(card: str, runs: dict):
-    """K28: every variant bit-equal to its plain version after
-    INTERLEAVE_CHECK_REPS reps at the JAX shape and the full grid, then
+    """K28: every variant at every lane count it is built for bit-equal to
+    its plain version after INTERLEAVE_CHECK_REPS reps at the JAX shape and
+    the full grid, and after the probe's REPS at the JAX shape, then
     `python -m tpu_viterbi_torch.scripts.interleave_bench` (its check, then
-    both grids) with the counts set to 0, and each run's bound (OPS
-    lane-operations a column-rep).  Returns K28's row: regs at the JAX
-    shape beside its plain version there."""
+    regs, smem and concat at each lane count in turn with one lane at the
+    JAX shape, shfl at its 32, and each at its pick on the full grid) with
+    the counts set to 0, and each run's bound (OPS lane-operations a
+    column-rep).  Prints each split variant by lanes, its fastest lane
+    count beside the pick and their shares.  Returns K28's row: regs at the
+    JAX shape at the pick beside its plain version there; each lane
+    count's times in the extra keys."""
     ib = interleave_bench
-    for tiles in (ib.N_TILES, ib.full_tiles("cuda")):
+    full = ib.full_tiles("cuda")
+    for tiles, check_reps in ((ib.N_TILES, (INTERLEAVE_CHECK_REPS, ib.REPS)),
+                              (full, (INTERLEAVE_CHECK_REPS,))):
         x = ib.probe_input(tiles, "cuda", seed=SEED)
-        for v in ib.VARIANTS:
-            held(f"K28 {v} at {tiles} tiles",
-                 K28(v, x, INTERLEAVE_CHECK_REPS),
-                 ib.interleave_torch(v, x, INTERLEAVE_CHECK_REPS))
+        for reps in check_reps:
+            for v in ib.VARIANTS:
+                want = ib.interleave_torch(v, x, reps)
+                for n in ib.variant_lanes(v):
+                    held(f"K28 {v} at {tiles} tiles, {reps} reps, {n} lanes",
+                         K28(v, x, reps, lanes=n), want)
+        del x
     say("35 interleave", f"K28 bit-equal to its plain version on all "
-        f"{len(ib.VARIANTS)} variants at {ib.N_TILES} and "
-        f"{ib.full_tiles('cuda')} tiles, {INTERLEAVE_CHECK_REPS} reps")
+        f"{len(ib.VARIANTS)} variants ({', '.join(ib.SPLIT)} at lanes "
+        f"{list(LANES)}, shfl at {ib.SHFL_LANES}) at {ib.N_TILES} tiles, "
+        f"{INTERLEAVE_CHECK_REPS} and {ib.REPS} reps, and {full} tiles, "
+        f"{INTERLEAVE_CHECK_REPS} reps")
     res, counts = probe_run(ib.probe)
     if res["correct"] != {v: v != "concat" for v in ib.VARIANTS}:
         raise AssertionError(f"the interleave check: {res['correct']}")
@@ -2773,12 +2868,21 @@ def interleave_phase(card: str, runs: dict):
                            ib.OPS[r["variant"]] * r["columns"] * ib.REPS)
         say("35 interleave", f"{card}: {ib.describe(r)}; "
             f"{share(r['bound'], r['ms'])}")
+    extra = {}
+    jax_shape = [r for r in res["runs"] if r["tiles"] == ib.N_TILES]
+    for v in ib.SPLIT:
+        turns = [r for r in jax_shape if r["variant"] == v]
+        lane_turns("35 interleave", card, turns, extra,
+                   f"{v} at {ib.N_TILES * 128} columns", v, f"{v}_{{}}",
+                   per="rep")
+        lane_pick_line("35 interleave", card, turns, v, extra,
+                       f"{v}_fastest_lanes")
     x = ib.probe_input(ib.N_TILES, "cuda", seed=SEED)
     p_ms = held_to_plain("K28 regs at the JAX shape", K28("regs", x, ib.REPS),
                          lambda: ib.interleave_torch("regs", x, ib.REPS))
-    row = next(r for r in res["runs"] if r["variant"] == "regs" and
-               r["tiles"] == ib.N_TILES)
-    return row["ms"], p_ms, 0, row["bound"]
+    row = next(r for r in jax_shape if r["variant"] == "regs" and
+               r["picked"])
+    return row["ms"], p_ms, 0, row["bound"], None, extra
 
 
 # ---- the multi-rank split (sharding/): K1's and K3's tail halo ----------
@@ -3145,19 +3249,22 @@ def main() -> int:
     # K20: tf, the 3 known answers and log_sqrt, then each rate; K21-K24:
     # one warm-up and PIECE_RUNS timed calls a piece (K21: K6 + 3 K1 pieces
     # a dec_len; K22: K6, K4, K6 + K4, and the kernel piece's staging; K23:
-    # the roll variant; K24: 2 pieces and the BEN call a configuration)
+    # the roll variant at each lane count in turn; K24: 2 pieces and the BEN
+    # call a configuration)
     runs_a_piece = PIECE_RUNS + 1
     want["K20"] = 5 + len(genkernel_probe.ROUNDS_LIST) * len(
         genkernel_probe.REPS_LIST) * (
             genkernel_probe.REPS * genkernel_probe.LAUNCHES_A_SAMPLE + 1)
     want["K21"] = len(bench_profile.DEC_LENS) * 4 * runs_a_piece
     want["K22"] = 4 * runs_a_piece + 1
-    want["K23"] = runs_a_piece
+    want["K23"] = len(TURNS) * runs_a_piece
     want["K24"] = len(soft16_pieces.CONFIGS) * (2 * runs_a_piece + 1)
     # K26: torch + consume, each tiling and the
     # consumer, one warm-up and REPS timed each; K27: the check's 4 decodes,
     # then one warm-up and RUNS timed calls a decoding route; K28: the
-    # check's one launch a variant, then two grids
+    # check's one launch a variant, then the JAX shape (regs, smem and
+    # concat at each lane count in turn, shfl once) and the full grid (each
+    # variant once)
     want["K25"] = (2 * len(soft16_ablation.VARIANTS) + len(
         soft16_ablation.CROSSOVER_PROGRAMS)) * len(LANES) * (
             soft16_ablation.REPS + 1)
@@ -3166,8 +3273,9 @@ def main() -> int:
     want["K27"] = 4 + sum(kind != "staging" for *_, kind in
                           fp32_fused_value_probe.ROUTES) * (
         fp32_fused_value_probe.RUNS + 1)
-    want["K28"] = len(interleave_bench.VARIANTS) * (
-        1 + 2 * (interleave_bench.RUNS + 1))
+    want["K28"] = len(interleave_bench.VARIANTS) + (
+        len(interleave_bench.SPLIT) * len(TURNS) + 1 +
+        len(interleave_bench.VARIANTS)) * (interleave_bench.RUNS + 1)
     rows = [(k.name, str(k.source.relative_to(ROOT))) for k in KERNELS
             if k not in AB_ONLY]
     rows += [(name, str(K1.source.relative_to(ROOT)))

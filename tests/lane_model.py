@@ -376,3 +376,205 @@ def chase_split(rs, lanes: int, shift: bool = True):
         k *= 2
     assert (state == state[0]).all() and (acc == acc[0]).all()
     return np.broadcast_to(wrap32(acc[0] + state[0]), (64, arrays)).copy()
+
+
+# --- K28: the interleave's columns over lanes ---
+
+def k28_src_row(r: int) -> int:
+    """Row r of the merge comes from row src(r) of [E; O]: ror6(r, 1)."""
+    return (r % 2) * 32 + r // 2
+
+
+def k28_one_lane(variant: str, x, reps: int, one: int = 1):
+    """csrc/interleave.cu's thread-a-column kernel in numpy: regs' passes
+    of 6 reps add in place and its last reps % 6 move by src_row; concat
+    only adds; smem stores E and O to the even and odd rows and reads all
+    64 back."""
+    v = np.asarray(x, np.int64)
+    k = 0
+    if variant == "smem":
+        for _ in range(reps):
+            col = np.zeros_like(v)
+            col[0::2], col[1::2] = v[:32], v[32:]
+            v = wrap32(col + one)
+        return v
+    while k + 6 <= reps:
+        v = wrap32(v + 6 * one)
+        k += 6
+    for _ in range(k, reps):
+        src = [k28_src_row(r) if variant == "regs" else r for r in range(64)]
+        v = wrap32(v[src] + one)
+    return v
+
+
+def k28_thread_columns(cols: int, lanes: int):
+    """regs' and concat's split threads: [(column, lane)] of every thread
+    that holds a live column, warp w holding lane w % L of columns
+    32 (w / L) + t."""
+    warps = -(-cols // 32) * lanes
+    g = np.arange(warps * 32)
+    w, t = g // 32, g % 32
+    c, lane = w // lanes * 32 + t, w % lanes
+    live = c < cols
+    return c[live], lane[live]
+
+
+def k28_split_regs(variant: str, x, reps: int, lanes: int, one: int = 1):
+    """regs or concat at ``lanes`` >= 2 lanes a column: thread (c, lane)
+    loads rows lane S .. lane S + S - 1 of column c, adds one a rep in
+    place (nothing moves between threads), and writes position P = lane S
+    + r to row rol6(P, reps % 6) (regs) or P (concat).  Asserts every
+    element is loaded once and written once."""
+    v = np.asarray(x, np.int64)
+    S = 64 // lanes
+    cols = v.shape[1]
+    c, lane = k28_thread_columns(cols, lanes)
+    out = np.full_like(v, -1)
+    written = np.zeros(v.shape, np.int64)
+    loaded = np.zeros(v.shape, np.int64)
+    f = reps % 6 if variant == "regs" else 0
+    for r in range(S):
+        P = lane * S + r
+        loaded[P, c] += 1
+        val = wrap32(v[P, c] + reps * one)
+        rows = np.array([rol6(p, f) for p in P])
+        out[rows, c] = val
+        written[rows, c] += 1
+    assert (loaded == 1).all() and (written == 1).all()
+    return out
+
+
+def k28_smem_word(C: int, cw, m):
+    """csrc/interleave.cu's smem_word: the scratch word of merged row m of
+    the warp's column cw, C columns a warp."""
+    return ((m >> 1) * C + cw) * 2 + (m & 1)
+
+
+def k28_smem_accesses(lanes: int):
+    """smem's shared accesses at ``lanes`` >= 2 lanes, as the kernel makes
+    them, per thread t of a warp (lane t / C, column t % C): [the 64-bit
+    word of store j], [the words of load j of row q, of row q + 32], each
+    an array over t; asserts that they address rows (2q, 2q + 1), q and
+    q + 32 of the thread's column (q = j L + lane)."""
+    C, H = 32 // lanes, 32 // lanes
+    t = np.arange(32)
+    lane, cw = t // C, t % C
+    w = k28_smem_word(C, cw, lane)
+    stores, loads = [], []
+    for j in range(H):
+        q = j * lanes + lane
+        st = 32 * j + t
+        assert (2 * st == k28_smem_word(C, cw, 2 * q)).all()
+        assert (2 * st + 1 == k28_smem_word(C, cw, 2 * q + 1)).all()
+        lo, hi = w + 32 * j, w + 32 * j + 32 * C
+        assert (lo == k28_smem_word(C, cw, q)).all()
+        assert (hi == k28_smem_word(C, cw, q + 32)).all()
+        stores.append(st)
+        loads.append((lo, hi))
+    return stores, loads
+
+
+def k28_split_smem(x, reps: int, lanes: int, one: int = 1):
+    """smem at ``lanes`` >= 2 lanes a column through the accesses of
+    ``k28_smem_accesses``, a warp's scratch a (64 C) word array, the two
+    buffers alternating: thread (lane, cw) holds pairs (E[q], O[q]), q =
+    j L + lane; a rep stores them as 64-bit words and loads rows q and
+    q + 32, plus one.  Columns past the array run with zeros and write
+    nothing."""
+    v = np.asarray(x, np.int64)
+    cols = v.shape[1]
+    C, H = 32 // lanes, 32 // lanes
+    stores, loads = k28_smem_accesses(lanes)
+    t = np.arange(32)
+    lane, cw = t // C, t % C
+    out = np.full_like(v, -1)
+    for c0 in range(0, cols, C):
+        c = c0 + cw
+        live = c < cols
+        cc = np.where(live, c, 0)
+        e = np.stack([np.where(live, v[j * lanes + lane, cc], 0)
+                      for j in range(H)])
+        o = np.stack([np.where(live, v[32 + j * lanes + lane, cc], 0)
+                      for j in range(H)])
+        bufs = [np.full(64 * C, -1, np.int64) for _ in range(2)]
+        for k in range(reps):
+            buf = bufs[k % 2]
+            for j in range(H):
+                buf[2 * stores[j]], buf[2 * stores[j] + 1] = e[j], o[j]
+            for j in range(H):
+                lo, hi = loads[j]
+                e[j], o[j] = wrap32(buf[lo] + one), wrap32(buf[hi] + one)
+        for j in range(H):
+            q = j * lanes + lane
+            out[q[live], c[live]] = e[j][live]
+            out[32 + q[live], c[live]] = o[j][live]
+    return out
+
+
+# --- K23: the roll-halo decode's time-blocks over lanes ---
+
+def k23_neighbour(rank: int, slot: int, cluster: int, slots: int):
+    """(rank, slot) of the time-block whose heads time-block (rank, slot)
+    of a tile's cluster takes as its halo: the next slot of its CUDA
+    block, the last slot the first of the next rank (the tile wraps)."""
+    if slot < slots - 1:
+        return rank, slot + 1
+    return (rank + 1) % cluster, 0
+
+
+def k23_split(xp, wpb: int, wph: int, b_pad: int, n_packs: int,
+              n_conv: int, n_emit: int, lanes: int, cluster: int = 8,
+              slots: int = 16):
+    """K23's lane-split kernel in numpy: (out (b_pad, n_emit) int64, the
+    store (n_packs, 64, b_pad), the phases of the pack ends).  Each CUDA
+    block (a cluster rank of a tile) holds ``slots`` time-blocks; a
+    time-block's heads are its first wph stream words (zero past the end),
+    its halo the heads of ``k23_neighbour``; stage t reads word t / 2, SOFT8
+    fields MSB first; the lanes run ``run_trellis``; each pack's survivors
+    go to rows rol6(P, f); every lane chases from state 0, lane 0 writes."""
+    x = np.asarray(xp, np.int64) & 0xFFFFFFFF
+    n = x.shape[0]
+
+    def word(i):
+        return np.where(i < n, x[np.minimum(i, n - 1)], 0)
+
+    blk = np.arange(b_pad)
+    heads = word(blk[:, None] * wpb + np.arange(wph)[None, :])
+    tile, rank, slot = blk // 128, blk % 128 // slots, blk % slots
+    nbr = np.array([tile[b] * 128 + np.dot(
+        k23_neighbour(rank[b], slot[b], cluster, slots), (slots, 1))
+        for b in blk])
+    words = np.concatenate(
+        [word(blk[:, None] * wpb + np.arange(wpb)[None, :]), heads[nbr]], 1)
+    assert words.shape[1] == n_packs * 16
+    signed = words - ((words >> 31) << 32)
+    fields = [((signed >> sh) & 255 ^ 128) - 128 for sh in (24, 16, 8, 0)]
+    packs = []
+    for p in range(n_packs):
+        stages = []
+        for s in range(32):
+            wi = 16 * p + s // 2
+            a0, a1 = (fields[0], fields[1]) if s % 2 == 0 else \
+                (fields[2], fields[3])
+            stages.append((a0[:, wi] + a1[:, wi], a0[:, wi] - a1[:, wi]))
+        packs.append(stages)
+    store = np.full((n_packs, 64, b_pad), -1, np.int64)
+    phases = []
+
+    def at_pack_end(p, f, pp):
+        phases.append(f)
+        rows = np.array([rol6(q, f) for q in range(64)])
+        assert sorted(rows) == list(range(64))
+        store[p, rows] = pp
+
+    run_trellis(packs, lanes, b_pad, at_pack_end)
+    out = np.zeros((b_pad, n_emit), np.int64)
+    state = np.zeros(b_pad, np.int64)
+    emit_lo = n_packs - n_conv - n_emit
+    for k in range(n_conv + n_emit):
+        kp = n_packs - 1 - k
+        pack = store[kp, state, blk]
+        if k >= n_conv:
+            out[:, kp - emit_lo] = pack
+        state = (pack >> 26) & 63
+    return out, store, phases, nbr

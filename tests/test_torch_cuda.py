@@ -1133,11 +1133,14 @@ def test_k20_matches_plain(gpu, rounds):
     assert res["tf_ok"] and res["known_ok"]
 
 
-@pytest.mark.parametrize("dec_len", [64, 96, 2048, 8192])
+@pytest.mark.parametrize("dec_len", [64, 96, 128, 2048, 8192])
 def test_k23_matches_plain(gpu, dec_len):
     """K23 on random full-range SOFT8 words pre-padded to ``need`` (blocks
-    past the plan decode the stream's words there): bit-equal to the plain
-    roll decode over every block of every tile; one launch."""
+    past the plan decode the stream's words there): at every lane count
+    (the split a cluster a tile, its halo through distributed shared
+    memory) bit-equal to the plain roll decode over every block of every
+    tile, tails of 2, 4 and 0 stages after the split's six-stage passes at
+    dec_len 64, 96 and 128; one launch each."""
     sc = staging_cost
     cfg = sc.CFG
     plan = core_torch.plan_blocks(dec_len * 300 - 32, 32, dec_len)
@@ -1146,13 +1149,14 @@ def test_k23_matches_plain(gpu, dec_len):
     xp = torch.randint(-2 ** 31, 2 ** 31, (sc.need_words(cfg, plan),),
                        generator=gen, device=gpu,
                        dtype=torch.int64).to(torch.int32)
-    before = sc.K23.launches
-    got = sc.K23(xp, cfg, plan)
-    torch.cuda.synchronize()
-    assert sc.K23.launches == before + 1
     want = sc.roll_decode_torch(xp, cfg, plan)
-    assert got.shape == (sc.padded_blocks(plan), dec_len // 32)
-    assert torch.equal(got, want)
+    for lanes in soft16_ablation.LANES:
+        before = sc.K23.launches
+        got = sc.K23(xp, cfg, plan, lanes)
+        torch.cuda.synchronize()
+        assert sc.K23.launches == before + 1
+        assert got.shape == (sc.padded_blocks(plan), dec_len // 32)
+        assert torch.equal(got, want), lanes
 
 
 @pytest.mark.parametrize("mod,argv", [
@@ -1280,19 +1284,24 @@ def test_graph_ms_replays_k26_consume(gpu):
     assert torch.equal(got, tb.consume_torch(t))
 
 
-@pytest.mark.parametrize("reps", [1, 5, 6, 13])
+@pytest.mark.parametrize("reps", range(14))
 @pytest.mark.parametrize("variant", interleave_bench.VARIANTS)
 def test_k28_matches_plain(gpu, variant, reps):
-    """Two tiles and a ragged 200 columns, reps around the shuffle's order
-    6: equal to the plain version; one launch each; the script's check."""
+    """Two tiles and a ragged 200 columns, reps 0-13 (two passes of the
+    shuffle's order 6 and every tail), at every lane count the variant is
+    built for: equal to the plain version; one launch each; the script's
+    check."""
     ib = interleave_bench
+    counts = ib.variant_lanes(variant)
     before = ib.K28.launches
     for x in (ib.probe_input(2, gpu, seed=reps), ib.probe_input(
             2, gpu, seed=reps)[:, :200].contiguous()):
-        assert torch.equal(ib.K28(variant, x, reps),
-                           ib.interleave_torch(variant, x, reps))
+        want = ib.interleave_torch(variant, x, reps)
+        for lanes in counts:
+            assert torch.equal(ib.K28(variant, x, reps, lanes=lanes),
+                               want), lanes
     torch.cuda.synchronize()
-    assert ib.K28.launches == before + 2
+    assert ib.K28.launches == before + 2 * len(counts)
     assert ib.check_correct(variant, gpu) == (variant != "concat")
 
 
@@ -1321,14 +1330,22 @@ def test_last_probe_sass_readings(gpu):
     for n in sa.LANES[1:]:
         assert sa.shfl_count(k18["swar/stage", n][2]) == \
             2 * 32 // n * swar_probe.SPLIT_LOOP_STAGES, n
+    ib = interleave_bench
     for mod, keys in ((sa, list(itertools.product(sa.VARIANTS, sa.LANES))),
-                      (interleave_bench, interleave_bench.VARIANTS),
+                      (ib, [(v, n) for v in ib.VARIANTS
+                            for n in ib.variant_lanes(v)]),
+                      (staging_cost, list(sa.LANES)),
                       (kernel_ablation, list(itertools.product(
                           kernel_ablation.VARIANTS, sa.LANES)))):
         counts = mod.sass_counts()
         assert set(counts) == set(keys)
         for loop, res, mix in counts.values():
             assert loop > 0 and 0 < res["REG"] <= 255
+    for key, (loop, res, mix) in ib.sass_counts().items():
+        assert (sa.shfl_count(mix) > 0) == (key[0] == "shfl"), key
+    for n, (loop, res, mix) in staging_cost.sass_counts().items():
+        assert (sa.shfl_count(mix) > 0) == (n > 1), n
+        assert not any("DIV" in op for op in mix), n
     counts = op_cost_probe.sass_loop_counts()
     assert set(counts) == set(op_cost_probe.VARIANTS)
 

@@ -269,11 +269,12 @@ def test_k13_k19_pick_the_shared_rule(arrays, want):
 
 
 def test_lane_sources_share_one_header():
-    """K13's, K19's, K14's and K16's entries take the lane counts of
-    ``LANES``, through lanes.cuh's dispatch_lanes; K13's lane-split block
-    is ``lane_block``'s; the layout (rol6, bm_bits, lane_acs, the exchange,
-    the x bit, K14's and K16's trellis stage and stage-pair passes) is
-    defined once, in lanes.cuh, which K13, K19, K25, K14 and K16 include."""
+    """K13's, K19's, K14's, K16's, K23's and K28's entries take the lane
+    counts of ``LANES``, through lanes.cuh's dispatch_lanes; K13's
+    lane-split block is ``lane_block``'s; the layout (rol6, bm_bits,
+    lane_acs, the exchange, the x bit, K14's and K16's trellis stage and
+    stage-pair passes) is defined once, in lanes.cuh, which K13, K19, K25,
+    K14, K16, K23 and K28 include."""
     srcs = {p.name: p.read_text() for p in library.CSRC.glob("*.cu*")}
     cases = re.search(r"cudaError_t dispatch_lanes\(int lanes.*?switch "
                       r"\(lanes\) \{(.*?)default", srcs["lanes.cuh"],
@@ -282,10 +283,11 @@ def test_lane_sources_share_one_header():
     assert [n for n, s in srcs.items() if "switch (lanes)" in s] == \
         ["lanes.cuh"]
     for name in ("kernel_ablation.cu", "opt_bench.cu", "acs_variants.cu",
-                 "kernel_microbench.cu"):
+                 "kernel_microbench.cu", "staging_cost.cu", "interleave.cu"):
         assert "viterbi::dispatch_lanes(lanes, " in srcs[name]
     for name in ("kernel_ablation.cu", "opt_bench.cu", "soft16_ablation.cu",
-                 "acs_variants.cu", "kernel_microbench.cu"):
+                 "acs_variants.cu", "kernel_microbench.cu", "staging_cost.cu",
+                 "interleave.cu"):
         assert '#include "lanes.cuh"' in srcs[name]
     for name in ("acs_variants.cu", "kernel_microbench.cu"):
         assert "viterbi::ProbeLane<" in srcs[name]

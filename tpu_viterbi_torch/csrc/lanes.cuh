@@ -1,8 +1,11 @@
 // The lane-split layout of an array's 64 states, shared by K25
 // (soft16_ablation.cu), K13 (kernel_ablation.cu), K19 (opt_bench.cu), K12's
-// layouts A and B (layout_probe.cu), and K14's and K16's trellis variants
+// layouts A and B (layout_probe.cu), K14's and K16's trellis variants
 // (acs_variants.cu, kernel_microbench.cu: lane_probe_stage, ProbeLane and
-// the stage-pair passes below).
+// the stage-pair passes below) and K23's split roll decode
+// (staging_cost.cu); K28's split interleave (interleave.cu) renames its
+// rows in the same rol6 frame.  Every split kernel takes its lane count
+// through dispatch_lanes.
 //
 // An array is split over L lanes of a warp (1, 2, 4, 8, 16 or 32), S = 64 /
 // L positions a lane.  The states move in place: after t stages physical

@@ -1,11 +1,11 @@
 """What the probes' kernels (K11-K28) share: the wrapper that binds a
 kernel's entry point and counts its launches, the lanes an array of the
 kernels that split their arrays over a warp's lanes (K12-K14, K16, K18,
-K19, K25; ``csrc/lanes.cuh``) and the rule that picks them, the timing of
-a launch, the decode-attribution probes' piece timer and attribution block
-(K21-K24), the ACS' branch signs, and what the SASS of the built library
-says of a kernel (its loops' instructions and opcodes, its registers and
-stack frame, a digest of its instructions).
+K19, K23, K25, K28; ``csrc/lanes.cuh``) and the rule that picks them, the
+timing of a launch, the decode-attribution probes' piece timer and
+attribution block (K21-K24), the ACS' branch signs, and what the SASS of
+the built library says of a kernel (its loops' instructions and opcodes,
+its registers and stack frame, a digest of its instructions).
 """
 
 from __future__ import annotations
@@ -47,9 +47,9 @@ TURNS = LANES + (1,)
 
 def lanes_for(arrays: int) -> int:
     """The lanes an array of ``LANES`` that the lane-split probes (K12-K14,
-    K16, K18, K19, K25) run ``arrays`` arrays at: 1 from ONE_LANE_ARRAYS
-    arrays, else the fewest that give ``arrays`` x lanes >= TARGET_THREADS,
-    at most 32 (one warp an array)."""
+    K16, K18, K19, K23, K25, K28) run ``arrays`` arrays at: 1 from
+    ONE_LANE_ARRAYS arrays, else the fewest that give ``arrays`` x lanes >=
+    TARGET_THREADS, at most 32 (one warp an array)."""
     if arrays >= ONE_LANE_ARRAYS:
         return 1
     return next((n for n in LANES[1:] if arrays * n >= TARGET_THREADS),
@@ -140,9 +140,9 @@ class ProbeKernel:
 
 
 class LaneKernel(ProbeKernel):
-    """A probe kernel whose arrays split over ``lanes`` lanes of a warp
-    (K12-K14, K16, K18, K19, K25): ``lane_launches`` counts its launches at
-    each lane count."""
+    """A probe kernel whose arrays split over ``lanes`` lanes (K12-K14,
+    K16, K18, K19, K25; K23's time-blocks, K28's columns):
+    ``lane_launches`` counts its launches at each lane count."""
 
     def __init__(self, *args):
         super().__init__(*args)
@@ -291,21 +291,26 @@ def loop_instructions(sass: str) -> Dict[str, int]:
             for name, s in loop_spans(sass).items()}
 
 
+def innermost_loops(spans: List[Tuple[int, int, int]]
+                    ) -> List[Tuple[int, int, int]]:
+    """The loops of one kernel's ``loop_spans`` that hold no other loop's
+    branch."""
+    return [(t, a, n) for t, a, n in spans
+            if not any((t2, a2) != (t, a) and t <= t2 and a2 <= a
+                       for t2, a2, _ in spans)]
+
+
 def _stage_span(spans: List[Tuple[int, int, int]]) -> Tuple[int, int, int]:
-    """The stage loop of one kernel's loops: the longest innermost loop
-    (one that holds no other loop's branch), so a short traceback loop
-    beside the stage loop, or a pack loop around it, is not taken for
-    it."""
-    inner = [(t, a, n) for t, a, n in spans
-             if not any((t2, a2) != (t, a) and t <= t2 and a2 <= a
-                        for t2, a2, _ in spans)]
-    return max(inner, key=lambda span: span[2])
+    """The stage loop of one kernel's loops: the longest innermost loop, so
+    a short traceback loop beside the stage loop, or a pack loop around
+    it, is not taken for it."""
+    return max(innermost_loops(spans), key=lambda span: span[2])
 
 
-def stage_loop_instructions(sass: str) -> Dict[str, int]:
-    """{mangled kernel name: SASS instructions of its stage loop}
-    (``_stage_span``)."""
-    return {name: _stage_span(spans)[2]
+def stage_loop_instructions(sass: str, choose=_stage_span) -> Dict[str, int]:
+    """{mangled kernel name: SASS instructions of its stage loop}, the loop
+    ``choose`` picks from its ``loop_spans`` (``_stage_span``)."""
+    return {name: choose(spans)[2]
             for name, spans in loop_spans(sass).items()}
 
 
@@ -332,17 +337,32 @@ def kernel_opcodes(sass: str) -> Dict[str, Dict[str, int]]:
     return mixes
 
 
-def stage_loop_opcodes(sass: str) -> Dict[str, Dict[str, int]]:
+def stage_loop_opcodes(sass: str, choose=_stage_span
+                       ) -> Dict[str, Dict[str, int]]:
     """{mangled kernel name: {opcode with its modifiers, e.g.
-    "VIADD.16x2": count}} of the instructions of its stage loop, most
-    frequent first: what ptxas made of each construct."""
+    "VIADD.16x2": count}} of the instructions of its stage loop (as
+    ``stage_loop_instructions``), most frequent first: what ptxas made of
+    each construct."""
+    return _span_opcodes(sass, choose)
+
+
+def loop_opcodes(sass: str) -> Dict[str, Dict[str, int]]:
+    """{mangled kernel name: {opcode with its modifiers: count}} of its
+    shortest loop (the one ``loop_instructions`` counts), most frequent
+    first."""
+    return _span_opcodes(sass, lambda s: min(s, key=lambda span: span[2]))
+
+
+def _span_opcodes(sass: str, choose) -> Dict[str, Dict[str, int]]:
+    """{mangled kernel name: the opcode mix of the loop ``choose`` picks
+    from its ``loop_spans``}."""
     spans = loop_spans(sass)
     pieces = _FUNCTION.split(sass)
     mixes = {}
     for name, body in zip(pieces[1::2], pieces[2::2]):
         if name not in spans:
             continue
-        first, last, _ = _stage_span(spans[name])
+        first, last, _ = choose(spans[name])
         counts = Counter()
         for m in _INSTR.finditer(body):
             if first <= int(m.group(1), 16) <= last:
@@ -416,12 +436,15 @@ def sass_digests(marker: str, lib_path: str = None
     return digests
 
 
-def sass_table(marker: str, parts: Dict[object, Tuple[str, ...]]) -> dict:
+def sass_table(marker: str, parts: Dict[object, Tuple[str, ...]],
+               choose=_stage_span) -> dict:
     """{key: (SASS instructions of its stage loop, {REG, STACK, ...}, its
     stage loop's opcode mix)} of the kernels of the cubin that holds
-    ``marker``, each the one kernel whose name holds all of parts[key]."""
+    ``marker``, each the one kernel whose name holds all of parts[key];
+    ``choose`` picks the stage loop (``stage_loop_instructions``)."""
     sass, res = cubin_listings(marker)
-    loops, mixes = stage_loop_instructions(sass), stage_loop_opcodes(sass)
+    loops = stage_loop_instructions(sass, choose)
+    mixes = stage_loop_opcodes(sass, choose)
     return {key: (pick(loops, *p), pick(res, *p), pick(mixes, *p))
             for key, p in parts.items()}
 

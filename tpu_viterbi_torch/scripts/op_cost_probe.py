@@ -40,7 +40,8 @@ import torch
 
 from .. import hardware
 from ..utils.timing import cuda_ms
-from .common import ProbeKernel, cubin_listings, loop_instructions
+from .common import (ProbeKernel, cubin_listings, loop_instructions,
+                     loop_opcodes)
 
 ROWS, COLS = 32, 128
 UNROLL = 8
@@ -181,6 +182,21 @@ def sass_loop_counts() -> Dict[str, int]:
                                f"listing ({hits})")
         counts[v] = hits[0]
     return counts
+
+
+def sass_loop_mixes() -> Dict[str, Dict[str, int]]:
+    """{variant: the opcode mix of its step loop} (the loop that
+    ``sass_loop_counts`` counts), read from the built library."""
+    mixes = loop_opcodes(cubin_listings("op_cost_kernel")[0])
+    out = {}
+    for i, v in enumerate(VARIANTS):
+        hits = [m for name, m in mixes.items()
+                if "op_cost_kernel" in name and f"ILi{i}E" in name]
+        if len(hits) != 1:
+            raise RuntimeError(f"no single step loop for {v} in the SASS "
+                               f"listing")
+        out[v] = hits[0]
+    return out
 
 
 def run(variant: str, x: torch.Tensor, tiles: int, clock_hz: float,

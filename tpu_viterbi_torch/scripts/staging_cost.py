@@ -14,7 +14,12 @@ Variants, each timed with CUDA events, one warmed launch a sample
   roll    K23 on the stream pre-padded to ``need`` words: bodies from
           device memory, halos from the next block of the 128-block tile
           through shared memory, the tile's last block wrapping to its
-          first (``_kernel_roll``'s pltpu.roll: a timing probe)
+          first (``_kernel_roll``'s pltpu.roll: a timing probe); each
+          block over ``lanes`` threads (``common.LANES``, a tile a cluster
+          of 8 CUDA blocks when split, the halo through distributed shared
+          memory), timed at every lane count in turn with one lane
+          (``common.TURNS``), the pick (``common.lanes_for`` of the
+          blocks) the variant's time
   views   K1 on that pre-padded stream: K1 reads each block's body and
           halo straight from the flat stream, its own zero-copy design
   graphP  K6 + K4 on the pre-padded stream (the JAX no-concat path)
@@ -26,7 +31,9 @@ On the GPU there is no last-block patch and no pad-concat (K6 and K1 read
 zero past a stream's end), so the first two attribution lines measure
 K6 + K4's own differences; the line ``views - pre`` says what reading the
 flat stream costs K1 against pre-staged coalesced words, and ``roll -
-views`` what the shared-memory halo saves.
+views`` what K23 at its pick differs by from K1: the shared-memory halo,
+but also K23's int32 metrics against K1's int16x2 and its lanes against
+K1's one.
 """
 
 from __future__ import annotations
@@ -45,8 +52,9 @@ from ..decoder.core_torch import (BlockPlan, block_major_words,
                                   plan_blocks, traceback_shape,
                                   words_per_block)
 from ..utils.bits import _popcount32
-from .common import (LT, ProbeKernel, print_attribution, stage_tiles,
-                     time_piece)
+from .common import (LANES, LT, TURNS, LaneKernel, innermost_loops,
+                     loop_stages, print_attribution, sass_table, shfl_count,
+                     stage_tiles, time_piece)
 
 N_BITS = 32_000_000
 DEC_LEN = 8192
@@ -114,21 +122,23 @@ def roll_decode_torch(packed: torch.Tensor, cfg: DecoderConfig,
                                padded_plan(plan))
 
 
-class RollKernel(ProbeKernel):
+class RollKernel(LaneKernel):
     """K23, bound to ``viterbi_k23_launch``."""
 
     def __init__(self):
         super().__init__("K23", "viterbi_k23_launch", "staging_cost.cu",
                          [ctypes.c_void_p, ctypes.c_longlong,
                           ctypes.c_void_p, ctypes.c_void_p,
-                          *[ctypes.c_int] * 6])
+                          *[ctypes.c_int] * 7])
 
     def __call__(self, packed: torch.Tensor, cfg: DecoderConfig,
-                 plan: BlockPlan) -> torch.Tensor:
+                 plan: BlockPlan, lanes: int = None) -> torch.Tensor:
         """(b_pad, n_emit) int32 packs (uint32 bit patterns).  On a CUDA
-        tensor one launch on the current stream, not synchronized; on a CPU
-        tensor its plain version."""
+        tensor one launch on the current stream, not synchronized, each
+        block over ``lanes`` lanes (``lanes_for`` the b_pad blocks when
+        None); on a CPU tensor its plain version."""
         _check(packed, cfg, plan)
+        lanes = self.pick_lanes(padded_blocks(plan), lanes)
         if not self.check_device(packed):
             return roll_decode_torch(packed, cfg, plan)
         pplan = padded_plan(plan)
@@ -139,13 +149,34 @@ class RollKernel(ProbeKernel):
                            device=packed.device)
         out = torch.empty((b_pad, n_emit), dtype=torch.int32,
                           device=packed.device)
-        self.launch(packed.device, packed.data_ptr(), packed.numel(),
-                    surv.data_ptr(), out.data_ptr(), b_pad, wpb, wph,
-                    pplan.n_packs, n_conv, n_emit)
+        self.launch_lanes(packed.device, lanes, packed.data_ptr(),
+                          packed.numel(), surv.data_ptr(), out.data_ptr(),
+                          b_pad, wpb, wph, pplan.n_packs, n_conv, n_emit,
+                          lanes)
         return out
 
 
 K23 = RollKernel()
+
+
+def body_pass_loop(spans):
+    """K23's stage loop among a kernel's ``loop_spans``: the first of its
+    longest innermost loops (within a quarter of the longest).  At one lane
+    that is the stage loop; split, the loop of the body's passes, which the
+    loop of the last few passes, those that read the halo, follows."""
+    inner = innermost_loops(spans)
+    most = max(n for _, _, n in inner)
+    return min((span for span in inner if 4 * span[2] >= 3 * most),
+               key=lambda span: span[0])
+
+
+def sass_counts() -> dict:
+    """{lanes: (SASS instructions of K23's stage loop (``body_pass_loop``),
+    {REG, STACK, ...}, the loop's opcode mix)} read from the built
+    library."""
+    return sass_table("viterbi_roll", {
+        n: ("roll_kernel",) if n == 1 else ("roll_lanes_kernel", f"ILi{n}E")
+        for n in LANES}, body_pass_loop)
 
 
 def popcount_sum(out: torch.Tensor) -> torch.Tensor:
@@ -187,14 +218,15 @@ def make_inputs(n: int, device, dec_len: int = DEC_LEN,
 
 
 def variants(inp: dict, cfg: DecoderConfig = CFG) -> dict:
-    """{variant: a call of it on ``inp``} (``make_inputs``)."""
+    """{variant: a call of it on ``inp``} (``make_inputs``); roll's takes
+    K23's lanes (None: the pick)."""
     x, xp, st0 = inp["x"], inp["xp"], inp["st0"]
     plan, plan0 = inp["plan"], inp["plan0"]
     K1, K4 = core_cuda.K1, core_cuda.K4
     stage = core_cuda.stage_words_cuda
     return {
         "pre": lambda: K4(st0, cfg, plan0),
-        "roll": lambda: K23(xp, cfg, plan),
+        "roll": lambda lanes=None: K23(xp, cfg, plan, lanes),
         "views": lambda: K1(xp, cfg, plan),
         "graphP": lambda: K4(stage(xp, cfg, plan), cfg, plan),
         "graph": lambda: K4(stage(x, cfg, plan), cfg, plan),
@@ -206,10 +238,35 @@ def variants(inp: dict, cfg: DecoderConfig = CFG) -> dict:
     }
 
 
+def time_roll(roll, plan: BlockPlan, lanes) -> list:
+    """``roll`` (``variants``' K23 call on the plan's words) at each lane
+    count of ``lanes`` in turn (``time_piece``, one line each, with the
+    SASS and SHFL of its stage loop a stage and its registers): [{lanes,
+    ms, picked, sass_per_stage, shfl_per_stage, regs, stack}]."""
+    sass = sass_counts()
+    pick = K23.pick_lanes(padded_blocks(plan), None)
+    rows = []
+    for n in lanes:
+        loop, res, mix = sass[n]
+        per = loop_stages(n)
+        r = dict(lanes=n, picked=n == pick, sass_per_stage=loop / per,
+                 shfl_per_stage=shfl_count(mix) / per, regs=res.get("REG"),
+                 stack=res.get("STACK"))
+        r["ms"] = time_piece(
+            f"roll {n:2d} lanes{' (pick)' if r['picked'] else ''}",
+            lambda: roll(n), stage_tiles(plan))
+        print(f"{'':28s} SASS {r['sass_per_stage']:g}, SHFL "
+              f"{r['shfl_per_stage']:g} a stage; registers {r['regs']}, "
+              f"stack {r['stack']} B", flush=True)
+        rows.append(r)
+    return rows
+
+
 def probe(n: int = N_BITS, device="cuda") -> dict:
-    """Time every variant at n bits on the card and print the JAX probe's
-    attribution block plus the GPU's two lines; returns {variant: median
-    ms}."""
+    """Time every variant at n bits on the card (roll at each lane count in
+    turn with one lane, ``common.TURNS``, its time the pick's first) and
+    print the JAX probe's attribution block plus the GPU's lines; returns
+    {"ms": {variant: median ms}, "roll": ``time_roll``'s rows}."""
     dev = hardware.resolve_device(device)
     if dev.type != "cuda":
         raise ValueError("the staging-cost probe times kernels on the card")
@@ -219,10 +276,15 @@ def probe(n: int = N_BITS, device="cuda") -> dict:
           f"{plan.overlap_bits}) m0={plan0.message_len} (ov=0) dec_len "
           f"{plan.dec_len}: {plan.num_blocks} blocks, b_pad "
           f"{padded_blocks(plan)}; K1 and K4 {core_cuda.K_THREADS} threads a "
-          f"CUDA block, K23 {LT}", flush=True)
+          f"CUDA block, K23 {LT} at one lane, else a cluster of 8 CUDA "
+          f"blocks a tile", flush=True)
     fns = variants(inp)
-    t = {}
+    t, rows = {}, []
     for v in VARIANTS:
+        if v == "roll":
+            rows = time_roll(fns[v], plan, TURNS)
+            t[v] = next(r for r in rows if r["picked"])["ms"]
+            continue
         zero = v in ("pre", "graph0", "full0")
         t[v] = time_piece(v, fns[v], stage_tiles(plan0 if zero else plan))
     print_attribution([
@@ -236,8 +298,10 @@ def probe(n: int = N_BITS, device="cuda") -> dict:
         ("staging for K1 (views-pre)", t["views"] - t["pre"],
          "   (K1's flat-stream reads against K4 on staged words)"),
         ("roll halo (roll-views)", t["roll"] - t["views"],
-         "   (K23's shared-memory halo against K1's)")])
-    return t
+         f"   (K23 at its pick, {K23.pick_lanes(padded_blocks(plan), None)}"
+         f" lanes and int32 metrics, its halo through shared memory, "
+         f"against K1's flat-stream halo, int16x2 metrics, one lane)")])
+    return {"ms": t, "roll": rows}
 
 
 def main(argv=None) -> int:
