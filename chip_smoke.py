@@ -56,7 +56,14 @@ decode_sharded and the sharded simulation over one rank with nccl, the
 simulation timed in turns with the one-device one; and two worker
 processes sharing the card with gloo (scripts/distributed_worker.py),
 equal to the one rank (they are time-sliced on the card: no time of
-theirs is reported).
+theirs is reported).  Phases 39-42 run the JAX package's decoder checks
+at their sizes (tpu_viterbi_torch/scripts/): ber_deep (22 points of 128M
+bits), ber_deep_tail (9 rows to 30 events, at least 512M bits), each row
+on JAX's survivor plan and one 32M-bit call a tail row held against the
+plain versions (40b), check_gen_ber (K7 against the element chain) and
+fuzz_gpu (36 trials); phase 43 runs --e2e-device at the headline under
+--profile and reads the trace: the device-busy share, the longest idle
+gap and the host's ranges in it.
 
     python3 chip_smoke.py
 
@@ -123,6 +130,8 @@ from tpu_viterbi_torch.scripts import (  # noqa: E402
     kernel_ablation, kernel_microbench, layout_probe, op_cost_probe,
     opt_bench, soft16_ablation, soft16_pieces, staging_cost, swar_probe,
     transpose_bench)
+from tpu_viterbi_torch.scripts import (  # noqa: E402
+    ber_common, ber_deep, ber_deep_tail, check_gen_ber, fuzz_gpu)
 from tpu_viterbi_torch.scripts.common import (  # noqa: E402
     LANES, PIECE_RUNS, TURNS, cubin_listings, describe_mix, kernel_opcodes,
     lanes_for, pick, sass_table)
@@ -132,6 +141,7 @@ from tpu_viterbi_torch.sharding import (  # noqa: E402
     blocks as split_blocks, mesh as split_mesh)
 from tpu_viterbi_torch.sharding.certify import coded_workload  # noqa: E402
 from tpu_viterbi_torch.utils import timing  # noqa: E402
+from tpu_viterbi_torch.utils import profile as trace  # noqa: E402
 from tpu_viterbi_torch.utils.bits import (count_bit_errors,  # noqa: E402
                                           extreme_field_words,
                                           extreme_wire, pack_msb_first)
@@ -988,7 +998,7 @@ def generator_compare_phase():
     worst = {"K7": 0, "K8": 0.0}
     n_cases = 0
     for ch in ChannelIn:
-        kernel = K8 if ch == ChannelIn.FP32 else K7
+        kernel = genkernel.kernel_for(ch)
         scale = DEFAULT_SCALES[ch]
         for n, snr in ((GEN_SMALL, math.inf), (HEADLINE_BITS, math.inf),
                        (GEN_SMALL, 5.5), (GEN_SMALL, 1.125),
@@ -3146,6 +3156,216 @@ def two_rank_phase(card: str, one_rank_out: np.ndarray) -> None:
         f"one-rank stream; census {res[0]['census']}")
 
 
+# --- phases 39-43: the validation scripts (the JAX package's
+# scripts/ber_deep.py, ber_deep_tail.py, check_gen_ber.py, fuzz_tpu.py)
+# at their sizes, and the in-graph headline under --profile
+
+CALL_BITS = ber_common.CALL_BITS
+TURNS_UNTRACED = 20                 # untraced simulate() calls timed
+
+
+def call_kernels(cfg, survivor: str):
+    """(generator, decoder) a simulate() call of ``cfg`` launches."""
+    return (genkernel.kernel_for(cfg.channel_in).name,
+            core_cuda.kernel_for(cfg, survivor == "window").name)
+
+
+def record_calls(runs: dict, counts: dict, calls: Counter, what: str):
+    """record() each kernel of ``calls`` at its number of calls, one
+    launch a call; no other kernel may have launched."""
+    stray = {k: n for k, n in counts.items() if n and k not in calls}
+    if stray:
+        raise AssertionError(f"{what} launched {stray} besides {calls}")
+    for k, n in calls.items():
+        record(runs, counts, n, [k], what)
+        if counts[k] != n:
+            raise AssertionError(f"{what}: {k} launched {counts[k]} times "
+                                 f"in {n} calls")
+
+
+def script_rows(module, argv, tmp: Path):
+    """The script's main(argv + --out) through drive(): (its JSON rows,
+    its launches).  It must exit 0."""
+    out = tmp / f"{module.__name__.rsplit('.', 1)[1]}.json"
+    rc, _, counts = drive(None, lambda: module.main([*argv, "--out",
+                                                     str(out)]))
+    if rc != 0:
+        raise AssertionError(f"{module.__name__} exited {rc}")
+    return json.loads(out.read_text()), counts
+
+
+def ber_deep_phase(card: str, runs: dict, tmp: Path) -> None:
+    """scripts/ber_deep.py at its defaults: 22 points of 4 x 32M bits, each
+    configuration on JAX's survivor plan; BEN falls with the SNR at every
+    point of a configuration."""
+    t0 = time.perf_counter()
+    rows, counts = script_rows(ber_deep, [], tmp)
+    calls, per_point = Counter(), -(-128_000_000 // CALL_BITS)
+    for name, (ch, out, snrs) in ber_deep.CASES.items():
+        cfg = ber_common.config(ch, out)
+        surv = ber_common.jax_survivor(cfg, ber_deep.DEC_LEN)
+        mine = [r for r in rows if r["config"] == name]
+        m = cfg.get_message_len(2 * CALL_BITS)
+        if [r["snr_db"] for r in mine] != list(snrs) or any(
+                r["bits"] != per_point * m or r["survivor"] != surv
+                for r in mine):
+            raise AssertionError(f"ber_deep {name}: rows {mine}")
+        bens = [r["ben"] for r in mine]
+        if not 0 < bens[0] < 2e-3 * mine[0]["bits"] or any(
+                a <= b for a, b in zip(bens, bens[1:])):
+            raise AssertionError(f"ber_deep {name}: BEN {bens} does not "
+                                 f"fall with the SNR {list(snrs)}")
+        for k in call_kernels(cfg, surv):
+            calls[k] += per_point * len(snrs)
+    record_calls(runs, counts, calls, "ber_deep")
+    say("39 ber_deep", f"{card}: {len(rows)} points x {per_point} calls of "
+        f"{CALL_BITS} bits in {time.perf_counter() - t0:.1f} s; " +
+        ", ".join(f"{r['config']}@{r['snr_db']} {r['ben']}" for r in rows) +
+        f"; launches {dict(calls)}")
+
+
+def ber_deep_tail_phase(card: str, runs: dict, tmp: Path) -> None:
+    """scripts/ber_deep_tail.py at its defaults: each of the 9 rows to 30
+    events over at least 512M bits, or to 1.024G bits; the window (K3)
+    where JAX's plan took it."""
+    t0 = time.perf_counter()
+    rows, counts = script_rows(ber_deep_tail, [], tmp)
+    calls = Counter()
+    if [r["config"] for r in rows] != list(ber_deep_tail.CASES):
+        raise AssertionError(f"ber_deep_tail rows {rows}")
+    for r in rows:
+        ch, out, _, _ = ber_deep_tail.CASES[r["config"]]
+        cfg = ber_common.config(ch, out)
+        surv = ber_deep_tail.row_survivor(r["config"])
+        n, rem = divmod(r["bits"], cfg.get_message_len(2 * CALL_BITS))
+        done = (r["ben"] >= ber_deep_tail.TARGET_EVENTS and r["bits"] >=
+                ber_deep_tail.MIN_BITS) or r["bits"] >= 1_024_000_000
+        gen, dec = call_kernels(cfg, surv)
+        if rem or not done or r["survivor"] != surv or \
+                dec not in r["kernels"]:
+            raise AssertionError(f"ber_deep_tail row {r}")
+        calls[gen] += n
+        calls[dec] += n
+    record_calls(runs, counts, calls, "ber_deep_tail")
+    secs = time.perf_counter() - t0
+    say("40 ber_deep_tail", f"{card}: 9 rows in {secs:.1f} s; " + ", ".join(
+        f"{r['config']} {r['ben']}/{r['bits']} [{r['kernels']}]"
+        for r in rows))
+
+
+def tail_kernels_phase(card: str) -> None:
+    """One 32M-bit call of each ber_deep_tail row (its first seed): the
+    simulation's words and BEN (K7/K8 and the row's decode kernel) equal
+    to the plain decode's on the same generated words on the card.  Then
+    the other survivor mode on those words: the window's departures from
+    the full store at this SNR, a measurement (not a check)."""
+    parts = []
+    for name in ber_deep_tail.CASES:
+        r = ber_deep_tail.row_against_plain(name, "cuda")
+        if r.got.shape != r.want.shape or not torch.equal(r.got, r.want) \
+                or r.ben != r.plain_ben:
+            raise AssertionError(
+                f"{name}: the kernels' call (BEN {r.ben}) differs from "
+                f"the plain decode (BEN {r.plain_ben}) on "
+                f"{int((r.got != r.want).sum())} words")
+        other = core_cuda.decode_packed_cuda(r.words, r.cfg, r.plan,
+                                             window=not r.window)
+        m = r.plan.message_len
+        other_ben = int(count_errors(other, r.ref32, r.cfg.bits_per_pack, m))
+        parts.append(f"{name} ({core_cuda.kernel_for(r.cfg, r.window).name})"
+                     f" BEN {r.plain_ben}, "
+                     f"{'full' if r.window else 'window'} {other_ben} "
+                     f"({int((other != r.got).sum())} words differ)")
+    say("40b tail rows vs plain", f"{card}: one {CALL_BITS}-bit call a row, "
+        f"kernels == plain versions (words and BEN); " + "; ".join(parts))
+
+
+def check_gen_ber_phase(card: str, runs: dict, tmp: Path) -> None:
+    """scripts/check_gen_ber.py: K7 against the element chain at 0.0,
+    0.5 and 1.0 dB, 32M bits each; exit 0 means the 25 % rule held."""
+    rows, counts = script_rows(check_gen_ber, [], tmp)
+    if [(r["snr_db"], r["generator"]) for r in rows] != [
+            (s, g) for s in check_gen_ber.SNRS
+            for g in check_gen_ber.GENERATORS]:
+        raise AssertionError(f"check_gen_ber rows {rows}")
+    n = len(check_gen_ber.SNRS)
+    record_calls(runs, counts, Counter({"K7": n, "K1": 2 * n}),
+                 "check_gen_ber")
+    say("41 check_gen_ber", f"{card}: " + ", ".join(
+        f"{r['snr_db']} dB {r['generator']} BEN {r['ben']}" for r in rows) +
+        " (the 25 % rule held where both BERs exceed 1e-4)")
+
+
+def fuzz_phase(card: str, runs: dict) -> None:
+    """scripts/fuzz_gpu.py at its defaults (24 trials from seed 5000, 12
+    window trials): every one bit-equal."""
+    plain, window = fuzz_gpu.seeds()
+    rc, text, counts = drive(None, lambda: fuzz_gpu.main([]))
+    total = len(plain) + len(window)
+    if rc != 0 or f"{total}/{total} trials OK" not in text:
+        raise AssertionError(f"fuzz_gpu: rc {rc}")
+    calls = Counter()
+    for s in plain:
+        calls[core_cuda.kernel_for(fuzz_gpu.trial_case(s)[0], False).name] += 1
+    for s in window:
+        cfg = fuzz_gpu.wtrial_case(s)[0]
+        for w in (False, True):
+            calls[core_cuda.kernel_for(cfg, w).name] += 1
+    record_calls(runs, counts, calls, "fuzz_gpu")
+    say("42 fuzz_gpu", f"{card}: {total}/{total} trials bit-equal (K1/K2 "
+        f"== decode_packed_torch on random words, K3 == the full store on "
+        f"coded streams); launches {dict(calls)}")
+
+
+def profile_phase(card: str, runs: dict, tmp: Path) -> None:
+    """--e2e-device at the headline with -v and --profile: the trace holds
+    K7's and K1's launches (ranges under their names, and their kernels on
+    the device).  Printed: the device-busy share over the whole traced
+    call and over the -v steady-state call (generate .. count), each
+    window's longest idle gap and the host ranges that cover it, the
+    host's synchronize time, the kernels' times.  The profiler slows the
+    host, so the steady call's kernel time is also set against the same
+    call untraced (CUDA events, TURNS_UNTRACED calls)."""
+    d = tmp / "profile"
+    rc, text, counts = drive(["-n", str(HEADLINE_BITS), "-s", "5.5", "-i",
+                              "s8", "--seed", str(SEED), "-v",
+                              "--e2e-device", "--profile", str(d)])
+    files = list(d.glob("*.pt.trace.json"))
+    if rc != 0 or len(files) != 1:
+        raise AssertionError(f"--profile: rc {rc}, traces {files}")
+    record_calls(runs, counts, Counter({"K7": 2, "K1": 2}),
+                 "--e2e-device --profile")
+    whole = trace.summarize(files[0])
+    steady = trace.summarize(files[0], between=("generate", "count"))
+    ann = whole["annotations"]
+    names = {trace.short_name(n) for n in whole["kernel_ms"]}
+    if ann.get("K7") != 2 or ann.get("K1") != 2 or not all(
+            any(n.endswith(k) for n in names)
+            for k in ("::gen_words_kernel", "::viterbi_kernel")):
+        raise AssertionError(f"--profile trace: ranges {ann}, kernels "
+                             f"{sorted(names)}")
+    fn, _ = build_sharded_simulation(HEADLINE, HEADLINE_BITS, snr_db=5.5,
+                                     scale=CLI_SCALE, dec_len=DEC_LEN)
+    untraced, _, _ = cuda_ms(lambda: fn(SEED), TURNS_UNTRACED)
+
+    def line(s):
+        host = ", ".join(f"{n} {ms:.4f}" for n, ms in s["gap_host"][:3])
+        kern = Counter()
+        for n, ms in s["kernel_ms"].items():
+            kern[trace.short_name(n)] += ms
+        return (f"window {s['window_ms']:.4f} ms, device busy "
+                f"{s['busy_ms']:.4f} ms = {100 * s['busy_share']:.2f} %, "
+                f"longest idle gap {s['gap_ms']:.4f} ms at +"
+                f"{s['gap_at_ms']:.4f} ms (host: {host}), host in "
+                f"synchronize {s['sync_ms']:.4f} ms; kernels " + ", ".join(
+                    f"{n} {ms:.4f}" for n, ms in kern.most_common()))
+    say("43 --profile", f"{card}: --e2e-device -n {HEADLINE_BITS} -s 5.5 "
+        f"-i s8 -v --profile: trace {files[0].stat().st_size} bytes, ranges "
+        f"K7 x2, K1 x2; whole call: {line(whole)}; steady call (generate "
+        f".. count): {line(steady)}; the call untraced {untraced:.4f} ms "
+        f"(median of {TURNS_UNTRACED}): its kernels' traced time is "
+        f"{100 * steady['busy_ms'] / untraced:.2f} % of it")
+
 def main() -> int:
     card = device_phase()
     build_phase()
@@ -3212,6 +3432,13 @@ def main() -> int:
     one_rank_out, split_ms = one_rank_split_phase(card, runs)
     times[HALO_ROWS[0]][5].update(split_ms)
     two_rank_phase(card, one_rank_out)
+    with tempfile.TemporaryDirectory() as tmp:
+        ber_deep_phase(card, runs, Path(tmp))
+        ber_deep_tail_phase(card, runs, Path(tmp))
+        tail_kernels_phase(card)
+        check_gen_ber_phase(card, runs, Path(tmp))
+        fuzz_phase(card, runs)
+        profile_phase(card, runs, Path(tmp))
     # launches a call, measured in the main-path runs: where the design
     # fixes it, it must be so (one a decode or a generation; the op-cost
     # ILP and dtype probes' two step counts, the layout, microbenchmark,

@@ -17,7 +17,10 @@ the last probes' kernels K25 (SOFT16 ablation), K26 (transpose and its
 consumer, one launch on reused memory) and K28 (interleave) against
 theirs, and the probes' entry points; K1's and K3's tail halo against
 the plain version and the same kernel on the appended stream, the sharded
-generator's slabs and the split's ranks (in this process) on the card.
+generator's slabs and the split's ranks (in this process) on the card;
+one 32M-bit call of each deep-BER tail row (the kernels' words and BEN
+equal to the plain versions'), the fuzz script's trials, the generator
+BER check, and ``--profile`` (a trace holding K7's and K1's launches).
 Every test here needs a CUDA GPU and skips without one; the
 file imports no jax, so it runs on a machine that has only the port's
 dependencies:
@@ -32,7 +35,8 @@ import numpy as np
 import pytest
 import torch
 
-from tpu_viterbi_torch import ConfigResolutionError, ViterbiGPU, hardware
+from tpu_viterbi_torch import (ConfigResolutionError, ViterbiGPU, cli,
+                               hardware)
 from tpu_viterbi_torch.chain import genkernel
 from tpu_viterbi_torch.chain.encode import conv_encode_np
 from tpu_viterbi_torch.chain.quantize import quantize_and_pack
@@ -50,10 +54,11 @@ from tpu_viterbi_torch.scripts import (acs_variants_bench, bench_profile,
                                        soft16_ablation, soft16_pieces,
                                        staging_cost, swar_probe,
                                        transpose_bench)
+from tpu_viterbi_torch.scripts import ber_deep_tail, check_gen_ber, fuzz_gpu
 from tpu_viterbi_torch.sharding import blocks, simulate
 from tpu_viterbi_torch.sharding.certify import coded_workload
 from tpu_viterbi_torch.sharding.mesh import BlockMesh
-from tpu_viterbi_torch.utils import timing
+from tpu_viterbi_torch.utils import profile, timing
 from tpu_viterbi_torch.utils.bits import extreme_field_words, extreme_wire
 
 pytestmark = pytest.mark.cuda
@@ -1430,3 +1435,51 @@ def test_split_ranks_on_gpu(gpu, cfg):
                                        snr_db=math.inf, dec_len=512,
                                        generator="cuda")
         assert int(s.all_ranks(2)[0]) == 0
+
+
+@pytest.mark.parametrize("name", list(ber_deep_tail.CASES))
+def test_ber_deep_tail_row_kernels_equal_plain_on_gpu(gpu, name):
+    """One 32M-bit call of the row at its first seed, on JAX's survivor
+    plan: the simulation's decoded words and BEN (K7/K8, then K1, K2 or K3)
+    equal the plain decode's of the same generated words on the card."""
+    r = ber_deep_tail.row_against_plain(name, gpu)
+    gen = genkernel.kernel_for(r.cfg.channel_in).name
+    dec = core_cuda.kernel_for(r.cfg, r.window).name
+    assert r.launches == {gen: 1, dec: 1}
+    assert torch.equal(r.got, r.want)
+    assert r.ben == r.plain_ben > 0
+
+
+def test_fuzz_gpu_trials_on_gpu(gpu, capsys):
+    """A few of the fuzz script's trials: K1/K2 equal to the plain core on
+    random words, K3 equal to the full store on coded streams."""
+    before = core_cuda.K3.launches
+    assert fuzz_gpu.run(6, 5000, 4, gpu) == (10, 10)
+    assert core_cuda.K3.launches - before == 4
+    assert all(line.endswith("-> OK")
+               for line in capsys.readouterr().out.splitlines())
+
+
+def test_check_gen_ber_on_gpu(gpu, monkeypatch):
+    """K7 against the element chain at 0 dB, 4M bits: the 25 % rule."""
+    monkeypatch.setattr(check_gen_ber, "SNRS", (0.0,))
+    before = genkernel.K7.launches
+    rows, ok = check_gen_ber.run(gpu, call_bits=4_000_000)
+    assert ok and genkernel.K7.launches == before + 1
+    assert [r["kernels"] for r in rows] == ["K7 x1 + K1 x1", "K1 x1"]
+
+
+def test_profile_trace_holds_k7_and_k1_on_gpu(gpu, tmp_path, capsys):
+    """--e2e-device --profile on the card: the trace holds K7's and K1's
+    launches, as ranges under their names and as device kernels."""
+    d = tmp_path / "trace"
+    assert cli.main(["-n", "1000000", "-s", "5.5", "-i", "s8", "--seed", "7",
+                     "--e2e-device", "--profile", str(d)]) == 0
+    assert capsys.readouterr().out.splitlines()[-1] == \
+        "Final results -> BEN: 0   BER: 0"
+    (path,) = d.glob("*.pt.trace.json")
+    s = profile.summarize(path)
+    assert s["annotations"]["K7"] == s["annotations"]["K1"] == 1
+    names = " ".join(s["kernel_ms"])
+    assert "gen_words_kernel" in names and "viterbi_kernel" in names
+    assert 0 < s["busy_share"] < 1

@@ -257,6 +257,14 @@ def test_port_imports_no_jax():
             "import tpu_viterbi_torch.scripts.transpose_bench\n"
             "import tpu_viterbi_torch.scripts.fp32_fused_value_probe\n"
             "import tpu_viterbi_torch.scripts.interleave_bench\n"
+            "import tpu_viterbi_torch.utils.native\n"
+            "import tpu_viterbi_torch.utils.profile\n"
+            "import tpu_viterbi_torch.scripts.ber_common\n"
+            "import tpu_viterbi_torch.scripts.ber_deep\n"
+            "import tpu_viterbi_torch.scripts.ber_deep_tail\n"
+            "import tpu_viterbi_torch.scripts.check_gen_ber\n"
+            "import tpu_viterbi_torch.scripts.fuzz_gpu\n"
+            "import tpu_viterbi_torch.scripts.ingraph_turns\n"
             "bad = [m for m in sys.modules\n"
             "       if m == 'jax' or m.startswith(('jax.', 'tpu_viterbi.'))\n"
             "       or m == 'tpu_viterbi']\n"

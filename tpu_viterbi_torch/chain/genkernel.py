@@ -40,6 +40,7 @@ from .. import library
 from ..config import CONST_LEN, POLY1, POLY2, ChannelIn
 from ..hardware import resolve_device
 from ..utils.bits import to_int32_bits
+from ..utils.profile import span
 from .channel import snr_to_sigma
 from .quantize import _QUANT_PARAMS
 
@@ -337,7 +338,7 @@ class GenKernel:
         bits[n_bits:].zero_()
         out[count:].zero_()
         noisy = int(bool(sigma))
-        with torch.cuda.device(device):
+        with torch.cuda.device(device), span(self.name):
             stream = torch.cuda.current_stream(device).cuda_stream
             if self.fp32:
                 err = self._fn(bits.data_ptr(), out.data_ptr(), n, base // 2,
@@ -370,6 +371,12 @@ def key_data(seed: int):
     return 0, int(seed) & M32
 
 
+def kernel_for(channel_in: ChannelIn) -> GenKernel:
+    """The kernel that generates ``channel_in``'s stream: K8 for FP32,
+    K7 for the integer channels."""
+    return K8 if channel_in == ChannelIn.FP32 else K7
+
+
 def packed_workload_cuda(seed: int, n: int, channel_in: ChannelIn,
                          snr_db: float, scale: float, device="cuda",
                          base: int = 0, count: int = None, size: int = None):
@@ -386,9 +393,8 @@ def packed_workload_cuda(seed: int, n: int, channel_in: ChannelIn,
     device = resolve_device(device)
     k0, k1 = key_data(seed)
     sigma = 0.0 if math.isinf(snr_db) else snr_to_sigma(snr_db)
-    kernel = K8 if channel_in == ChannelIn.FP32 else K7
-    return kernel(k0, k1, n, channel_in, sigma, scale, base, device, count,
-                  size)
+    return kernel_for(channel_in)(k0, k1, n, channel_in, sigma, scale, base,
+                                  device, count, size)
 
 
 # the JAX kernel's requested rows a program (genkernel.py:61), rounded up

@@ -8,7 +8,8 @@ kept:
     (None for the first element, which generates its own data);
   - ``probe()`` marks an element so its output is captured in the result;
   - ``Pipeline.run`` wall-clocks every element into an "Elapsed run time"
-    status entry and returns (final_output, probed_outputs).
+    status entry (a range under its class name in a ``--profile`` trace)
+    and returns (final_output, probed_outputs).
 CUDA work is launched asynchronously, so each element's output is awaited
 with ``torch.cuda.synchronize`` before its clock stops: its time is billed
 to it, not to its successor.
@@ -21,6 +22,8 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
 import torch
+
+from ..utils.profile import span
 
 
 def _block(x):
@@ -102,7 +105,8 @@ class Pipeline:
         probes: List[Any] = []
         for e in self.elements:
             start = time.perf_counter()
-            cur = _block(e.process(cur))
+            with span(type(e).__name__):
+                cur = _block(e.process(cur))
             e.set_status("Elapsed run time", time.perf_counter() - start)
             if e.is_probed:
                 probes.append(cur)

@@ -18,7 +18,9 @@ decodes its shard, the count is all-reduced) and only rank 0 prints:
         torchrun --nproc-per-node 2 -m tpu_viterbi_torch -n 1000000 \
             -s 5.5 -i s8 --seed 3 --e2e-device -v --device cpu
 
-Profiling is not ported yet.
+--profile DIR writes a torch.profiler trace of the run (the chain, the
+file decodes or --e2e-device) into DIR as a Chrome trace, with the
+kernels' launches under their names (K1 ... K8).
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from .decoder.api import DEFAULT_DEC_LEN, ViterbiGPU
 from .decoder.streaming import StreamingViterbi
 from .hardware import resolve_device
 from .utils.bits import count_bit_errors
+from .utils.profile import ProfileError, Trace
 
 _CHANNEL_NAMES = {"HARD": ChannelIn.HARD, "h": ChannelIn.HARD,
                   "SOFT4": ChannelIn.SOFT4, "s4": ChannelIn.SOFT4,
@@ -134,6 +137,11 @@ def parse_args(argv=None):
                         "(chain/genkernel.py), 'torch' = element chain, "
                         "'auto' = cuda on --device cuda, torch on --device "
                         "cpu")
+    p.add_argument("--profile", metavar="DIR", default=None,
+                   help="write a torch.profiler trace of the run to DIR as "
+                        "a Chrome trace (*.pt.trace.json): CPU activity, "
+                        "and CUDA activity on --device cuda (the "
+                        "reference's -lineinfo/Nsight analog)")
     return p.parse_args(argv)
 
 
@@ -512,20 +520,26 @@ def _main(argv=None) -> int:
         print()
 
     try:
-        if args.decode_file:
-            return run_decode_file(args, cfg)
-        if args.e2e_device:
-            return run_e2e_device(args, cfg)
-        ben, _, _ = run_pipeline(args.num, args.snr, cfg,
-                                 verbose=args.verbose, seed=args.seed,
-                                 dec_len=args.dec_len, backend=args.backend,
-                                 survivor=args.survivor,
-                                 device=args.device,
-                                 emit_file=args.emit_file)
-    except ConfigResolutionError as e:
+        # the trace wraps the same runs as the JAX CLI's (cli.py:470-486)
+        trace = Trace(args.profile, resolve_device(args.device)) \
+            if args.profile else contextlib.nullcontext()
+        with trace:
+            if args.decode_file:
+                return run_decode_file(args, cfg)
+            if args.e2e_device:
+                return run_e2e_device(args, cfg)
+            ben, _, _ = run_pipeline(args.num, args.snr, cfg,
+                                     verbose=args.verbose, seed=args.seed,
+                                     dec_len=args.dec_len,
+                                     backend=args.backend,
+                                     survivor=args.survivor,
+                                     device=args.device,
+                                     emit_file=args.emit_file)
+    except (ConfigResolutionError, ProfileError) as e:
         # flag combinations the resolved backend cannot honor (--backend
-        # or --generator cuda with --device cpu): reference-style error
-        # line; any other error is a real bug and keeps its traceback
+        # or --generator cuda with --device cpu), a trace that cannot be
+        # taken or written: reference-style error line; any other error is
+        # a real bug and keeps its traceback
         print(f"Error: {e}", file=sys.stderr)
         return -1
     ber = ben / args.num

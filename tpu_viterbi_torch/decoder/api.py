@@ -24,6 +24,7 @@ import torch
 
 from ..config import ChannelIn, ConfigResolutionError, DecoderConfig
 from ..hardware import resolve_device
+from ..utils.profile import span
 from .core_cuda import SURVIVORS, kernel_for, resolve_window
 from .core_torch import (BlockPlan, assemble_output, auto_dec_len,
                          decode_blocks_torch, plan_blocks)
@@ -177,18 +178,19 @@ class ViterbiGPU:
         x = self._stage(packed_input, input_num)
         plan = self.plan(input_num)
         decode = self._decoder(input_num)
-        if self.device.type == "cuda":
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            packs = decode(x, cfg, plan)
-            end.record()
-            end.synchronize()
-            seconds = start.elapsed_time(end) / 1e3
-        else:
-            t0 = time.perf_counter()
-            packs = decode(x, cfg, plan)
-            seconds = time.perf_counter() - t0
+        with span("decode"):
+            if self.device.type == "cuda":
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                packs = decode(x, cfg, plan)
+                end.record()
+                end.synchronize()
+                seconds = start.elapsed_time(end) / 1e3
+            else:
+                t0 = time.perf_counter()
+                packs = decode(x, cfg, plan)
+                seconds = time.perf_counter() - t0
         return assemble_output(packs, cfg, plan), seconds
 
     def run(self, packed_input, input_num: int

@@ -56,6 +56,7 @@ import torch
 
 from .. import hardware, library
 from ..config import ChannelIn, ConfigResolutionError, DecoderConfig
+from ..utils.profile import span
 from .core_torch import (BlockPlan, assemble_output, check_tail_halo,
                          clamp_split, decode_blocks_torch, decode_planes_torch,
                          decode_staged_torch, decode_ud_words_torch,
@@ -104,10 +105,11 @@ class CudaKernel:
         return False
 
     def _launch(self, dev: torch.device, *args) -> None:
-        """Launch on the current stream of ``dev`` (no synchronize); raise
-        if the launch was refused."""
+        """Launch on the current stream of ``dev`` (no synchronize), a
+        range under the kernel's name in a trace; raise if the launch was
+        refused."""
         self.build()
-        with torch.cuda.device(dev):
+        with torch.cuda.device(dev), span(self.name):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = self._fn(*args, stream)
         if err != 0:

@@ -38,6 +38,7 @@ from ..decoder.api import ViterbiGPU
 from ..decoder.core_torch import auto_dec_len
 from ..hardware import resolve_device
 from ..utils.bits import _popcount32
+from ..utils.profile import span
 from .blocks import (build_sharded_decoder, sharded_stage_count,
                      zero_copy_align_stages)
 from .mesh import BlockMesh
@@ -265,18 +266,22 @@ def build_sharded_simulation(cfg: DecoderConfig, message_len: int,
     m32 = -(-m // 32) * 32
 
     def simulate(seed: int):
-        if generator == "cuda":
-            packs, words = packed_workload_cuda(
-                seed, message_len, cfg.channel_in, snr_db, scale, device)
-            ref32 = ref_words_from_packs(packs, cfg.extra_l, m32)
-        else:
-            gen = torch.Generator(device=device)
-            gen.manual_seed(seed)
-            bits, words = packed_workload(gen, message_len, cfg.channel_in,
-                                          snr_db, scale)
-            ref32 = _ref_words32(bits, cfg.extra_l, m32)
+        with span("generate"):
+            if generator == "cuda":
+                packs, words = packed_workload_cuda(
+                    seed, message_len, cfg.channel_in, snr_db, scale, device)
+            else:
+                gen = torch.Generator(device=device)
+                gen.manual_seed(seed)
+                bits, words = packed_workload(gen, message_len,
+                                              cfg.channel_in, snr_db, scale)
+        with span("ref"):
+            ref32 = ref_words_from_packs(packs, cfg.extra_l, m32) \
+                if generator == "cuda" else \
+                _ref_words32(bits, cfg.extra_l, m32)
         out, _ = dec.run_on_device(words, input_num)
-        ben = count_errors(out, ref32, cfg.bits_per_pack, m)
+        with span("count"):
+            ben = count_errors(out, ref32, cfg.bits_per_pack, m)
         return (ben, out) if return_output else ben
 
     return simulate, m
