@@ -63,7 +63,14 @@ on JAX's survivor plan and one 32M-bit call a tail row held against the
 plain versions (40b), check_gen_ber (K7 against the element chain) and
 fuzz_gpu (36 trials); phase 43 runs --e2e-device at the headline under
 --profile and reads the trace: the device-busy share, the longest idle
-gap and the host's ranges in it.
+gap and the host's ranges in it.  Phases 44-46 run the multi-rank checks
+through their entry points (tpu_viterbi_torch/scripts/, the ranks started
+by sharding/launch.py): ber_sharded as 8 rank processes sharing the card
+(gloo) at the JAX rows' 12 points, every decode held to the plain
+versions; pod_runbook at one rank with nccl and --probe-smem (its
+linearity step timed) and at two ranks sharing the card (the census,
+linearity modeled); pod_decode_example's 32M-bit message on one and two
+ranks.
 
     python3 chip_smoke.py
 
@@ -84,12 +91,11 @@ import math
 import os
 import re
 import statistics
-import socket
-import subprocess
 import sys
 import tempfile
 import time
 from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -131,14 +137,15 @@ from tpu_viterbi_torch.scripts import (  # noqa: E402
     opt_bench, soft16_ablation, soft16_pieces, staging_cost, swar_probe,
     transpose_bench)
 from tpu_viterbi_torch.scripts import (  # noqa: E402
-    ber_common, ber_deep, ber_deep_tail, check_gen_ber, fuzz_gpu)
+    ber_common, ber_deep, ber_deep_tail, ber_sharded, check_gen_ber,
+    fuzz_gpu, pod_decode_example, pod_runbook)
 from tpu_viterbi_torch.scripts.common import (  # noqa: E402
     LANES, PIECE_RUNS, TURNS, cubin_listings, describe_mix, kernel_opcodes,
     lanes_for, pick, sass_table)
 from tpu_viterbi_torch.sharding.simulate import (  # noqa: E402
     DEFAULT_SCALES, build_sharded_simulation, count_errors)
 from tpu_viterbi_torch.sharding import (  # noqa: E402
-    blocks as split_blocks, mesh as split_mesh)
+    blocks as split_blocks, launch, mesh as split_mesh)
 from tpu_viterbi_torch.sharding.certify import coded_workload  # noqa: E402
 from tpu_viterbi_torch.utils import timing  # noqa: E402
 from tpu_viterbi_torch.utils import profile as trace  # noqa: E402
@@ -283,10 +290,7 @@ def device_phase():
         raise RuntimeError("torch.cuda.is_available() is false: the smoke "
                            "run needs a CUDA GPU and never falls back to "
                            "the CPU")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60).stdout
-    card = smi.strip().splitlines()[0].strip()
+    card = hardware.smi_cards()[0]
     say("1 device", f"{torch.cuda.get_device_name(0)} x "
                     f"{torch.cuda.device_count()}; torch {torch.__version__} "
                     f"CUDA {torch.version.cuda}; nvidia-smi: {card}")
@@ -2173,6 +2177,10 @@ def ilp_phase(card: str, runs: dict):
 
 
 DTYPE_CHECK_STEPS = 256
+# K17's bound: the packed operations one pair a = a + c, a = max(a, c - a)
+# needs (the add, the subtract, the max; ptxas issues 4 on sm_90), where
+# dtype_throughput.OPS_A_PAIR keeps the JAX probe's 2 for its rate
+K17_OPS_A_PAIR = 3
 
 
 def microbench_phase(card: str, runs: dict):
@@ -2204,8 +2212,9 @@ def dtype_phase(card: str, runs: dict):
     each element's tile position, after DTYPE_CHECK_STEPS steps on the
     probe's tile and after 3 steps on values near +-16,000 (the narrow
     types wrap), then `python -m tpu_viterbi_torch.scripts.dtype_throughput`
-    with the counts set to 0, and each run's bound over its slope (packed
-    lane-instructions: two 16-bit or four 8-bit elements each).  Returns
+    with the counts set to 0, and each run's bound over its slope
+    (K17_OPS_A_PAIR packed lane-instructions a pair: two 16-bit or four
+    8-bit elements each).  Returns
     K17's row: int16 at the SM's 2048 threads and DTYPE_CHECK_STEPS steps,
     beside the plain version there (as K15's row)."""
     dt = dtype_throughput
@@ -2234,7 +2243,7 @@ def dtype_phase(card: str, runs: dict):
         lanes = r["blocks"] * r["threads"]
         slope = r["ms_hi"] - r["ms_lo"]
         bnd = bound(0, lanes * (dt.STEPS_HI - dt.STEPS_LO) * dt.UNROLL *
-                    dt.OPS_A_PAIR)
+                    K17_OPS_A_PAIR)
         say("23 dtype", f"{card}: {r['dtype']} {r['occupancy']} "
             f"({r['blocks']} x {r['threads']} x {r['pack']}): slope "
             f"{slope:.4f} ms; {r['element_ops_per_ns']:.1f} element-ops/ns, "
@@ -2246,7 +2255,7 @@ def dtype_phase(card: str, runs: dict):
     p_ms, _, _ = cuda_ms(lambda: dt.dtype_torch("int16", x, steps), 1)
     lanes = blocks * threads
     bnd = bound(x.numel() * 4 + lanes * dt.PACK["int16"] * 4,
-                lanes * steps * dt.UNROLL * dt.OPS_A_PAIR)
+                lanes * steps * dt.UNROLL * K17_OPS_A_PAIR)
     say("23 dtype", f"{card}: int16, full, {steps} steps: median "
         f"{k_ms:.4f} ms, plain {p_ms:.1f} ms; {share(bnd, k_ms)}")
     return k_ms, p_ms, 0, bnd
@@ -3003,12 +3012,6 @@ def tail_halo_phase(card: str, gen):
     return rows
 
 
-def free_port() -> int:
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        return sock.getsockname()[1]
-
-
 def source_packs(bits: np.ndarray, cfg, m: int) -> np.ndarray:
     """The words a decode without error gives: message bits extra_l ..
     extra_l + m packed MSB first, uint32."""
@@ -3026,8 +3029,8 @@ def one_rank_split_phase(card: str, runs: dict):
     just before and read just after.  Then the split's simulate in turns
     with the one-device simulate, CUDA events.  Returns (the 5.5 dB
     decode, the in-graph medians)."""
-    backend = split_mesh.initialize_distributed(f"localhost:{free_port()}",
-                                                1, 0, device="cuda")
+    backend = split_mesh.initialize_distributed(
+        f"localhost:{launch.free_port()}", 1, 0, device="cuda")
     try:
         mesh = split_mesh.make_block_mesh("cuda")
         if (backend, mesh.size, mesh.device.type) != ("nccl", 1, "cuda"):
@@ -3101,43 +3104,31 @@ def one_rank_split_phase(card: str, runs: dict):
 
 
 def two_rank_phase(card: str, one_rank_out: np.ndarray) -> None:
-    """Two ranks sharing the one card (gloo, two worker processes started
-    with subprocess, tpu_viterbi_torch/scripts/distributed_worker.py): the
-    same 32M-bit 5.5 dB message through decode_sharded equal to the
-    one-rank output on the valid prefix, the sharded simulation (BEN 0 at
+    """Two ranks sharing the one card (gloo, two worker processes of
+    tpu_viterbi_torch/scripts/distributed_worker.py started by
+    sharding/launch.spawn_ranks): the same 32M-bit 5.5 dB message through
+    decode_sharded equal to the one-rank output on the valid prefix, the
+    sharded simulation (BEN 0 at
     5.5 dB and without noise, equal to the ranks held in one process),
     each rank's generated slab equal to the one-rank stream.  The two
     processes are time-sliced on the card: their time is no scaling
     number, and none is reported."""
     with tempfile.TemporaryDirectory() as tmp:
-        port = free_port()
-        env = {**os.environ, "LOCAL_WORLD_SIZE": "2"}
-        procs = [subprocess.Popen(
-            [sys.executable, "-m",
-             "tpu_viterbi_torch.scripts.distributed_worker",
-             "--coordinator", f"localhost:{port}", "--num-processes", "2",
-             "--process-id", str(r), "--device", "cuda",
-             "-n", str(HEADLINE_BITS), "-i", "s8", "--dec-len",
-             str(DEC_LEN), "--sigma", repr(SPLIT_SIGMA), "--snr", "5.5",
-             "--seed", str(SEED + 1), "--out-dir", tmp],
-            cwd=ROOT, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True) for r in range(2)]
-        outs = []
-        try:
-            for p in procs:
-                outs.append(p.communicate(timeout=WORKER_WAIT_S)[0])
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait(timeout=60)
-        for r, (p, out) in enumerate(zip(procs, outs)):
-            for line in out.splitlines():
+        results = launch.spawn_ranks(lambda r: [
+            sys.executable, "-m",
+            "tpu_viterbi_torch.scripts.distributed_worker", "--device",
+            "cuda", "-n", str(HEADLINE_BITS), "-i", "s8", "--dec-len",
+            str(DEC_LEN), "--sigma", repr(SPLIT_SIGMA), "--snr", "5.5",
+            "--seed", str(SEED + 1), "--out-dir", tmp], 2, "cuda",
+            WORKER_WAIT_S)
+        for r in results:
+            for line in r.out.splitlines():
                 if line.startswith("DIST_OK"):
-                    print(f"    | rank {r}: {line}")
-            if p.returncode != 0:
-                raise AssertionError(f"worker rank {r} failed (rc "
-                                     f"{p.returncode}):\n{out[-3000:]}")
+                    print(f"    | rank {r.rank}: {line}")
+            if r.rc != 0:
+                raise AssertionError(f"worker rank {r.rank} failed (rc "
+                                     f"{r.rc}):\n{r.out[-3000:]}"
+                                     f"{r.err[-3000:]}")
         res = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
                for r in range(2)]
         got = np.load(Path(tmp) / "rank0_decode.npy")
@@ -3366,6 +3357,186 @@ def profile_phase(card: str, runs: dict, tmp: Path) -> None:
         f"(median of {TURNS_UNTRACED}): its kernels' traced time is "
         f"{100 * steady['busy_ms'] / untraced:.2f} % of it")
 
+
+# --- phases 44-46: the multi-rank checks (the JAX package's
+# scripts/ber_sharded.py and ber_sharded_mp.py, pod_runbook.py and
+# pod_decode_example.py) through their entry points on the card
+
+
+def plain_digests(n: int, snrs) -> list:
+    """The (one-device, split) word digests of each ber_sharded point at
+    ``n`` bits, from the plain versions on the card (ViterbiGPU and
+    decode_all_ranks with backend 'torch', the rows' own words)."""
+    out = []
+    for ch, _, _, _, packed in ber_sharded.workloads(n, snrs):
+        cfg = DecoderConfig(ch)
+        one, _ = ViterbiGPU(cfg, dec_len=ber_sharded.DEC_LEN,
+                            backend="torch").run(packed, 2 * n)
+        split, _ = split_blocks.decode_all_ranks(
+            packed, 2 * n, cfg, ber_sharded.RANKS, "cuda",
+            ber_sharded.DEC_LEN, backend="torch")
+        out.append((ber_sharded.sha(one), ber_sharded.sha(split)))
+    return out
+
+
+def ber_sharded_phase(card: str, runs: dict, tmp: Path) -> None:
+    """scripts/ber_sharded.py as 8 rank processes sharing the card (gloo):
+    the 8 points at 400,000 bits and the _mp script's 4 at 200,000; every
+    row within the 2 % check, each point's one-device and split words
+    bit-equal to the plain version's on the card (``plain_digests``,
+    computed in a thread of this process while the ranks run), each BEN
+    printed beside the JAX run's count (bench/ber_sharded.json)."""
+    t0 = time.perf_counter()
+    recorded = json.loads((ROOT / "bench" / "ber_sharded.json").read_text())
+    sizes = ((400_000, ber_sharded.SNRS), (200_000, ber_sharded.MP_SNRS))
+    parts = []
+    with ThreadPoolExecutor(1) as pool:
+        plain = [pool.submit(plain_digests, n, snrs) for n, snrs in sizes]
+        for (n, snrs), digests in zip(sizes, plain):
+            out = tmp / f"ber_sharded_{n}.json"
+            rc, _, _ = drive(None, lambda: ber_sharded.main([
+                "-n", str(n), "--snrs", ",".join(map(str, snrs)), "--out",
+                str(out)]))
+            rows = json.loads(out.read_text())
+            if rc != 0 or len(rows) != 2 * len(snrs):
+                raise AssertionError(f"ber_sharded -n {n}: rc {rc}, rows "
+                                     f"{rows}")
+            points = [(ch.name, snr) for ch, _ in ber_sharded.CHANNELS
+                      for snr in snrs]
+            for row, (ch, snr), (one, split) in zip(rows, points,
+                                                    digests.result()):
+                if (row["channel"], row["snr_db"], row["devices"],
+                        row["processes"], row["backend"], row["device"],
+                        row["words_single"], row["words_sharded"]) != (
+                        ch, snr, ber_sharded.RANKS, ber_sharded.RANKS,
+                        "gloo", "cuda:0", one, split) or \
+                        not row["within_2pct"]:
+                    raise AssertionError(f"ber_sharded row {row} differs "
+                                         f"from the plain versions on the "
+                                         f"card")
+                record_calls(runs, Counter(row["launches_rank0"]),
+                             Counter({"K1": 2}),
+                             f"ber_sharded {ch} {snr} dB, rank 0")
+                jax = next(r for r in recorded if r["channel"] == ch and
+                           r["snr_db"] == snr and r["bits"] == row["bits"])
+                parts.append(
+                    f"{ch} {snr} dB {row['bits']} bits: one device "
+                    f"{row['ben_single']} [JAX "
+                    f"{round(jax['ber_single'] * jax['bits'])}], split "
+                    f"{row['ben_sharded']} [JAX "
+                    f"{round(jax['ber_sharded'] * jax['sharded_bits'])}]")
+    say("44 ber_sharded", f"{card}: 8 rank processes sharing the card "
+        f"(gloo), {len(parts)} rows in {time.perf_counter() - t0:.1f} s, "
+        f"each one-device and split decode (K1, the split's with its tail "
+        f"halo) bit-equal to the plain versions on the card; BEN " +
+        "; ".join(parts))
+
+
+def runbook_report(argv, tmp: Path, tag: str):
+    """pod_runbook.main(argv + --out) through drive(): (its report, the
+    counts in this process, read_counts()'s).  It must exit 0 with every
+    step passed."""
+    out = tmp / f"runbook_{tag}.json"
+    rc, _, _ = drive(None, lambda: pod_runbook.main([*argv, "--out",
+                                                     str(out)]))
+    counts = read_counts()              # with K1's tail-halo launches
+    report = json.loads(out.read_text())
+    if rc != 0 or not report["ok"] or list(report["steps"]) != [
+            "bringup", "aligned_decode", "collective_census", "linearity"]:
+        raise AssertionError(f"pod_runbook {tag}: rc {rc}, report {report}")
+    return report, counts
+
+
+def pod_runbook_phase(card: str, runs: dict, tmp: Path) -> None:
+    """scripts/pod_runbook.py on the headline (32M bits a rank, dec_len
+    2048): at one rank with nccl in this process, with --probe-smem (K9),
+    every step passed and linearity timed beside K10's canary; then at 2
+    rank processes sharing the card (gloo): the census the expected one,
+    linearity 'modeled'."""
+    report, counts = runbook_report(
+        ["--coordinator", f"localhost:{launch.free_port()}",
+         "--num-processes", "1", "--process-id", "0", "--probe-smem"],
+        tmp, "one")
+    steps = report["steps"]
+    lin = steps["linearity"]
+    if steps["bringup"]["backend"] != "nccl" or "ratio" not in lin or \
+            not steps["aligned_decode"]["aligned"]:
+        raise AssertionError(f"pod_runbook at one rank: {report}")
+    # K1: the aligned decode, then 1 + LINEARITY_RUNS of the split and of
+    # the one-rank decode; K4: the canary's one untimed and CANARY_REPS
+    runs_k1 = 1 + 2 * (pod_runbook.LINEARITY_RUNS + 1)
+    record(runs, counts, runs_k1, ["K1", HALO_ROWS[0]],
+           "pod_runbook, one rank")
+    record(runs, counts, 1, ["K9"], "pod_runbook --probe-smem")
+    record(runs, {"K10": counts["K4"]}, 1, ["K10"], "pod_runbook canary")
+    say("45 pod_runbook", f"{card}: one rank (nccl), --probe-smem: 4 steps "
+        f"PASS; {steps['bringup']['cards']}; probed smem "
+        f"{steps['bringup']['probed_smem_bytes']} bytes; aligned decode of "
+        f"{steps['aligned_decode']['message_bits']} bits BEN "
+        f"{steps['aligned_decode']['ben']}, bit-equal to the plain path; "
+        f"linearity: split {lin['split_ms']} ms, one-rank decode "
+        f"{lin['one_rank_ms']} ms (median of {lin['runs']}), "
+        f"{lin['aggregate_gbps']} Gb/s aggregate, {lin['per_rank_gbps']} a "
+        f"rank, ratio {lin['ratio']}, {lin['cards_for_100gbps']} cards for "
+        f"100 Gb/s; canary {lin['canary_ns']} ns/stage/tile; launches K1 "
+        f"{counts['K1']}, K9 {counts['K9']}, K4 (K10) {counts['K4']}")
+    report, _ = runbook_report(["--ranks", "2"], tmp, "two")
+    steps = report["steps"]
+    if steps["bringup"]["backend"] != "gloo" or \
+            steps["linearity"].get("modeled") is not True or \
+            steps["collective_census"].get("skipped"):
+        raise AssertionError(f"pod_runbook at two ranks: {report}")
+    # rank 0: the aligned decode, the census' decode and simulation
+    record_calls(runs, Counter(report["launches_rank0"]),
+                 Counter({"K1": 3, "K7": 1}), "pod_runbook, two ranks, rank 0")
+    say("45b pod_runbook", f"{card}: 2 rank processes sharing the card "
+        f"(gloo): 4 steps PASS; aligned decode of "
+        f"{steps['aligned_decode']['message_bits']} bits BEN "
+        f"{steps['aligned_decode']['ben']}; census decoder "
+        f"{steps['collective_census']['decoder']}, simulation "
+        f"{steps['collective_census']['simulation']}; linearity modeled; "
+        f"rank 0's launches {report['launches_rank0']}")
+
+
+def pod_decode_example_phase(card: str, runs: dict, tmp: Path) -> None:
+    """scripts/pod_decode_example.py at 32M bits, 5.5 dB, SOFT8 (scale
+    32): in this process at one rank (K7 + K1) and as 2 rank processes
+    sharing the card (gloo; K7 at each rank's offset, K1 with the tail
+    halo), BEN 0 both."""
+    argv = ["-n", str(HEADLINE_BITS), "-s", "5.5", "-i", "s8", "--seed",
+            str(SEED)]
+    out = tmp / "example_one.json"
+    rc, _, counts = drive(None, lambda: pod_decode_example.main(
+        [*argv, "--out", str(out)]))
+    one = json.loads(out.read_text())
+    if rc != 0 or one["ben"] or one["ranks"] != 1:
+        raise AssertionError(f"pod_decode_example at one rank: rc {rc}, "
+                             f"{one}")
+    record_calls(runs, counts, Counter({"K7": 1, "K1": 1}),
+                 "pod_decode_example, one rank")
+    out = tmp / "example_two.json"
+    res = launch.spawn_ranks(lambda r: [
+        sys.executable, "-m", "tpu_viterbi_torch.scripts.pod_decode_example",
+        *argv, "--out", str(out)], 2, "cuda", WORKER_WAIT_S)
+    for line in res[0].out.splitlines():
+        print(f"    | {line}")
+    if launch.failed(res):
+        raise AssertionError(f"pod_decode_example at two ranks failed: "
+                             f"{[(r.rank, r.rc, r.err[-2000:]) for r in res]}")
+    two = json.loads(out.read_text())
+    if two["ben"] or (two["ranks"], two["backend"]) != (2, "gloo"):
+        raise AssertionError(f"pod_decode_example at two ranks: {two}")
+    record_calls(runs, Counter(two["launches_rank0"]),
+                 Counter({"K7": 1, "K1": 1}),
+                 "pod_decode_example, two ranks, rank 0")
+    say("46 pod_decode_example", f"{card}: {one['bits']} bits at 5.5 dB "
+        f"on one rank BEN 0 ({one['seconds'] * 1e3:.1f} ms, the first call "
+        f"with the build), on 2 ranks sharing the card (gloo) BEN 0 over "
+        f"{two['bits']} bits; launches one rank "
+        f"{ {k: n for k, n in counts.items() if n} }, "
+        f"rank 0 of two {two['launches_rank0']}")
+
+
 def main() -> int:
     card = device_phase()
     build_phase()
@@ -3439,6 +3610,9 @@ def main() -> int:
         check_gen_ber_phase(card, runs, Path(tmp))
         fuzz_phase(card, runs)
         profile_phase(card, runs, Path(tmp))
+        ber_sharded_phase(card, runs, Path(tmp))
+        pod_runbook_phase(card, runs, Path(tmp))
+        pod_decode_example_phase(card, runs, Path(tmp))
     # launches a call, measured in the main-path runs: where the design
     # fixes it, it must be so (one a decode or a generation; the op-cost
     # ILP and dtype probes' two step counts, the layout, microbenchmark,

@@ -265,6 +265,10 @@ def test_port_imports_no_jax():
             "import tpu_viterbi_torch.scripts.check_gen_ber\n"
             "import tpu_viterbi_torch.scripts.fuzz_gpu\n"
             "import tpu_viterbi_torch.scripts.ingraph_turns\n"
+            "import tpu_viterbi_torch.sharding.launch\n"
+            "import tpu_viterbi_torch.scripts.ber_sharded\n"
+            "import tpu_viterbi_torch.scripts.pod_runbook\n"
+            "import tpu_viterbi_torch.scripts.pod_decode_example\n"
             "bad = [m for m in sys.modules\n"
             "       if m == 'jax' or m.startswith(('jax.', 'tpu_viterbi.'))\n"
             "       or m == 'tpu_viterbi']\n"

@@ -301,44 +301,61 @@ def world_size() -> int:
     return int(os.environ.get("WORLD_SIZE") or 1)
 
 
-def run_e2e_device(args, cfg: DecoderConfig) -> int:
-    """--e2e-device: the in-graph simulation on one device (--device), or,
-    launched under torchrun (WORLD_SIZE > 1), over every rank's
-    (sharding/mesh.py picks the collective library: nccl when each rank
-    has a card of its own, gloo on the CPU or on a shared card).  Same
-    final output lines as the pipeline path; -v adds the first call's
-    time, the kernel build included, and one steady-state call's, between
-    CUDA events on a GPU."""
+def e2e_simulation(cfg: DecoderConfig, num: int, snr: float, scale: float,
+                   seed=None, dec_len=None, generator: str = "auto",
+                   survivor: str = "auto", device="cuda",
+                   coordinator=None, num_processes=None, process_id=None):
+    """The in-graph simulation of --e2e-device, built and called once:
+    on one device (``device``), or over every rank of the process group
+    when there are ranks to join (WORLD_SIZE > 1, as torchrun sets it, or
+    ``coordinator`` and ``num_processes`` given; sharding/mesh.py picks
+    the collective library: nccl when each rank has a card of its own,
+    gloo on the CPU or on a shared card), every rank drawing rank 0's
+    seed.  ``seed`` None draws one.  -> (BEN of the first call, the
+    simulate function, m, the mesh or None, the seed, the first call's
+    seconds, the kernel build included)."""
     from .sharding.mesh import initialize_distributed, make_block_mesh
     from .sharding.simulate import build_sharded_simulation
 
-    device = resolve_device(args.device)
-    if args.generator == "cuda" and device.type != "cuda":
+    device = resolve_device(device)
+    if generator == "cuda" and device.type != "cuda":
         raise ConfigResolutionError(
-            f"generator='cuda' needs a CUDA device (--device {args.device})")
+            f"generator='cuda' needs a CUDA device (--device {device})")
     mesh = None
-    if world_size() > 1:
-        initialize_distributed(device=device)
+    if world_size() > 1 or (num_processes or 1) > 1:
+        initialize_distributed(coordinator, num_processes, process_id,
+                               device=device)
         mesh = make_block_mesh(device)
         device = mesh.device
-    seed = args.seed if args.seed is not None else \
-        int(np.random.SeedSequence().entropy % (2 ** 31))
+    if seed is None:
+        seed = int(np.random.SeedSequence().entropy % (2 ** 31))
     if mesh is not None:                 # every rank draws rank 0's seed
         seed = int(mesh.broadcast(torch.tensor(seed)))
     t0 = time.perf_counter()
     fn, m = build_sharded_simulation(
-        cfg, args.num, snr_db=args.snr, scale=40000.0,
-        dec_len=args.dec_len or DEFAULT_DEC_LEN, generator=args.generator,
-        survivor=args.survivor, device=device, mesh=mesh)
+        cfg, num, snr_db=snr, scale=scale,
+        dec_len=dec_len or DEFAULT_DEC_LEN, generator=generator,
+        survivor=survivor, device=device, mesh=mesh)
     ben = int(fn(seed))
-    t1 = time.perf_counter()
+    return ben, fn, m, mesh, seed, time.perf_counter() - t0
+
+
+def run_e2e_device(args, cfg: DecoderConfig) -> int:
+    """--e2e-device: the in-graph simulation on one device (--device), or,
+    launched under torchrun (WORLD_SIZE > 1), over every rank's
+    (``e2e_simulation``).  Same final output lines as the pipeline path;
+    -v adds the first call's time, the kernel build included, and one
+    steady-state call's, between CUDA events on a GPU."""
+    ben, fn, m, mesh, seed, first_s = e2e_simulation(
+        cfg, args.num, args.snr, 40000.0, args.seed, args.dec_len,
+        args.generator, args.survivor, args.device)
     if args.verbose:
         over = "1 device(s)" if mesh is None else (
             f"{mesh.size} rank(s) (torch.distributed backend "
             f"{mesh.backend})")
         print(f"\nIn-graph chain over {over}: {m} bits decoded")
-        print(f"  - first call (includes the kernel build): {t1 - t0:.2f} s")
-        if device.type == "cuda":
+        print(f"  - first call (includes the kernel build): {first_s:.2f} s")
+        if resolve_device(args.device).type == "cuda":
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()

@@ -27,6 +27,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
+import subprocess
 import sys
 from typing import Callable, Optional
 
@@ -97,6 +98,17 @@ def _device_kind_cached() -> str:
     if not torch.cuda.is_available():
         return ""
     return torch.cuda.get_device_name(torch.cuda.current_device())
+
+
+def smi_cards() -> list:
+    """Each card's name and power limit, a line each, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them: a
+    card set below its maximum runs slower under load, so every time
+    taken on it is reported beside this."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout
+    return [line.strip() for line in out.splitlines() if line.strip()]
 
 
 def _lookup(table, kind: str):

@@ -16,6 +16,7 @@ import json
 import os
 import time
 
+from .. import hardware
 from ..chain import genkernel
 from ..config import NUM_STATES, ChannelIn, DecodeOut, DecoderConfig
 from ..decoder import core_cuda
@@ -75,11 +76,11 @@ def jax_survivor(cfg: DecoderConfig, dec_len: int) -> str:
     return "window" if full > TPU_VMEM_BUDGET >= ring else "full"
 
 
-KERNELS = genkernel.KERNELS + core_cuda.KERNELS
+KERNELS = genkernel.KERNELS + core_cuda.KERNELS + (hardware.K9,)
 
 
 class Launches:
-    """Counts the launches of K1-K8 from when it is made (or ``reset``)."""
+    """Counts the launches of K1-K9 from when it is made (or ``reset``)."""
 
     def __init__(self):
         self.reset()

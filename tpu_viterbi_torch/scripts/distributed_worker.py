@@ -19,7 +19,9 @@ own), then runs, on a seeded coded workload (``sharding.certify``):
 It prints one line a check, ``DIST_OK <check> ...``, and with ``--out-dir``
 writes ``rank<r>.json`` (the results) and ``rank<r>_decode.npy`` (the
 gathered decode) there.  Run it as one process per rank, started with
-``subprocess`` (never forked after CUDA is initialised):
+``subprocess`` (never forked after CUDA is initialised; without
+``--coordinator`` it reads torchrun's variables, as
+``sharding.launch.spawn_ranks`` sets them):
 
     python -m tpu_viterbi_torch.scripts.distributed_worker \\
         --coordinator localhost:PORT --num-processes 2 --process-id {0,1} \\
@@ -52,9 +54,10 @@ CHANNELS = {"h": ChannelIn.HARD, "s4": ChannelIn.SOFT4, "s8": ChannelIn.SOFT8,
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--coordinator", required=True, help="host:port")
-    p.add_argument("--num-processes", type=int, required=True)
-    p.add_argument("--process-id", type=int, required=True)
+    # without them, torchrun's variables (sharding/launch.py sets them)
+    p.add_argument("--coordinator", default=None, help="host:port")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     p.add_argument("-n", "--num", type=int, default=8 * 2048 + 16)
     p.add_argument("-i", "--input", choices=sorted(CHANNELS), default="s8")
@@ -81,12 +84,11 @@ def check(ok: bool, what: str) -> None:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    backend = initialize_distributed(f"{args.coordinator}",
-                                     args.num_processes, args.process_id,
-                                     device=args.device)
+    backend = initialize_distributed(args.coordinator, args.num_processes,
+                                     args.process_id, device=args.device)
     mesh = make_block_mesh(args.device)
     n_ranks, rank = mesh.size, mesh.rank
-    check(n_ranks == args.num_processes, f"{n_ranks} ranks")
+    check(n_ranks == (args.num_processes or n_ranks), f"{n_ranks} ranks")
     cfg = DecoderConfig(CHANNELS[args.input], decode_out=(
         DecodeOut.O_B16 if args.output == "b16" else DecodeOut.O_B32))
     scale = DEFAULT_SCALES[cfg.channel_in]

@@ -57,8 +57,10 @@ TORCH_DTYPE = dict(int32=torch.int32, fp32=torch.float32,
 PACK = dict(int32=1, fp32=1, bf16=2, fp16=2, int16=2, int8=4)
 OCCUPANCIES = ("tile", "full")
 TILE_THREADS = 128
-# operations a pair, the JAX probe's count (its :71) and the bound's: the
-# add and the max, each one packed lane-instruction of PACK elements
+# operations a pair, the JAX probe's count (its :71), kept for the
+# element-ops rate: the add and the max, each one packed lane-instruction of
+# PACK elements.  The share of bound (chip_smoke.py's dtype phase) counts
+# the 3 packed operations the pair needs: the add, the subtract, the max
 OPS_A_PAIR = 2
 MAX_THREADS = 256
 
