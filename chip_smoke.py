@@ -70,7 +70,13 @@ by sharding/launch.py): ber_sharded as 8 rank processes sharing the card
 versions; pod_runbook at one rank with nccl and --probe-smem (its
 linearity step timed) and at two ranks sharing the card (the census,
 linearity modeled); pod_decode_example's 32M-bit message on one and two
-ranks.
+ranks.  Phases 47-49 run the timing sweeps' ``run`` at the JAX tables
+(tpu_viterbi_torch/scripts/): every channel format at every candidate
+dec_len at 32M bits (K1, K2 on FP32, on K7's and K8's words), dec_len
+against small message sizes (queued and replayed from a CUDA graph), and
+the scaling curve to 128M bits at JAX's auto_dec_len and at 2048; each
+row's first call held to the plain decode (BEN 0 at 64M and 128M), a row
+a line.
 
     python3 chip_smoke.py
 
@@ -109,6 +115,8 @@ sys.path.insert(0, str(ROOT))
 import torch  # noqa: E402
 
 from tpu_viterbi_torch import ViterbiGPU, cli, hardware, library  # noqa: E402
+from tpu_viterbi_torch.hardware import (  # noqa: E402
+    ACS_OPS, bound_ms as bound)
 from tpu_viterbi_torch.chain import (AddNoise, ConvolutionalEncoder,  # noqa: E402
                                      RandBitGen, SoftDecisionPacker,
                                      genkernel, snr_to_sigma,
@@ -121,6 +129,8 @@ from tpu_viterbi_torch.chain.quantize import quantize_and_pack  # noqa: E402
 from tpu_viterbi_torch.config import (ChannelIn, DecodeOut,  # noqa: E402
                                       DecoderConfig)
 from tpu_viterbi_torch.decoder import core_cuda  # noqa: E402
+from tpu_viterbi_torch.decoder.core_cuda import (  # noqa: E402
+    decode_bound_ms as decode_bound, runs_pm16)
 from tpu_viterbi_torch.decoder.core_torch import (  # noqa: E402
     PM16_MAX_ABS_BM, assemble_output, clamp_split, decode_blocks,
     decode_blocks_i16_torch, decode_blocks_torch, decode_packed_torch,
@@ -128,8 +138,7 @@ from tpu_viterbi_torch.decoder.core_torch import (  # noqa: E402
     decode_staged_torch,
     decode_ud_words_torch, fp32_ud_words_torch, gather_blocks,
     needs_int32_renorm, plan_blocks, pm16_bound, pm16_input,
-    stage_transpose, stage_words,
-    traceback_shape, words_per_block)
+    stage_transpose, stage_words, words_per_block)
 from tpu_viterbi_torch.scripts import (  # noqa: E402
     acs_variants_bench, bench_profile, bench_split, dtype_throughput,
     fp32_fused_value_probe, genkernel_probe, ilp_probe, interleave_bench,
@@ -139,6 +148,8 @@ from tpu_viterbi_torch.scripts import (  # noqa: E402
 from tpu_viterbi_torch.scripts import (  # noqa: E402
     ber_common, ber_deep, ber_deep_tail, ber_sharded, check_gen_ber,
     fuzz_gpu, pod_decode_example, pod_runbook)
+from tpu_viterbi_torch.scripts import (  # noqa: E402
+    channel_throughput, scaling_curve, small_msg_sweep)
 from tpu_viterbi_torch.scripts.common import (  # noqa: E402
     LANES, PIECE_RUNS, TURNS, cubin_listings, describe_mix, kernel_opcodes,
     lanes_for, pick, sass_table)
@@ -218,58 +229,14 @@ REPLACES = {"K1": "tpu_viterbi/decoder/core_pallas.py:638",
 HALO_ROWS = ("K1 tail_halo", "K3 tail_halo")
 CLI_SCALE = 40000.0                 # the CLI's channel scale (main.cpp:137)
 
-# Bounds: the least time the card could take for a kernel's work, the
-# larger of its bytes over the memory rate and its operations over the
-# issue rate (132 SMs x 4 schedulers x 32 lanes x the peak SM clock; not the
-# 64 INT32 lanes an SM, which IMAD-class work on the FMA pipe can beat),
-# with the special-function work of Box-Muller (log, sqrt, sin, cos) over
-# the SFU rate, 16 an SM a clock.  Published H100 SXM peaks (NVIDIA's data
-# sheet) at the card's full power limit of 700 W.
-PEAK_BYTES_PER_S = 3.35e12
-SFU_PER_SM_CLOCK = 16
-ACS_OPS = 256           # a block-stage: 64 states x (2 adds, 1 max, 1 select)
-# the same at int16x2 (acs.cuh's acs_stage16): the 128 adds and 64 maxima
-# two to a lane-instruction (VIADD.16x2, VIMNMX.S16x2), the 64 selects one
-ACS_OPS16 = 160
+# the generator's bound (gen_bound): its operations and special-function
+# work; every other bound is hardware.bound_ms's and
+# core_cuda.decode_bound_ms's
 THREEFRY_OPS = 49       # threefry2x32-13: 13 x (add, rotl, xor), 5 x 2 key adds
 BOX_MULLER_SFU = 4      # log, sqrt, sin, cos per normal pair
 
 
 T0 = time.perf_counter()
-
-
-def bound(nbytes: float, ops: float = 0.0, sfu: float = 0.0):
-    """(least ms, "bytes" or "operations") for work that moves ``nbytes``
-    (each input read once, each output written once) and issues ``ops``
-    lane-instructions and ``sfu`` special-function lane-ops on this card."""
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    clock = hardware.sm_clock_hz()
-    t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = max(ops / (sms * 4 * 32 * clock),
-                sfu / (sms * SFU_PER_SM_CLOCK * clock))
-    return max(t_bytes, t_ops) * 1e3, \
-        ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def runs_pm16(kernel, cfg) -> bool:
-    """Whether ``kernel`` decodes ``cfg`` on int16x2 path metrics: K1, K2
-    and K3 on every channel but SOFT16, K4 on HARD, SOFT4 and SOFT8 (not
-    on SOFT16, nor on the FP32 channel's unclamped f32 values), K5
-    always."""
-    ch = cfg.channel_in
-    return (kernel in (K1, K2, K3) and ch != ChannelIn.SOFT16) or (
-        kernel is K4 and ch not in (ChannelIn.SOFT16, ChannelIn.FP32)) or \
-        kernel is K5
-
-
-def decode_bound(in_bytes: int, cfg, plan, pm16: bool = False):
-    """A decode's bound: its input and its (B, n_emit) int32 packs, the
-    ACS of every stage of every block, int16x2 where ``pm16`` (the full
-    store is an intermediate and not counted)."""
-    n_emit = traceback_shape(cfg, plan)[1]
-    return bound(in_bytes + plan.num_blocks * n_emit * 4,
-                 (ACS_OPS16 if pm16 else ACS_OPS) * plan.num_blocks *
-                 plan.block_len)
 
 
 def gen_bound(n: int, bits, out):
@@ -3537,6 +3504,104 @@ def pod_decode_example_phase(card: str, runs: dict, tmp: Path) -> None:
         f"rank 0 of two {two['launches_rank0']}")
 
 
+def sweep_phase(tag: str, card: str, runs: dict, module, gen_calls: Counter):
+    """A timing sweep's ``run`` at its full table on the card, each row said
+    on one line beside the card, the counts set to 0 just before and read
+    just after: each decode call launched its row's kernel once, and the
+    generator launched ``gen_calls``.  -> (rows, launches, seconds)."""
+    t0 = time.perf_counter()
+    reset_counts()
+    rows = module.run(device="cuda",
+                      log=lambda msg: say(tag, f"{card}: {msg}"))
+    counts = read_counts()
+    calls = Counter(gen_calls)
+    for r in rows:
+        calls[r["kernel"]] += r["calls"]
+    record_calls(runs, counts, calls, module.__name__.rsplit(".", 1)[1])
+    return rows, dict(calls), time.perf_counter() - t0
+
+
+def fastest(rows: list) -> dict:
+    """{message_len: the dec_len of its row marked ``fastest``}."""
+    return {r["message_len"]: r["dec_len"] for r in rows if r["fastest"]}
+
+
+def channel_phase(card: str, runs: dict) -> None:
+    """scripts/channel_throughput.py at the JAX workload (32M bits, 5.5 dB,
+    seeds 7-12): every format at every candidate dec_len of the JAX
+    script, each row's first call equal to the plain decode and its BER
+    at most 1e-2 (run raises otherwise), JAX's pick where the TPU's VMEM
+    put it, every row timed."""
+    ct = channel_throughput
+    tag = "47 channel_throughput"
+    gen = Counter(genkernel.kernel_for(ChannelIn[name]).name
+                  for name in ct.CHANNELS for _ in range(ct.N_INPUTS))
+    rows, calls, secs = sweep_phase(tag, card, runs, ct, gen)
+    want = [(name, dl) for name in ct.CHANNELS
+            for dl in ct.candidates(DecoderConfig(ChannelIn[name]))]
+    picks = {r["channel"]: r["dec_len"] for r in rows if r["jax_pick"]}
+    if [(r["channel"], r["dec_len"]) for r in rows] != want or picks != {
+            "HARD": 8192, "SOFT4": 8192, "SOFT8": 8192, "SOFT16": 4096,
+            "FP32": 2048} or any(r["kernel_seconds"] is None for r in rows):
+        raise AssertionError(f"channel_throughput rows {rows}")
+    best = {c: min((r for r in rows if r["channel"] == c),
+                   key=lambda r: r["kernel_seconds"]) for c in ct.CHANNELS}
+    pick_ms = {r["channel"]: r["kernel_seconds"] * 1e3 for r in rows
+               if r["jax_pick"]}
+    say(tag, f"{card}: {len(rows)} rows in {secs:.1f} s, each first call "
+        f"== the plain decode, BER <= {ct.MAX_BER}; fastest dec_len a "
+        f"format " + ", ".join(
+            f"{c} {r['dec_len']} ({r['kernel_seconds'] * 1e3:.4f} ms; "
+            f"JAX's pick {picks[c]} {pick_ms[c]:.4f} ms)"
+            for c, r in best.items()) + f"; launches {calls}")
+
+
+def small_msg_phase(card: str, runs: dict) -> None:
+    """scripts/small_msg_sweep.py at the JAX table and the card's short
+    blocks: every row's first call equal to the plain decode (run raises
+    otherwise), timed queued and, to 4M bits, replayed from a graph, which
+    must capture on every such row (the kernels launch on the current
+    stream); one fastest row a size."""
+    sm = small_msg_sweep
+    tag = "48 small_msg_sweep"
+    rows, calls, secs = sweep_phase(tag, card, runs, sm, Counter())
+    want = [(m, plan_blocks(m, 32, dl).dec_len, c)
+            for m, dl, c in sm.row_table()]
+    if [(r["message_len"], r["dec_len"], r["card_only"]) for r in rows] != \
+            want or sum(r["fastest"] for r in rows) != len(sm.SIZES) + 1 \
+            or any(r["message_len"] <= 4_000_000 and not r["graph_seconds"]
+                   for r in rows):
+        raise AssertionError(f"small_msg_sweep rows {rows}")
+    say(tag, f"{card}: {len(rows)} rows in {secs:.1f} s, each first call "
+        f"== the plain decode, every row to 4M bits replayed from a graph; "
+        f"fastest dec_len a size (graph time to 4M bits, queued above) "
+        f"{fastest(rows)}; non-positive slopes "
+        f"{sum(bool(r.get('slope_nonpositive')) for r in rows)}; "
+        f"launches {calls}")
+
+
+def scaling_phase(card: str, runs: dict) -> None:
+    """scripts/scaling_curve.py at the JAX sizes, 99,968 to 128M bits, at
+    JAX's auto_dec_len and at 2048: every row's first call equal to the
+    plain decode to 32M bits, BEN 0 on K7's 5.5-dB words at 64M and 128M
+    (run raises otherwise)."""
+    sc = scaling_curve
+    tag = "49 scaling_curve"
+    big = sum(m > sc.PLAIN_MAX_BITS for m, _, _ in sc.row_table())
+    rows, calls, secs = sweep_phase(tag, card, runs, sc,
+                                    Counter({"K7": big}))
+    if [(r["message_len"], r["dec_len_policy"], r["dec_len"]) for r in
+            rows] != sc.row_table() or sum(
+                r.get("ben_at_5p5dB") == 0 for r in rows) != big or \
+            any(r["message_len"] <= 4_000_000 and not r["graph_seconds"]
+                for r in rows):
+        raise AssertionError(f"scaling_curve rows {rows}")
+    say(tag, f"{card}: {len(rows)} rows in {secs:.1f} s, each first call "
+        f"== the plain decode to {sc.PLAIN_MAX_BITS} bits, BEN 0 at 5.5 dB "
+        f"above; fastest dec_len a size (graph time to 4M bits, queued "
+        f"above) {fastest(rows)}; launches {calls}")
+
+
 def main() -> int:
     card = device_phase()
     build_phase()
@@ -3613,6 +3678,9 @@ def main() -> int:
         ber_sharded_phase(card, runs, Path(tmp))
         pod_runbook_phase(card, runs, Path(tmp))
         pod_decode_example_phase(card, runs, Path(tmp))
+    channel_phase(card, runs)
+    small_msg_phase(card, runs)
+    scaling_phase(card, runs)
     # launches a call, measured in the main-path runs: where the design
     # fixes it, it must be so (one a decode or a generation; the op-cost
     # ILP and dtype probes' two step counts, the layout, microbenchmark,

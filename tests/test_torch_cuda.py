@@ -20,7 +20,8 @@ the plain version and the same kernel on the appended stream, the sharded
 generator's slabs and the split's ranks (in this process) on the card;
 one 32M-bit call of each deep-BER tail row (the kernels' words and BEN
 equal to the plain versions'), the fuzz script's trials, the generator
-BER check, and ``--profile`` (a trace holding K7's and K1's launches).
+BER check, ``--profile`` (a trace holding K7's and K1's launches), and
+the timing sweeps' rows at small sizes.
 Every test here needs a CUDA GPU and skips without one; the
 file imports no jax, so it runs on a machine that has only the port's
 dependencies:
@@ -55,6 +56,8 @@ from tpu_viterbi_torch.scripts import (acs_variants_bench, bench_profile,
                                        staging_cost, swar_probe,
                                        transpose_bench)
 from tpu_viterbi_torch.scripts import ber_deep_tail, check_gen_ber, fuzz_gpu
+from tpu_viterbi_torch.scripts import (channel_throughput, scaling_curve,
+                                       small_msg_sweep)
 from tpu_viterbi_torch.sharding import blocks, simulate
 from tpu_viterbi_torch.sharding.certify import coded_workload
 from tpu_viterbi_torch.sharding.mesh import BlockMesh
@@ -1483,3 +1486,66 @@ def test_profile_trace_holds_k7_and_k1_on_gpu(gpu, tmp_path, capsys):
     names = " ".join(s["kernel_ms"])
     assert "gen_words_kernel" in names and "viterbi_kernel" in names
     assert 0 < s["busy_share"] < 1
+
+
+# --- the timing sweeps -------------------------------------------------------
+
+def _launches():
+    return {k.name: k.launches for k in (core_cuda.K1, core_cuda.K2,
+                                         genkernel.K7, genkernel.K8)}
+
+
+def _launched(before):
+    torch.cuda.synchronize()
+    return {k: n - before[k] for k, n in _launches().items()
+            if n > before[k]}
+
+
+def test_channel_throughput_rows_on_gpu(gpu):
+    """Every format at every candidate dec_len at 100,000 bits: each first
+    call equal to the plain decode, every row timed, a decode call one
+    launch of K1 (K2 on FP32), six workloads a format from K7 (K8)."""
+    before = _launches()
+    rows = channel_throughput.run(100_000, gpu, log=lambda msg: None)
+    assert [r["channel"] for r in rows] == [
+        c for c in channel_throughput.CHANNELS for _ in range(4)]
+    assert sum(r["jax_pick"] for r in rows) == 5
+    assert all(r["kernel_seconds"] > 0 and r["decode_check_seconds"] > 0
+               and 0 < r["share_of_bound"] < 1 for r in rows)
+    n = channel_throughput.N_INPUTS
+    assert _launched(before) == {
+        "K1": sum(r["calls"] for r in rows if r["kernel"] == "K1"),
+        "K2": sum(r["calls"] for r in rows if r["kernel"] == "K2"),
+        "K7": 4 * n, "K8": n}
+
+
+def test_small_msg_sweep_rows_on_gpu(gpu):
+    """99,968 bits at JAX's candidates and the card's short blocks:
+    queued times, a graph capture and replay on every row, one fastest
+    row (by graph time), a launch a decode call."""
+    before = _launches()
+    rows = small_msg_sweep.run(99_968, gpu, log=lambda msg: None)
+    assert [(r["dec_len"], r["card_only"]) for r in rows] == [
+        (8192, False), (4096, False), (2048, False), (1024, False),
+        (512, False), (800, False), (256, True), (128, True), (64, True)]
+    assert all(r["decode_seconds"] or r["slope_nonpositive"] for r in rows)
+    assert all(r["graph_seconds"] > 0 and "graph_error" not in r
+               for r in rows)
+    best = [r for r in rows if r["fastest"]]
+    assert len(best) == 1 and best[0]["graph_seconds"] == min(
+        r["graph_seconds"] for r in rows)
+    assert _launched(before) == {"K1": sum(r["calls"] for r in rows)}
+
+
+def test_scaling_curve_rows_on_gpu(gpu):
+    """Two sizes at both policies; queued_s on the card."""
+    before = _launches()
+    rows = scaling_curve.run(249_984, gpu, log=lambda msg: None)
+    assert [(r["message_len"], r["dec_len_policy"], r["dec_len"])
+            for r in rows] == scaling_curve.row_table([99_968, 249_984])
+    assert all(r["decode_seconds"] > 0 and r["graph_seconds"] > 0
+               for r in rows)
+    assert sum(r["fastest"] for r in rows) == 2
+    assert _launched(before) == {"K1": sum(r["calls"] for r in rows)}
+    xs = [torch.full((1 << 20,), i, device=gpu) for i in range(4)]
+    assert timing.queued_s(lambda x: x * 2, xs, 16) > 0

@@ -32,7 +32,7 @@ import numpy as np
 import pytest
 import torch
 
-from tpu_viterbi_torch import library
+from tpu_viterbi_torch import hardware, library
 from tpu_viterbi_torch.scripts import acs_variants_bench as av
 from tpu_viterbi_torch.scripts import kernel_microbench as km
 from tpu_viterbi_torch.scripts import sass_compare
@@ -241,12 +241,11 @@ def test_k14_k16_sources_launch_every_lane_count():
 
 def test_k14_k16_construct_ops_count_64_states():
     """CONSTRUCT_OPS counts each variant's own 64-state stage as
-    chip_smoke's ACS_OPS counts K1's (2 candidate adds, a max with its
+    hardware.ACS_OPS counts K1's (2 candidate adds, a max with its
     decision, a survivor update a state; no_acs 2 adds a state; the chase
     its OPS), at or above the function's OPS (what the row's bound
     counts)."""
-    smoke = (library.CSRC.parents[1] / "chip_smoke.py").read_text()
-    acs_ops = int(re.search(r"^ACS_OPS = (\d+)", smoke, re.M).group(1))
+    acs_ops = hardware.ACS_OPS
     assert acs_ops == 64 * (2 + 1 + 1)
     for mod in (av, km):
         assert set(mod.CONSTRUCT_OPS) == set(mod.VARIANTS)

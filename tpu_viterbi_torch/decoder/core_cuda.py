@@ -378,6 +378,32 @@ def kernel_for(cfg: DecoderConfig, window: bool) -> StreamKernel:
     return K2 if cfg.channel_in == ChannelIn.FP32 else K1
 
 
+def runs_pm16(kernel, cfg: DecoderConfig) -> bool:
+    """Whether ``kernel`` (a kernel wrapper) decodes ``cfg`` on int16x2
+    path metrics: K1, K2 and K3 on every channel but SOFT16, K4 on HARD,
+    SOFT4 and SOFT8 (not on SOFT16, nor on the FP32 channel's unclamped
+    f32 values), K5 always.  The int32 instances K1_I32, K2_I32 and
+    K3_I32 never."""
+    name = kernel.name
+    ch = cfg.channel_in
+    return (name in ("K1", "K2", "K3") and ch != ChannelIn.SOFT16) or (
+        name == "K4" and ch not in (ChannelIn.SOFT16, ChannelIn.FP32)) or \
+        name == "K5"
+
+
+def decode_bound_ms(in_bytes: int, cfg: DecoderConfig, plan: BlockPlan,
+                    pm16: bool = False):
+    """A decode's bound (``hardware.bound_ms``): its input and its
+    (B, n_emit) int32 packs, the ACS of every stage of every block,
+    int16x2 where ``pm16`` (the full store is an intermediate and not
+    counted)."""
+    n_emit = traceback_shape(cfg, plan)[1]
+    return hardware.bound_ms(
+        in_bytes + plan.num_blocks * n_emit * 4,
+        (hardware.ACS_OPS16 if pm16 else hardware.ACS_OPS) *
+        plan.num_blocks * plan.block_len)
+
+
 def ring_bytes(cfg: DecoderConfig) -> int:
     """Dynamic shared memory of the window kernels' survivor ring for one
     CUDA block: survivor_window_slots(cfg) slots x 64 states x K_THREADS

@@ -285,6 +285,36 @@ def sm_clock_hz(device=None) -> float:
     return 1e3 * _attribute(device, ATTR_CLOCK_RATE)
 
 
+# Bounds: the least time the card could take for a kernel's work, the
+# larger of its bytes over the memory rate and its operations over the
+# issue rate (SMs x 4 schedulers x 32 lanes x the peak SM clock; not the
+# 64 INT32 lanes an SM, which IMAD-class work on the FMA pipe can beat),
+# with special-function work (Box-Muller's log, sqrt, sin, cos) over the
+# SFU rate, 16 an SM a clock.  Published H100 SXM peaks (NVIDIA's data
+# sheet) at the card's full power limit of 700 W.
+PEAK_BYTES_PER_S = 3.35e12
+SFU_PER_SM_CLOCK = 16
+ACS_OPS = 256           # a block-stage: 64 states x (2 adds, 1 max, 1 select)
+# the same at int16x2 (acs.cuh's acs_stage16): the 128 adds and 64 maxima
+# two to a lane-instruction (VIADD.16x2, VIMNMX.S16x2), the 64 selects one
+ACS_OPS16 = 160
+
+
+def bound_ms(nbytes: float, ops: float = 0.0, sfu: float = 0.0):
+    """(least ms, "bytes" or "operations") for work that moves ``nbytes``
+    (each input read once, each output written once) and issues ``ops``
+    lane-instructions and ``sfu`` special-function lane-ops on the current
+    CUDA device."""
+    sms = torch.cuda.get_device_properties(
+        torch.cuda.current_device()).multi_processor_count
+    clock = sm_clock_hz()
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = max(ops / (sms * 4 * 32 * clock),
+                sfu / (sms * SFU_PER_SM_CLOCK * clock))
+    return max(t_bytes, t_ops) * 1e3, \
+        ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def main() -> int:
     """Print the device kind, the table's budget and the probed budget
     (``python -m tpu_viterbi_torch.hardware``, as JAX's :158-163)."""

@@ -61,7 +61,7 @@ VARIANTS = ("full", "pp_noshuf", "eo", "decbits", "bit_tb")
 # and the sum's add.
 OPS = dict(full=5, pp_noshuf=5, eo=69, decbits=7, bit_tb=5)
 # lane-operations an array-stage of each variant's own construct, its 64
-# states' update as the TPU probe writes it (chip_smoke.ACS_OPS' count: a
+# states' update as the TPU probe writes it (hardware.ACS_OPS' count: a
 # state's 2 candidate adds, its max with the decision, its survivor
 # update), for the construct's issue bound beside the function's: what the
 # variant would take if nothing were folded.  The chase is OPS' own.  No

@@ -48,7 +48,7 @@ HEADLINE_TILES = 124    # K25's: 15,872 arrays
 REPS = 5
 VARIANTS = ("body", "+unpack", "+dump", "+traceback", "+tb(bisect)")
 TRACEBACKS = ("+traceback", "+tb(bisect)")
-# lane-operations an array-stage, for the bound: the ACS (chip_smoke.ACS_OPS)
+# lane-operations an array-stage, for the bound: the ACS (hardware.ACS_OPS)
 # and, with the unpack, its two field extracts, an add and a subtract
 OPS = {"body": 256, "+unpack": 260, "+dump": 260, "+traceback": 260,
        "+tb(bisect)": 260}

@@ -62,7 +62,7 @@ VARIANTS = ("no_acs", "concat", "no_pp", "bcast", "pltpu_repeat")
 # the equality for bcast and no_pp only.
 OPS = dict(no_acs=3, concat=5, no_pp=5, bcast=5, pltpu_repeat=5)
 # lane-operations an array-stage of each variant's own construct, its 64
-# states' update as the variant defines it (chip_smoke.ACS_OPS' count: a
+# states' update as the variant defines it (hardware.ACS_OPS' count: a
 # state's 2 candidate adds, its max with the decision, its survivor
 # update; no_pp's survivor an add, no_acs' 2 adds a state), for the
 # construct's issue bound beside the function's: what the variant would

@@ -54,7 +54,7 @@ ARRAYS_A_THREAD = dict(real=1, dual=2, lanes=1)
 SPLIT = ("real", "dual")            # the variants split over LANES
 C_LANES = 32                        # C: one warp an array
 # lane-operations an array-stage, for the bound: the ACS' 2 adds, max and
-# select a state (chip_smoke.ACS_OPS); C adds the exchange of pm and pp a
+# select a state (hardware.ACS_OPS); C adds the exchange of pm and pp a
 # state (a shuffle each, or a register swap)
 OPS = dict(real=256, dual=256, lanes=384)
 KERNEL = dict(real="layout_real_kernel", dual="layout_dual_kernel",

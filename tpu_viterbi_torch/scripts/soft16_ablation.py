@@ -53,7 +53,7 @@ WPP = {"s8/noup": 16, "s16/noup": 32, "s8/unpack": 16, "s16/unpack": 32}
 # s16/unpack at every lane count at these programs too: 4,096, 6,144, 8,192,
 # 10,240 and 12,288 arrays, between the two counts
 CROSSOVER_PROGRAMS = (32, 48, 64, 80, 96)
-# lane-operations an array-stage, for the bound: the ACS (chip_smoke.ACS_OPS)
+# lane-operations an array-stage, for the bound: the ACS (hardware.ACS_OPS)
 # and, with the unpack, its two field extracts, an add and a subtract
 OPS = {"s8/noup": 256, "s16/noup": 256, "s8/unpack": 260, "s16/unpack": 260}
 

@@ -56,7 +56,7 @@ ROWS_IN = {"baseline": 160, "swar/stage": 128, "swar/4stages": 128}
 REPACK = {"baseline": 1, "swar/stage": 1, "swar/4stages": 4}
 SPLIT_LOOP_STAGES = 4               # the lane-split kernels' stage loop
 # lane-operations an array-stage, for the bound, a predecessor pair q each,
-# counted as chip_smoke's ACS_OPS counts K1's stage (an add a candidate,
+# counted as hardware.ACS_OPS counts K1's stage (an add a candidate,
 # one max that also gives its decision, a select a survivor): baseline 10
 # on Hopper, 4 adds, 2 maxima with their decisions (__vibmax_s32 gives
 # max(a, b) and a >= b in one instruction), 2 survivor selects, the low

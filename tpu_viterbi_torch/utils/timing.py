@@ -5,12 +5,15 @@ The JAX package timed by the slope between k and 1 repetitions inside one
 jitted graph, each on a fresh input, because its TPU sat behind a relay
 that added ~30 ms a call and memoized identical calls (its :1-9).  Here two
 CUDA events around the launches read the device's own clock, so one
-warmed launch is one sample: no slope and no fresh inputs.  Every timing
-here needs a CUDA device and raises without one.
+warmed launch is one sample: no slope and no fresh inputs.  The sweeps
+keep JAX's slope only for K calls queued back to back (``queued_s``),
+beside their replay from a CUDA graph (``graph_ms``).  Every timing here
+needs a CUDA device and raises without one.
 """
 
 from __future__ import annotations
 
+import math
 import statistics
 from typing import Callable
 
@@ -62,6 +65,12 @@ def ab_ms(fa: Callable, fb: Callable, runs: int):
     return ma, mb, ta, tb, out_a, out_b
 
 
+class GraphCaptureError(RuntimeError):
+    """``graph_ms`` could not capture the calls into a CUDA graph: a
+    launch off the current stream, a synchronizing or allocating call
+    that capture refuses.  A fault at replay is not one."""
+
+
 def graph_ms(fn: Callable, calls: int, runs: int):
     """Device time of one call of fn without the host's share: ``calls``
     calls captured into one CUDA graph, one untimed replay, then the
@@ -69,15 +78,59 @@ def graph_ms(fn: Callable, calls: int, runs: int):
     all ms a call, the last call's result).  A single event-timed launch
     of a microsecond kernel reads the host's dispatch; this reads the
     card's own launch and run.  The calls run on the capture stream and
-    their wrappers count each launch once, at capture."""
+    their wrappers count each launch once, at capture.  A RuntimeError
+    while capturing raises GraphCaptureError; one at replay, itself."""
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            out = fn()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(calls):
+                out = fn()
+    except RuntimeError as e:
+        raise GraphCaptureError(f"capture failed: {e}") from e
     graph.replay()
     ms, all_ms, _ = cuda_ms(graph.replay, runs)
     return ms / calls, [t / calls for t in all_ms], out
+
+
+def queued_s(call: Callable, inputs, k: int, reps: int = 3) -> float:
+    """Seconds a call of ``call`` from the slope of queued calls: the
+    counterpart of the JAX scripts' ``amplified_slope``
+    (scripts/timing_util.py:15).  After one untimed call, each of ``reps``
+    rounds times 1 and then ``k`` calls queued between two CUDA events on
+    the current stream, no synchronize between them, call j of round r on
+    ``inputs[(r + 1 + j) % len(inputs)]``, so consecutive calls read
+    different words; returns (min t_k - min t_1) / (k - 1), not clamped
+    (callers flag a slope <= 0, as JAX's do).
+
+    The slope cancels the events' and the first launch's fixed cost, as
+    JAX's cancelled its relay's dispatch floor; it keeps the host's
+    launch of each call, so where the host launches a call more slowly
+    than the card runs it, the card waits and the slope reads the host
+    (``graph_ms`` reads the card's own time).  A CPU tensor raises: there
+    is no device clock to read."""
+    x = inputs[0]
+    if not isinstance(x, torch.Tensor) or x.device.type != "cuda":
+        raise ValueError(f"queued_s times CUDA launches and takes CUDA "
+                         f"tensors, got "
+                         f"{getattr(x, 'device', type(x).__name__)}")
+    if k < 2:
+        raise ValueError(f"queued_s needs k >= 2 calls, got {k}")
+    n = len(inputs)
+    with torch.cuda.device(x.device):
+        call(x)
+        best = {}
+        for r in range(reps):
+            for kk in (1, k):
+                s = torch.cuda.Event(enable_timing=True)
+                e = torch.cuda.Event(enable_timing=True)
+                s.record()
+                for j in range(kk):
+                    call(inputs[(r + 1 + j) % n])
+                e.record()
+                e.synchronize()
+                best[kk] = min(best.get(kk, math.inf), s.elapsed_time(e))
+    return (best[k] - best[1]) / (k - 1) / 1e3
 
 
 def time_in_graph(fn: Callable, x: torch.Tensor, runs: int = 5) -> float:
