@@ -46,9 +46,14 @@ holds K7 and K8 against
 K7_OLD/K8_OLD, the first design's draws (every thread drawing its window's
 two bit packs; kept for that A/B, never launched by a main path), and
 times them in turns at the headline with the threefry calls each design
-draws by its count, the SASS a pair and the registers; phase 33 checks
-that K26's consumer is
-one launch and writes its output.  Phases 36-38 drive the multi-rank split
+draws by its count, the SASS a pair and the registers; phase 26 reads
+K20's many by queued launches and by CUDA-graph replay, its loop's SASS
+by pipe, and prices K7's and K8's draws at the graph rate; phase 33
+holds K26's tilings on the bulk route (the JAX shape, its SASS free of
+word loads and of stores under 16 bytes) and the element route, reads
+each tiling, x.t().contiguous() and copy_ one call at a time and by graph
+replay, and checks that K26's consumer is one launch and writes its
+output.  Phases 36-38 drive the multi-rank split
 (tpu_viterbi_torch/sharding/): K1 and K3 reading a tail halo, held against
 their plain version and themselves on the appended stream and timed at
 the one-rank split's shape (the rows "K1 tail_halo" and "K3 tail_halo");
@@ -152,7 +157,7 @@ from tpu_viterbi_torch.scripts import (  # noqa: E402
     channel_throughput, scaling_curve, small_msg_sweep)
 from tpu_viterbi_torch.scripts.common import (  # noqa: E402
     LANES, PIECE_RUNS, TURNS, cubin_listings, describe_mix, kernel_opcodes,
-    lanes_for, pick, sass_table)
+    lanes_for, loop_opcodes, pick, sass_digests, sass_table)
 from tpu_viterbi_torch.sharding.simulate import (  # noqa: E402
     DEFAULT_SCALES, build_sharded_simulation, count_errors)
 from tpu_viterbi_torch.sharding import (  # noqa: E402
@@ -2337,7 +2342,10 @@ def genkernel_probe_phase(card: str, runs: dict):
     versions over the full JAX grid (64 x 256 x 128 counter pairs, reps 4
     and 8), log_sqrt within 2 ulp of the larger term of torch's, then
     `python -m tpu_viterbi_torch.scripts.genkernel_probe` with the counts
-    set to 0.  Returns K20's row: many at 20 rounds, reps 8."""
+    set to 0: every (rounds, reps) queued and replayed from a CUDA graph,
+    K7's and K8's draws priced at the 13-round graph rate, and the SASS
+    digests of K7's and K8's kernels.  Returns K20's row: many at 20
+    rounds, reps 8, queued, with the graph readings beside it."""
     gp = genkernel_probe
     c = gp.many_input("cuda")
     t = gp.tf_input("cuda")
@@ -2364,28 +2372,64 @@ def genkernel_probe_phase(card: str, runs: dict):
         r["bound"] = bound(3 * n * 4, n * r["reps"] * (
             gp.threefry_ops(r["rounds"]) + gp.MANY_OPS))
         say("26 genkernel probe", f"{card}: many at {r['rounds']} rounds, "
-            f"reps {r['reps']}: best {r['best_ms']:.4f} ms, median "
-            f"{r['ms']:.4f} = {r['calls_per_ns']:.1f} threefry calls/ns; "
-            f"{share(r['bound'], r['ms'])}")
+            f"reps {r['reps']}: queued best {r['best_ms']:.4f} ms, median "
+            f"{r['ms']:.4f} = {r['calls_per_ns']:.1f} threefry calls/ns "
+            f"({share(r['bound'], r['ms'])}); replayed from a graph of "
+            f"{gp.GRAPH_CALLS} {r['graph_ms']:.4f} ms = "
+            f"{r['graph_calls_per_ns']:.1f} calls/ns "
+            f"({share(r['bound'], r['graph_ms'])})")
+    # a threefry call in SASS: many's shortest loop is its remainder loop,
+    # one call a pass (the call, the counter add, the XORs, the loop's own)
+    loops = loop_opcodes(cubin_listings("viterbi_gen_probe")[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    pipes = []
+    for rounds in gp.ROUNDS_LIST:
+        mix = pick(loops, f"many_kernelILi{rounds}E")
+        alu = pipe_classes(mix)["alu"]
+        fma = sum(k for op, k in mix.items() if op.startswith("IMAD"))
+        r4 = next(r for r in res["rates"] if r["rounds"] == rounds
+                  and r["reps"] == min(gp.REPS_LIST))
+        floor = r4["calls"] * alu / (sms * INT_ALU_PER_SM_CLOCK *
+                                     hardware.sm_clock_hz()) * 1e3
+        pipes.append(f"{rounds} rounds {sum(mix.values())} SASS a call "
+                     f"(threefry_ops {gp.threefry_ops(rounds)} + "
+                     f"{gp.MANY_OPS} and the loop's): integer-ALU pipe {alu}, "
+                     f"IMAD {fma}, other {sum(mix.values()) - alu - fma} "
+                     f"({describe_mix(mix, 6)}); the ALU pipe's floor at "
+                     f"reps {r4['reps']} {floor:.4f} ms, "
+                     f"{floor / r4['graph_ms']:.0%} of the graph time")
+    say("26 genkernel probe", f"{card}: many's loop: {'; '.join(pipes)}")
     k13 = next(r for r in res["rates"] if r["rounds"] == GEN_ROUNDS_K7
                and r["reps"] == max(gp.REPS_LIST))
-    rate = k13["calls_per_ns"] * 1e6            # calls a ms
+    rate = k13["graph_calls_per_ns"] * 1e6      # calls a ms, card's clock
+    queued = k13["calls_per_ns"] * 1e6
     drawn = []
     for ch in ChannelIn:
         new, old = (genkernel.threefry_calls(HEADLINE_BITS, ch, shared=d)
                     for d in (True, False))
         drawn.append(f"{'K8' if ch == ChannelIn.FP32 else 'K7'} {ch.name} "
-                     f"{new} = {new / rate:.4f} ms (first design {old} = "
-                     f"{old / rate:.4f} ms)")
+                     f"{new} = {new / rate:.4f} ms [{new / queued:.4f}] "
+                     f"(first design {old} = {old / rate:.4f} ms)")
     say("26 genkernel probe", f"{card}: threefry-{GEN_ROUNDS_K7} calls each "
         f"generator design draws at the {HEADLINE_BITS}-bit headline, by the "
-        f"designs' count (genkernel.threefry_calls), and their ms at this "
-        f"measured rate: {'; '.join(drawn)}")
+        f"designs' count (genkernel.threefry_calls), and their ms at the "
+        f"graph-replayed rate of many at reps {k13['reps']} [at the queued "
+        f"rate]: {'; '.join(drawn)}")
+    digests = sass_digests("gen_words_kernel")
+    say("26 genkernel probe", f"K7's and K8's SASS, {len(digests)} kernels "
+        f"(instructions, digest, registers, stack): " + "; ".join(
+            f"{k} {v}" for k, v in sorted(digests.items())))
     row = next(r for r in res["rates"] if r["rounds"] == gp.ROUNDS
                and r["reps"] == max(gp.REPS_LIST))
     p_ms, _, _ = cuda_ms(lambda: gp.many_torch(c, *gp.MANY_KEY, row["reps"],
                                                row["rounds"]), 1)
-    return row["ms"], p_ms, 0, row["bound"]
+    return row["ms"], p_ms, 0, row["bound"], None, {
+        "graph_ms": row["graph_ms"],
+        "rates": [{"rounds": r["rounds"], "reps": r["reps"],
+                   "queued_ms": r["ms"], "graph_ms": r["graph_ms"],
+                   "bound_ms": r["bound"][0]} for r in res["rates"]],
+        "k7_soft8_draw_graph_ms": genkernel.threefry_calls(
+            HEADLINE_BITS, ChannelIn.SOFT8, shared=True) / rate}
 
 
 DECODE_CHECK_BITS = 2_000_000     # the decode probes' reduced checks
@@ -2708,18 +2752,58 @@ def soft16_ablation_phase(card: str, runs: dict):
 GRAPH_CALLS = 100                   # calls a CUDA graph replays (graph_ms)
 
 
+def bulk_sass() -> dict:
+    """{kernel: its global-memory opcodes and counts} of K26's bulk-route
+    kernels; raises if one loads a word from global memory itself or
+    stores less than 16 bytes, or issues no bulk copy."""
+    sass, _ = cubin_listings("viterbi_transpose")
+    mem = {}
+    for name, mix in kernel_opcodes(sass).items():
+        if "bulk_" not in name:
+            continue
+        ops = {op: k for op, k in mix.items()
+               if op.startswith(("LDG", "STG", "UBLKCP", "UTMA", "SYNCS"))}
+        bad = [op for op in ops if op.startswith("LDG") or (
+            op.startswith("STG") and ".128" not in op)]
+        if bad or not any(op.startswith("UBLKCP") for op in ops):
+            raise AssertionError(f"K26 {name}: global accesses {ops}")
+        mem[name] = ops
+    if len(mem) != 3:
+        raise AssertionError(f"K26's bulk kernels: {sorted(mem)}")
+    return mem
+
+
 def transpose_phase(card: str, runs: dict):
     """K26: every tiling's transpose of the JAX shape (15,744 x 1,056
-    int32) bit-equal to x.t(), the consumer on its output to its plain
-    version, then `python -m tpu_viterbi_torch.scripts.transpose_bench`
-    with the counts set to 0.  Returns K26's row: the 32x32 tiling (K6's
-    tile) beside transpose_torch, bound by its bytes, with
-    x.t().contiguous() as the library call."""
+    int32, the bulk route) and of a shape one row and one column short (the
+    element route) bit-equal to x.t(), each launch counted on its route; the
+    bulk kernels' SASS (no global load, 16-byte stores only, bulk copies);
+    the consumer on its output to its plain version, then `python -m
+    tpu_viterbi_torch.scripts.transpose_bench` with the counts set to 0
+    (each tiling, x.t().contiguous() and copy_ one call at a time and
+    replayed from a CUDA graph).  Returns K26's row: the 32x32 tiling
+    (K6's tile) beside transpose_torch, bound by its bytes, with
+    x.t().contiguous() as the library call, and the graph readings."""
     tb = transpose_bench
     x = tb.probe_input("cuda", seed=SEED)
     want = x.t().contiguous()
-    for tiling in tb.TILINGS:
-        held(f"K26 {tiling}", K26.transpose(tiling, x), want)
+    short = x[:-1, :-1].contiguous()
+    for what, arr, route in (("JAX shape", x, "bulk"),
+                             ("one short", short, "element")):
+        ref = arr.t().contiguous()
+        for tiling in tb.TILINGS:
+            if K26.route(tiling, arr) != route:
+                raise AssertionError(f"K26 {tiling} on the {what}: route "
+                                     f"{K26.route(tiling, arr)}")
+            before = K26.route_launches[route]
+            held(f"K26 {tiling} on the {what}", K26.transpose(tiling, arr),
+                 ref)
+            if K26.route_launches[route] != before + 1:
+                raise AssertionError(f"K26 {tiling}: not one {route} launch")
+    del short
+    mem = bulk_sass()
+    say("33 transpose", "K26's bulk kernels' global accesses (SASS): " +
+        "; ".join(f"{k} {v}" for k, v in sorted(mem.items())))
     # the consumer writes its output: the caching allocator hands it a
     # block that a freed tensor of junk left dirty
     junk = torch.full((tb.SUM_COLS,), -1, dtype=torch.int32, device="cuda")
@@ -2731,21 +2815,30 @@ def transpose_phase(card: str, runs: dict):
     held("K26 consume against .sum(0)", got,
          want[:, :tb.SUM_COLS].sum(0, dtype=torch.int32))
     say("33 transpose", f"K26 bit-equal to its plain version: "
-        f"{', '.join(tb.TILINGS)} on ({tb.B}, {tb.LW}) int32, the consumer "
-        f"(one launch, on reused memory) on the ({tb.LW}, {tb.B}) result, "
-        f"equal to .sum(0) too")
+        f"{', '.join(tb.TILINGS)} on ({tb.B}, {tb.LW}) int32 (bulk route) "
+        f"and ({tb.B - 1}, {tb.LW - 1}) (element route), the consumer (one "
+        f"launch, on reused memory) on the ({tb.LW}, {tb.B}) result, equal "
+        f"to .sum(0) too")
+    before = K26.route_launches["bulk"]
     res, counts = probe_run(tb.probe)
     record(runs, counts, 1, ["K26"], "transpose bench")
+    bulk = K26.route_launches["bulk"] - before
+    if bulk != counts["K26"] - 2 * (tb.REPS + 1):   # the consumer's
+        raise AssertionError(f"K26's probe run: {bulk} bulk launches of "
+                             f"{counts['K26']}")
     bnd = bound(2 * x.numel() * 4)
     c_bnd = bound(want.shape[0] * tb.SUM_COLS * 4 + tb.SUM_COLS * 4)
-    say("33 transpose", f"{card}: " + ", ".join(
-        f"{k} {v:.4f}" for k, v in res.items()) +
-        f" ms; {share(bnd, res['32x32'])} (32x32); best tiling "
-        f"{min(res[t] for t in tb.TILINGS):.4f} against torch "
-        f"{res['torch']:.4f}; consumer (one launch) {res['consume']:.4f} ms "
-        f"against x[:, :128].sum(0) {res['torch consume']:.4f} ms, "
-        f"{share(c_bnd, res['consume'])}")
-    # the same two on the card's clock alone: GRAPH_CALLS calls replayed
+    say("33 transpose", f"{card}: one call at a time / replayed from a graph "
+        f"of {tb.GRAPH_CALLS}: " + ", ".join(
+            f"{k} {res[k]:.4f} / {res[k + ' graph']:.4f}"
+            for k in ("torch", "copy", *tb.TILINGS)) +
+        f" ms; {share(bnd, res['32x32'])} (32x32), by graph "
+        f"{bnd[0] / res['32x32 graph']:.0%}; the card's copy_ "
+        f"{2 * x.numel() * 4 / res['copy graph'] / 1e6:.0f} GB/s by graph; "
+        f"torch+consume {res['torch+consume']:.4f}; consumer (one launch) "
+        f"{res['consume']:.4f} ms against x[:, :128].sum(0) "
+        f"{res['torch consume']:.4f} ms, {share(c_bnd, res['consume'])}")
+    # the consumer on the card's clock alone: GRAPH_CALLS calls replayed
     # from a CUDA graph (their capture launches K26 outside the counts)
     g_ms, g_all, g_out = graph_ms(lambda: K26.consume(want), GRAPH_CALLS,
                                   tb.REPS)
@@ -2760,6 +2853,11 @@ def transpose_phase(card: str, runs: dict):
     p_ms, _, _ = cuda_ms(lambda: tb.transpose_torch(x), 1)
     c_ms, _, _ = cuda_ms(lambda: tb.consume_torch(want), 1)
     return res["32x32"], p_ms, 0, bnd, res["torch"], {
+        "transpose_route": "bulk", "graph_ms": res["32x32 graph"],
+        "library_graph_ms": res["torch graph"],
+        **{f"{t}_ms": res[t] for t in tb.TILINGS[1:]},
+        **{f"{t}_graph_ms": res[f"{t} graph"] for t in tb.TILINGS[1:]},
+        "copy_ms": res["copy"], "copy_graph_ms": res["copy graph"],
         "consume_ms": res["consume"], "consume_plain_ms": c_ms,
         "consume_library_ms": res["torch consume"],
         "consume_graph_ms": g_ms, "consume_library_graph_ms": gl_ms,
@@ -3715,7 +3813,8 @@ def main() -> int:
     want["K19"] = (2 * len(opt_bench.LTS) * len(opt_bench.VARIANTS) *
                    len(TURNS) + len(opt_bench.CROSSOVER_ARRAYS) *
                    len(LANES)) * (opt_bench.REPS + 1)
-    # K20: tf, the 3 known answers and log_sqrt, then each rate; K21-K24:
+    # K20: tf, the 3 known answers and log_sqrt, then each rate (queued,
+    # and GRAPH_CALLS captured); K21-K24:
     # one warm-up and PIECE_RUNS timed calls a piece (K21: K6 + 3 K1 pieces
     # a dec_len; K22: K6, K4, K6 + K4, and the kernel piece's staging; K23:
     # the roll variant at each lane count in turn; K24: 2 pieces and the BEN
@@ -3723,22 +3822,24 @@ def main() -> int:
     runs_a_piece = PIECE_RUNS + 1
     want["K20"] = 5 + len(genkernel_probe.ROUNDS_LIST) * len(
         genkernel_probe.REPS_LIST) * (
-            genkernel_probe.REPS * genkernel_probe.LAUNCHES_A_SAMPLE + 1)
+            genkernel_probe.REPS * genkernel_probe.LAUNCHES_A_SAMPLE + 1 +
+            genkernel_probe.GRAPH_CALLS)
     want["K21"] = len(bench_profile.DEC_LENS) * 4 * runs_a_piece
     want["K22"] = 4 * runs_a_piece + 1
     want["K23"] = len(TURNS) * runs_a_piece
     want["K24"] = len(soft16_pieces.CONFIGS) * (2 * runs_a_piece + 1)
-    # K26: torch + consume, each tiling and the
-    # consumer, one warm-up and REPS timed each; K27: the check's 4 decodes,
-    # then one warm-up and RUNS timed calls a decoding route; K28: the
-    # check's one launch a variant, then the JAX shape (regs, smem and
-    # concat at each lane count in turn, shfl once) and the full grid (each
-    # variant once)
+    # K26: torch + consume, each tiling and the consumer, one warm-up and
+    # REPS timed each, and each tiling's GRAPH_CALLS captured; K27: the
+    # check's 4 decodes, then one warm-up and RUNS timed calls a decoding
+    # route; K28: the check's one launch a variant, then the JAX shape
+    # (regs, smem and concat at each lane count in turn, shfl once) and the
+    # full grid (each variant once)
     want["K25"] = (2 * len(soft16_ablation.VARIANTS) + len(
         soft16_ablation.CROSSOVER_PROGRAMS)) * len(LANES) * (
             soft16_ablation.REPS + 1)
     want["K26"] = (len(transpose_bench.TILINGS) + 2) * (
-        transpose_bench.REPS + 1)
+        transpose_bench.REPS + 1) + len(transpose_bench.TILINGS) * \
+        transpose_bench.GRAPH_CALLS
     want["K27"] = 4 + sum(kind != "staging" for *_, kind in
                           fp32_fused_value_probe.ROUTES) * (
         fp32_fused_value_probe.RUNS + 1)
@@ -3752,18 +3853,26 @@ def main() -> int:
     rows.sort(key=lambda r: (int(r[0][1:].split()[0]), r[0]))
     per_call = {name: launches_per_call(runs, name, want.get(name))
                 for name, _ in rows}
-    # a row's extra keys (K1's, K2's and K3's A/B, K7's and K8's, K26's
-    # consumer) ride in times[name][5]
-    print(json.dumps({"kernels": [dict({
-        "name": name, "route": "cuda", "source": source,
-        "replaces": REPLACES[name], "launches": per_call[name][0],
-        "launches_per_call": per_call[name][1],
-        "max_abs_err": max(times[name][2], worst.get(name, 0)),
-        "ms": times[name][0], "plain_ms": times[name][1],
-        "bound_ms": times[name][3][0], "bound_by": times[name][3][1],
-        "library_ms": times[name][4] if len(times[name]) > 4 else None},
-        **(times[name][5] if len(times[name]) > 5 else {}))
-        for name, source in rows]}))
+    # a row's extra keys (K1's, K2's and K3's A/B, K7's and K8's, K20's and
+    # K26's graph readings, K26's consumer) ride in times[name][5]; none
+    # may take the place of a key of the contract
+    kernels = []
+    for name, source in rows:
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": REPLACES[name], "launches": per_call[name][0],
+               "launches_per_call": per_call[name][1],
+               "max_abs_err": max(times[name][2], worst.get(name, 0)),
+               "ms": times[name][0], "plain_ms": times[name][1],
+               "bound_ms": times[name][3][0], "bound_by": times[name][3][1],
+               "library_ms": times[name][4] if len(times[name]) > 4
+               else None}
+        extra = times[name][5] if len(times[name]) > 5 else {}
+        if row.keys() & extra.keys():
+            raise AssertionError(f"{name}'s extra keys "
+                                 f"{sorted(row.keys() & extra.keys())} "
+                                 f"would replace the row's own")
+        kernels.append({**row, **extra})
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

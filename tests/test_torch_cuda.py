@@ -14,7 +14,8 @@ ablation, ACS variants, ILP) and K16-K19 (constructs, dtype rates, int16x2
 SWAR, 16-bit ACS) against their plain versions, the generator probe K20
 and the roll-halo decode K23 against theirs, K1's and K3's u/d-word reader,
 the last probes' kernels K25 (SOFT16 ablation), K26 (transpose and its
-consumer, one launch on reused memory) and K28 (interleave) against
+consumer, one launch on reused memory; each tiling on its bulk or
+element route, and replayed from a CUDA graph) and K28 (interleave) against
 theirs, and the probes' entry points; K1's and K3's tail halo against
 the plain version and the same kernel on the appended stream, the sharded
 generator's slabs and the split's ranks (in this process) on the card;
@@ -1119,7 +1120,8 @@ def test_acs_probe_entry_points(gpu, mod):
 @pytest.mark.parametrize("rounds", genkernel_probe.ROUNDS_LIST)
 def test_k20_matches_plain(gpu, rounds):
     """tf on the parity input and many at reps 4 and 8 on an 8 x 256-row
-    grid (c0 near 2^31, so c0 + r wraps) bit-equal to their plain versions;
+    grid (c0 near 2^31, so c0 + r wraps) and on 7,469 counter pairs
+    bit-equal to their plain versions;
     log_sqrt within 2 ulp of the larger term of torch's; one launch each;
     the known answers at 20 rounds."""
     gp, K20 = genkernel_probe, genkernel_probe.K20
@@ -1131,12 +1133,16 @@ def test_k20_matches_plain(gpu, rounds):
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     m = gp.many_input(gpu, g=8)
     m[0] += 2 ** 31 - 300
-    for reps in gp.REPS_LIST:
-        assert torch.equal(K20.many(m, *gp.MANY_KEY, reps, rounds),
-                           gp.many_torch(m, *gp.MANY_KEY, reps, rounds))
+    # 7,469 counter pairs: not a whole number of CUDA blocks or waves
+    odd = gp.many_input(gpu, g=1, rb=97)[:, :, :77].contiguous()
+    for counters in (m, odd):
+        for reps in gp.REPS_LIST:
+            assert torch.equal(
+                K20.many(counters, *gp.MANY_KEY, reps, rounds),
+                gp.many_torch(counters, *gp.MANY_KEY, reps, rounds))
     x = gp.log_input(gpu)
     assert gp.term_ulps(K20.log_sqrt(x), gp.log_sqrt_torch(x), x) <= 2
-    assert K20.launches == before + 2 + len(gp.REPS_LIST)
+    assert K20.launches == before + 2 + 2 * len(gp.REPS_LIST)
     res = gp.parity(gpu)
     assert res["tf_ok"] and res["known_ok"]
 
@@ -1244,17 +1250,37 @@ def test_k25_matches_plain(gpu, variant, lanes, programs):
 
 
 @pytest.mark.parametrize("shape", [(96, 80), (15744 // 8, 1056), (33, 130),
-                                   (1, 1)])
+                                   (1, 1), (64, 102), (36, 132),
+                                   "misaligned"])
 def test_k26_matches_plain(gpu, shape):
-    """Every tiling's transpose equals x.t() (ragged tiles included), the
-    consumer equals its plain version and torch's sum; one launch each."""
+    """Every tiling's transpose equals x.t() (ragged tiles included) on the
+    route K26.route picks, each launch counted on it: bulk where rows and
+    cols are multiples of 4 and the base 16-byte aligned, element on the
+    rest (a pitch off 4 words, a base off 16 bytes); a bulk launch on a
+    shape it cannot take is refused.  The consumer equals its plain version
+    and torch's sum; one launch each."""
     tb = transpose_bench
-    x = tb.probe_input(gpu, *shape, seed=26)
+    if shape == "misaligned":
+        x = tb.probe_input(gpu, 1, 96 * 80 + 1, seed=26).view(-1)[1:] \
+            .view(96, 80)
+    else:
+        x = tb.probe_input(gpu, *shape, seed=26)
+    rows, cols = x.shape
+    bulk = rows % 4 == 0 and cols % 4 == 0 and x.data_ptr() % 16 == 0
     before = tb.K26.launches
     for tiling in tb.TILINGS:
+        route = tb.K26.route(tiling, x)
+        assert route == ("bulk" if bulk else "element")
+        n_route = tb.K26.route_launches[route]
         assert torch.equal(tb.K26.transpose(tiling, x), x.t())
+        assert tb.K26.route_launches[route] == n_route + 1
     n = len(tb.TILINGS)
-    if shape[0] >= tb.SUM_COLS:
+    if not bulk:
+        out = torch.empty((cols, rows), dtype=torch.int32, device=gpu)
+        with pytest.raises(RuntimeError, match="K26 launch failed"):
+            tb.K26.launch(x.device, 0, tb.ROUTES.index("bulk"),
+                          x.data_ptr(), out.data_ptr(), rows, cols)
+    if rows >= tb.SUM_COLS and shape != "misaligned":
         t = x.t().contiguous()
         got = tb.K26.consume(t)
         assert torch.equal(got, tb.consume_torch(t))
@@ -1290,6 +1316,28 @@ def test_graph_ms_replays_k26_consume(gpu):
     assert tb.K26.launches == before + 10
     assert ms > 0 and len(all_ms) == 3
     assert torch.equal(got, tb.consume_torch(t))
+
+
+def test_graph_ms_replays_k26_tiling_and_k20_many(gpu):
+    """timing.graph_ms captures K26's bulk 32x32 transpose and K20's many
+    into CUDA graphs, each wrapper call counted once, at capture (K26's on
+    its route), and replays them: positive times and the right results."""
+    tb, gp = transpose_bench, genkernel_probe
+    x = tb.probe_input(gpu, 1968, 1056, seed=29)
+    before = (tb.K26.launches, tb.K26.route_launches["bulk"])
+    ms, all_ms, got = timing.graph_ms(lambda: tb.K26.transpose("32x32", x),
+                                      5, 2)
+    assert (tb.K26.launches, tb.K26.route_launches["bulk"]) == (
+        before[0] + 5, before[1] + 5)
+    assert ms > 0 and len(all_ms) == 2 and torch.equal(got, x.t())
+    c = gp.many_input(gpu, g=2)
+    before = gp.K20.launches
+    ms, all_ms, got = timing.graph_ms(
+        lambda: gp.K20.many(c, *gp.MANY_KEY, 4, gp.GEN_ROUNDS), 5, 2)
+    assert gp.K20.launches == before + 5
+    assert ms > 0 and len(all_ms) == 2
+    assert torch.equal(got, gp.many_torch(c, *gp.MANY_KEY, 4,
+                                          gp.GEN_ROUNDS))
 
 
 @pytest.mark.parametrize("reps", range(14))
@@ -1495,7 +1543,9 @@ def _launches():
                                          genkernel.K7, genkernel.K8)}
 
 
-def _launched(before):
+def _launched_since(before):
+    """{kernel name: launches} added since the ``_launches()`` count
+    ``before``, the kernels that launched."""
     torch.cuda.synchronize()
     return {k: n - before[k] for k, n in _launches().items()
             if n > before[k]}
@@ -1513,7 +1563,7 @@ def test_channel_throughput_rows_on_gpu(gpu):
     assert all(r["kernel_seconds"] > 0 and r["decode_check_seconds"] > 0
                and 0 < r["share_of_bound"] < 1 for r in rows)
     n = channel_throughput.N_INPUTS
-    assert _launched(before) == {
+    assert _launched_since(before) == {
         "K1": sum(r["calls"] for r in rows if r["kernel"] == "K1"),
         "K2": sum(r["calls"] for r in rows if r["kernel"] == "K2"),
         "K7": 4 * n, "K8": n}
@@ -1534,7 +1584,7 @@ def test_small_msg_sweep_rows_on_gpu(gpu):
     best = [r for r in rows if r["fastest"]]
     assert len(best) == 1 and best[0]["graph_seconds"] == min(
         r["graph_seconds"] for r in rows)
-    assert _launched(before) == {"K1": sum(r["calls"] for r in rows)}
+    assert _launched_since(before) == {"K1": sum(r["calls"] for r in rows)}
 
 
 def test_scaling_curve_rows_on_gpu(gpu):
@@ -1546,6 +1596,6 @@ def test_scaling_curve_rows_on_gpu(gpu):
     assert all(r["decode_seconds"] > 0 and r["graph_seconds"] > 0
                for r in rows)
     assert sum(r["fastest"] for r in rows) == 2
-    assert _launched(before) == {"K1": sum(r["calls"] for r in rows)}
+    assert _launched_since(before) == {"K1": sum(r["calls"] for r in rows)}
     xs = [torch.full((1 << 20,), i, device=gpu) for i in range(4)]
     assert timing.queued_s(lambda x: x * 2, xs, 16) > 0

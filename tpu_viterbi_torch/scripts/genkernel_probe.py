@@ -19,11 +19,15 @@ plain PyTorch version:
             c1) over the JAX grid G x RB x L = 64 x 256 x 128 counter pairs
             (c0 = the row, c1 = 3, key 1 / 2), at 20 rounds (the JAX
             probe's) and 13 (K7's ``kGenRounds``: the rate that bounds K7)
-A ``many`` time is CUDA events around LAUNCHES_A_SAMPLE back-to-back
-launches, divided by their number (one launch is tens of microseconds),
-after an untimed launch; each line gives the best and the median of REPS
-such samples, threefry calls a ns and ns a call.  The threefry is K7's own
-(``csrc/threefry.cuh``).
+A ``many`` time is read two ways after an untimed launch: CUDA events
+around LAUNCHES_A_SAMPLE launches queued from Python, divided by their
+number (the best and the median of REPS such samples), and the median of
+REPS replays of a CUDA graph of GRAPH_CALLS launches over their number
+(``utils.timing.graph_ms``).  The queued samples include the host's
+``ctypes`` launch of each call; the graph replay reads the card's own
+launch and run, and its rate is the one that prices K7's and K8's draws.
+Each line gives both, threefry calls a ns and ns a call.  The threefry is
+K7's own (``csrc/threefry.cuh``).
 
 With ``--device cpu`` only the parity parts run, on the plain versions (the
 known answers and the rel err); the rates need the card.
@@ -51,7 +55,10 @@ G, RB = 64, 256                 # the rate grid (:96)
 MANY_KEY = (1, 2)
 REPS_LIST = (4, 8)
 REPS = 5                        # CUDA-event samples of `many`, each of
-LAUNCHES_A_SAMPLE = 10          # back-to-back launches (one is ~0.05 ms)
+# LAUNCHES_A_SAMPLE launches queued from Python (each sample includes the
+# host's launch of each; GRAPH_CALLS leaves it out)
+LAUNCHES_A_SAMPLE = 10
+GRAPH_CALLS = 100               # launches of `many` a CUDA graph replays
 ENTRIES = ("tf", "log_sqrt", "many")
 # Random123's threefry2x32_20 known-answer vectors (key, counter, output),
 # which jax._src.prng.threefry_2x32 reproduces
@@ -241,10 +248,15 @@ def parity(device) -> dict:
 
 
 def rates(device) -> list:
-    """``many`` at the JAX grid for each rounds and reps: one line each;
-    returns [{"rounds", "reps", "calls", "ms", "best_ms", "all_ms",
-    "calls_per_ns", "ns_per_call"}], the times a launch."""
-    from ..utils.timing import cuda_ms
+    """``many`` at the JAX grid for each rounds and reps, read two ways:
+    LAUNCHES_A_SAMPLE launches queued from Python between two CUDA events
+    (REPS samples) and GRAPH_CALLS launches replayed from one CUDA graph
+    (``utils.timing.graph_ms``, REPS replays), which leaves out the host's
+    launch; one line each.  Returns [{"rounds", "reps", "calls", "ms",
+    "best_ms", "all_ms", "calls_per_ns", "ns_per_call", "graph_ms",
+    "graph_all_ms", "graph_calls_per_ns"}], the times a launch (the rates
+    from the queued best and the graph median)."""
+    from ..utils.timing import cuda_ms, graph_ms
     c = many_input(device)
     out = []
     for rounds in ROUNDS_LIST:
@@ -252,22 +264,32 @@ def rates(device) -> list:
             def fn():
                 for _ in range(LAUNCHES_A_SAMPLE):
                     K20.many(c, *MANY_KEY, reps, rounds)
-            K20.many(c, *MANY_KEY, reps, rounds)
+            first = K20.many(c, *MANY_KEY, reps, rounds)
             _, sample_ms, _ = cuda_ms(fn, REPS)
             all_ms = [t / LAUNCHES_A_SAMPLE for t in sample_ms]
             ms = statistics.median(all_ms)
+            g_ms, g_all, g_out = graph_ms(
+                lambda: K20.many(c, *MANY_KEY, reps, rounds), GRAPH_CALLS,
+                REPS)
+            if not torch.equal(g_out, first):
+                raise AssertionError(f"K20 many at {rounds} rounds, reps "
+                                     f"{reps}: the graph's result differs")
             calls = G * RB * L * reps
             best = min(all_ms)
             out.append(dict(rounds=rounds, reps=reps, calls=calls, ms=ms,
                             best_ms=best, all_ms=all_ms,
                             calls_per_ns=calls / (best * 1e6),
-                            ns_per_call=best * 1e6 / calls))
+                            ns_per_call=best * 1e6 / calls, graph_ms=g_ms,
+                            graph_all_ms=g_all,
+                            graph_calls_per_ns=calls / (g_ms * 1e6)))
             print(f"reps={reps}: best {best:.4f} ms for {calls / 1e6:.1f}M "
                   f"threefry calls ({rounds} rounds; median {ms:.4f} ms of "
-                  f"{[round(t, 4) for t in all_ms]}) = "
+                  f"{[round(t, 4) for t in all_ms]}, queued) = "
                   f"{calls / (best * 1e6):.1f} calls/ns, "
                   f"{best * 1e6 / calls:.6f} ns a call at the {G} x {RB} x "
-                  f"{L} grid", flush=True)
+                  f"{L} grid; replayed from a graph of {GRAPH_CALLS}: "
+                  f"{g_ms:.4f} ms of {[round(t, 4) for t in g_all]} = "
+                  f"{calls / (g_ms * 1e6):.1f} calls/ns", flush=True)
     return out
 
 
