@@ -81,7 +81,12 @@ dec_len at 32M bits (K1, K2 on FP32, on K7's and K8's words), dec_len
 against small message sizes (queued and replayed from a CUDA graph), and
 the scaling curve to 128M bits at JAX's auto_dec_len and at 2048; each
 row's first call held to the plain decode (BEN 0 at 64M and 128M), a row
-a line.
+a line.  Phase 50 runs the BER curve (scripts/ber_curve.py) at its
+defaults, 7 configurations x 7 SNRs at 2M bits through K1 and K2: each
+point's words equal to the plain decode's, b16 to b32, each BEN held to
+JAX's TPU curve at the point's measured spread, and the golden column to
+the decoder's.  Phase 15 reads K9 against its bound, an empty launch of
+the same shape, by CUDA-graph replay.
 
     python3 chip_smoke.py
 
@@ -151,8 +156,8 @@ from tpu_viterbi_torch.scripts import (  # noqa: E402
     opt_bench, soft16_ablation, soft16_pieces, staging_cost, swar_probe,
     transpose_bench)
 from tpu_viterbi_torch.scripts import (  # noqa: E402
-    ber_common, ber_deep, ber_deep_tail, ber_sharded, check_gen_ber,
-    fuzz_gpu, pod_decode_example, pod_runbook)
+    ber_common, ber_curve, ber_deep, ber_deep_tail, ber_sharded,
+    check_gen_ber, fuzz_gpu, pod_decode_example, pod_runbook)
 from tpu_viterbi_torch.scripts import (  # noqa: E402
     channel_throughput, scaling_curve, small_msg_sweep)
 from tpu_viterbi_torch.scripts.common import (  # noqa: E402
@@ -1550,10 +1555,13 @@ def hardware_phase(card: str, gen, runs: dict):
     """The hardware model on the card.  Its path, `python -m
     tpu_viterbi_torch.hardware`, driven with the counts set to 0: K9's
     binary search must find the CUDA opt-in attribute, which the per-kind
-    table must hold.  K9's output against its plain version; K3's gate
-    refusing a ring one byte over the budget before any launch; 'auto'
-    keeping the full store at the headline.  Returns K9's row; its
-    launches in the path's run (one probe) go into ``runs``."""
+    table must hold.  K9's output against its plain version; K9 against
+    its bound, the empty launch, by graph replay at 48 KB and at the
+    opt-in limit, and a probe step by the host clock
+    (``k9_launch_floor``); K3's gate refusing a ring one byte over the
+    budget before any launch; 'auto' keeping the full store at the
+    headline.  Returns K9's row; its launches in the path's run (one
+    probe) go into ``runs``."""
     hardware.optin_smem_bytes()                  # binds the entry
     t0 = time.perf_counter()
     optin = hardware.optin_smem_bytes()
@@ -1580,6 +1588,7 @@ def hardware_phase(card: str, gen, runs: dict):
     if over != hardware.CUDA_ERROR_INVALID_VALUE:
         raise AssertionError(f"K9 one byte over the limit: cudaError_t "
                              f"{over}, expected cudaErrorInvalidValue")
+    floor = k9_launch_floor(out, (48 * 1024, optin))
 
     # K3's gate: the ring one byte over the budget is refused before a launch
     plan = plan_blocks(2048 * 40, 32, 2048)
@@ -1609,17 +1618,58 @@ def hardware_phase(card: str, gen, runs: dict):
         raise AssertionError("'auto' does not keep the full store at the "
                              "headline")
     bnd = bound(out.numel() * 4)
+    (g48, e48, step48), (gmax, emax, stepmax) = floor.values()
+    verdict = "within twice its floor: K9 stays as it is" if max(
+        g48 / e48, gmax / emax) <= 2 else "over twice its floor"
     say("15 hardware", f"{card}; kind {hardware.device_kind()!r}: K9 probed "
         f"{probed} bytes in {counts['K9']} launches = the opt-in attribute "
         f"(read in {attr_ms:.4f} ms) = the table's budget; K9 at 48 KB "
-        f"median {k_ms:.4f} ms of 20, output equal to its plain version, "
-        f"one byte over refused; K3's ring of {ring} bytes refused with "
-        f"ValueError and no launch under a budget of {ring - 1}, launched "
-        f"and bit-equal at {ring}; 'auto' keeps the full store at the "
-        f"headline ({store} bytes against "
+        f"median {k_ms:.4f} ms of 20 one call at a time, output equal to "
+        f"its plain version, one byte over refused; by graph replay of "
+        f"{GRAPH_CALLS} (attributes set before capture) K9 {g48:.5f} ms at "
+        f"48 KB, {gmax:.5f} at {optin} bytes, the empty launch (its floor) "
+        f"{e48:.5f}, {emax:.5f}: {g48 / e48:.2f}x, {gmax / emax:.2f}x, "
+        f"{verdict}; a probe step (attribute + launch) {step48:.4f}, "
+        f"{stepmax:.4f} ms by the host clock; K3's ring of {ring} bytes "
+        f"refused with ValueError and no launch under a budget of "
+        f"{ring - 1}, launched and bit-equal at {ring}; 'auto' keeps the "
+        f"full store at the headline ({store} bytes against "
         f"{hardware.survivor_store_budget_bytes('cuda')}); bound "
-        f"{bnd[0]:.6f} ms by {bnd[1]}")
-    return k_ms, attr_ms, 0, bnd
+        f"{bnd[0]:.7f} ms by {bnd[1]}")
+    return g48, attr_ms, 0, bnd, None, {
+        "single_call_ms": k_ms, "graph_ms_optin": gmax,
+        "launch_floor_ms": e48, "launch_floor_ms_optin": emax,
+        "probe_step_host_ms": step48, "probe_step_host_ms_optin": stepmax}
+
+
+def k9_launch_floor(out, sizes) -> dict:
+    """{dynamic shared bytes: (K9's ms, the empty launch's ms, a probe
+    step's host ms)} a size: K9 and the empty kernel (one block of K9's
+    threads, touching nothing), each opted in to the size before capture,
+    by graph replay of GRAPH_CALLS launches; a probe step, K9 as
+    ``probe_smem_budget`` takes it (attribute + launch, no synchronize),
+    the median of 20 by the host clock.  K9's output stays its plain
+    version's zeros."""
+    res = {}
+    for nbytes in sizes:
+        empty = hardware.empty_launcher(nbytes)
+        if K9(nbytes, out) != 0:
+            raise AssertionError(f"K9 refused {nbytes} bytes")
+        k9_ms, _, err = graph_ms(lambda: K9(nbytes, out), GRAPH_CALLS, 20)
+        floor_ms, _, e_err = graph_ms(empty, GRAPH_CALLS, 20)
+        steps = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            err = err or K9(nbytes, out)
+            steps.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        if err or e_err or bool(out.any()):
+            raise AssertionError(f"K9 or the empty launch at {nbytes} "
+                                 f"bytes: cudaError_t {err}, {e_err}; K9's "
+                                 f"output not its plain version's zeros")
+        res[nbytes] = (k9_ms, floor_ms, statistics.median(steps))
+    return res
 
 
 OP_COST_CHECK_STEPS = 256
@@ -3700,6 +3750,134 @@ def scaling_phase(card: str, runs: dict) -> None:
         f"above) {fastest(rows)}; launches {calls}")
 
 
+def curve_plain_digests(rows: list, n: int) -> list:
+    """The digest of the plain decode on the card of each curve row's
+    packed words, drawn again from the row's seed (a channel's words are
+    the same at either metric width, so each is decoded once)."""
+    digests = {}
+    for r in rows:
+        cfg = ber_curve.spec_config(r["config"])
+        key = (cfg.channel_in, r["snr_db"])
+        if key not in digests:
+            _, noisy = ber_curve.draw(n, r["snr_db"], ber_curve.SEED,
+                                      "cuda")
+            packed = quantize_and_pack(noisy, cfg.channel_in,
+                                       ber_curve.default_scale(
+                                           cfg.channel_in))
+            words, _ = ViterbiGPU(cfg, dec_len=ber_curve.DEC_LEN,
+                                  backend="torch").run(packed, 2 * n)
+            digests[key] = ber_common.sha(words)
+    return [digests[(ber_curve.spec_config(r["config"]).channel_in,
+                     r["snr_db"])] for r in rows]
+
+
+def ber_curve_phase(card: str, runs: dict, tmp: Path) -> None:
+    """scripts/ber_curve.py at its defaults: 7 configurations x 7 SNRs at
+    2M bits, seed 123, a decode one launch of K1 (K2 on FP32).  Every
+    point's words equal the plain decode of its packed words on the card;
+    b16 counts b32's BEN; BEN does not rise with the SNR; each point agrees
+    with JAX's TPU curve (bench/ber_curve_tpu.json) by ``ber_curve.agree``
+    at the spread L that ``event_bits`` measures over 32 other draws of
+    the point on the card (z at the 4 of ``EVENT_BITS`` printed beside
+    it); --golden on s8/b32 (200,000 bits) agrees with the decoder's
+    column at the same L, whose counts it repeats."""
+    t0 = time.perf_counter()
+    n = ber_curve.NUM
+    rows, counts = script_rows(ber_curve, [], tmp)
+    specs = ber_curve.CONFIGS.split(",")
+    snrs = [float(x) for x in ber_curve.SNRS.split(",")]
+    recorded = json.loads((ROOT / "bench" / "ber_curve_tpu.json"
+                           ).read_text())
+    m = DecoderConfig().get_message_len(2 * n)
+    if [(r["config"], r["snr_db"], r["bits"]) for r in rows] != [
+            (s, x, m) for s in specs for x in snrs] or [
+            (r["config"], r["snr_db"], r["bits"]) for r in recorded] != [
+            (r["config"], r["snr_db"], r["bits"]) for r in rows]:
+        raise AssertionError(f"ber_curve rows {rows}")
+    kernel = {s: core_cuda.kernel_for(ber_curve.spec_config(s), False).name
+              for s in specs}
+    calls = Counter(kernel[r["config"]] for r in rows)
+    if any(r["kernels"] != f"{kernel[r['config']]} x1" for r in rows):
+        raise AssertionError(f"ber_curve launches {rows}")
+    record_calls(runs, counts, calls, "ber_curve")
+    t_plain = time.perf_counter()
+    plain = curve_plain_digests(rows, n)
+    t_plain = time.perf_counter() - t_plain
+    bad = [(r["config"], r["snr_db"]) for r, d in zip(rows, plain)
+           if r["words"] != d]
+    if bad:
+        raise AssertionError(f"ber_curve points {bad} differ from the plain "
+                             f"decode of their words")
+    ben = {(r["config"], r["snr_db"]): r["ben"] for r in rows}
+    for s in specs:
+        if s.endswith("/b16") and any(
+                ben[(s, x)] != ben[(s.replace("b16", "b32"), x)]
+                for x in snrs):
+            raise AssertionError(f"ber_curve {s} does not count "
+                                 f"{s.replace('b16', 'b32')}'s BEN")
+        if any(ben[(s, a)] < ben[(s, b)] for a, b in zip(snrs, snrs[1:])):
+            raise AssertionError(f"ber_curve {s}: BEN rises with the SNR "
+                                 f"{[ben[(s, x)] for x in snrs]}")
+    t_spread = time.perf_counter()
+    events, decs = {}, {}
+    for r, j in zip(rows, recorded):
+        cfg = ber_curve.spec_config(r["config"])
+        key = (cfg.channel_in, r["snr_db"])
+        if max(r["ben"], j["ben"]) > ber_curve.FEW and key not in events:
+            dec = decs.setdefault(cfg.channel_in, ViterbiGPU(
+                cfg, dec_len=ber_curve.DEC_LEN))
+            events[key] = ber_curve.event_bits(cfg, n, r["snr_db"],
+                                               device="cuda", dec=dec)
+    t_spread = time.perf_counter() - t_spread
+    lines, missed = {}, []
+    for r, j in zip(rows, recorded):
+        key = (ber_curve.spec_config(r["config"]).channel_in, r["snr_db"])
+        ev = events.get(key, 0.0)
+        z4 = ber_curve.z_score(r["ben"], r["bits"], j["ben"], j["bits"])
+        zl = ber_curve.z_score(r["ben"], r["bits"], j["ben"], j["bits"], ev)
+        if not ber_curve.agree(r["ben"], r["bits"], j["ben"], j["bits"],
+                               ev):
+            missed.append((r["config"], r["snr_db"]))
+        spread = f"{zl:.2f} at L {ev:.2f}" if key in events else \
+            f"both <= {ber_curve.FEW}"
+        lines.setdefault(r["config"], []).append(
+            f"{r['snr_db']:g} dB {r['ben']} [JAX {j['ben']}] z {z4:.2f} "
+            f"at L 4, {spread}, {r['ms']:.4f} ms")
+    for s in specs:
+        say("50 ber_curve", f"{card}: {s} at {n} bits: " +
+            "; ".join(lines[s]))
+    if missed:
+        raise AssertionError(f"ber_curve points {missed} disagree with "
+                             f"JAX's TPU curve")
+    grows, gcounts = script_rows(ber_curve, ["--golden", "--configs",
+                                             "s8/b32"], tmp)
+    record_calls(runs, gcounts, Counter({"K1": len(snrs)}),
+                 "ber_curve --golden")
+    gparts = []
+    for g in grows:
+        ev = events.get((ChannelIn.SOFT8, g["snr_db"]), 0.0)
+        if g["ben"] != ben[("s8/b32", g["snr_db"])] or not ber_curve.agree(
+                g["golden_ben"], g["golden_bits"], g["ben"], g["bits"], ev):
+            raise AssertionError(f"ber_curve --golden row {g}")
+        z = ber_curve.z_score(g["golden_ben"], g["golden_bits"], g["ben"],
+                              g["bits"], ev)
+        gparts.append(f"{g['snr_db']:g} dB {g['golden_ben']} of "
+                      f"{g['golden_bits']} (z {z:.2f})")
+    ms = [r["ms"] for r in rows]
+    over4 = sum(ber_curve.z_score(r["ben"], r["bits"], j["ben"], j["bits"])
+                > ber_curve.MAX_Z for r, j in zip(rows, recorded))
+    say("50 ber_curve", f"{card}: {len(rows)} points in "
+        f"{time.perf_counter() - t0:.1f} s (the plain decodes "
+        f"{t_plain:.1f} s, the spread's {len(events)} x "
+        f"{len(ber_curve.SPREAD_SEEDS)} draws {t_spread:.1f} s), each "
+        f"decode == the plain decode of its words, b16 == b32, BEN falls "
+        f"or holds with the SNR, every point within z {ber_curve.MAX_Z:g} "
+        f"of JAX's TPU curve at its L ({over4} over it at L 4); decode "
+        f"median {statistics.median(ms):.4f} ms a point "
+        f"({min(ms):.4f}-{max(ms):.4f}); golden s8/b32 " +
+        "; ".join(gparts) + f"; launches {dict(calls)} + K1 x{len(snrs)}")
+
+
 def main() -> int:
     card = device_phase()
     build_phase()
@@ -3779,6 +3957,8 @@ def main() -> int:
     channel_phase(card, runs)
     small_msg_phase(card, runs)
     scaling_phase(card, runs)
+    with tempfile.TemporaryDirectory() as tmp:
+        ber_curve_phase(card, runs, Path(tmp))
     # launches a call, measured in the main-path runs: where the design
     # fixes it, it must be so (one a decode or a generation; the op-cost
     # ILP and dtype probes' two step counts, the layout, microbenchmark,

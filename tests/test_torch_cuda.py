@@ -22,7 +22,8 @@ generator's slabs and the split's ranks (in this process) on the card;
 one 32M-bit call of each deep-BER tail row (the kernels' words and BEN
 equal to the plain versions'), the fuzz script's trials, the generator
 BER check, ``--profile`` (a trace holding K7's and K1's launches), and
-the timing sweeps' rows at small sizes.
+the timing sweeps' rows at small sizes; a BER-curve point of each
+configuration against the plain decode.
 Every test here needs a CUDA GPU and skips without one; the
 file imports no jax, so it runs on a machine that has only the port's
 dependencies:
@@ -56,7 +57,8 @@ from tpu_viterbi_torch.scripts import (acs_variants_bench, bench_profile,
                                        soft16_ablation, soft16_pieces,
                                        staging_cost, swar_probe,
                                        transpose_bench)
-from tpu_viterbi_torch.scripts import ber_deep_tail, check_gen_ber, fuzz_gpu
+from tpu_viterbi_torch.scripts import (ber_curve, ber_deep_tail,
+                                       check_gen_ber, fuzz_gpu)
 from tpu_viterbi_torch.scripts import (channel_throughput, scaling_curve,
                                        small_msg_sweep)
 from tpu_viterbi_torch.sharding import blocks, simulate
@@ -792,6 +794,27 @@ def test_k9_output_and_refusal(gpu):
     torch.cuda.synchronize()
     assert hardware.K9.launches == before + 1 and not out.any()
     assert hardware.sm_clock_hz() > 1e8
+
+
+def test_k9_and_its_empty_launch_replay_from_a_graph(gpu):
+    """K9's bound, the empty kernel, launches at 48 KB and at the opt-in
+    limit and refuses one byte more; K9 and the empty launch, their
+    attributes set before capture, replay from a CUDA graph, and K9's
+    output stays its plain version's zeros."""
+    optin = hardware.optin_smem_bytes()
+    out = torch.full((8, 128), -1, dtype=torch.int32, device=gpu)
+    for nbytes in (48 * 1024, optin):
+        empty = hardware.empty_launcher(nbytes)
+        assert empty() == 0 and hardware.K9(nbytes, out) == 0
+        ms, _, err = timing.graph_ms(empty, 10, 3)
+        assert err == 0 and ms > 0
+        ms, _, err = timing.graph_ms(lambda: hardware.K9(nbytes, out), 10,
+                                     3)
+        assert err == 0 and ms > 0
+    torch.cuda.synchronize()
+    assert not out.any()
+    with pytest.raises(RuntimeError, match="refused"):
+        hardware.empty_launcher(optin + 1)
 
 
 @pytest.mark.parametrize("out", [DecodeOut.O_B32, DecodeOut.O_B16],
@@ -1599,3 +1622,29 @@ def test_scaling_curve_rows_on_gpu(gpu):
     assert _launched_since(before) == {"K1": sum(r["calls"] for r in rows)}
     xs = [torch.full((1 << 20,), i, device=gpu) for i in range(4)]
     assert timing.queued_s(lambda x: x * 2, xs, 16) > 0
+
+
+@pytest.mark.parametrize("spec", ber_curve.CONFIGS.split(","))
+def test_ber_curve_point_equals_plain_on_gpu(gpu, spec):
+    """A curve point at 200,000 bits on the card: one launch of K1 (K2 on
+    FP32) through ViterbiGPU.run, its words equal to the plain decode of
+    the same packed words on the card; run_point counts them, and b16
+    counts b32's BEN."""
+    cfg = ber_curve.spec_config(spec)
+    n = 200_000
+    bits, noisy = ber_curve.draw(n, 0.5, 123, gpu)
+    dec = ViterbiGPU(cfg, dec_len=ber_curve.DEC_LEN, device=gpu)
+    before = _launches()
+    packed, out, seconds = ber_curve.decode_values(cfg, noisy, dec)
+    kernel = "K2" if cfg.channel_in == ChannelIn.FP32 else "K1"
+    assert _launched_since(before) == {kernel: 1} and seconds > 0
+    plain, _ = ViterbiGPU(cfg, dec_len=ber_curve.DEC_LEN, backend="torch",
+                          device=gpu).run(packed, 2 * n)
+    np.testing.assert_array_equal(out, plain)
+    ben, m = ber_curve.run_point(cfg, n, 0.5, 123, gpu, dec)
+    assert (ben, m) == (ber_curve.errors(out, cfg, bits.cpu().numpy()),
+                        cfg.get_message_len(2 * n))
+    assert 0 < ben < m // 4
+    if spec.endswith("/b16"):
+        b32 = ber_curve.spec_config(spec.replace("b16", "b32"))
+        assert ber_curve.run_point(b32, n, 0.5, 123, gpu) == (ben, m)

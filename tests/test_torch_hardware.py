@@ -197,6 +197,17 @@ def test_k9_runs_its_plain_version_on_cpu():
         hardware.K9(48 * 1024, torch.zeros((8, 64), dtype=torch.int32))
 
 
+def test_empty_launcher_needs_a_card(monkeypatch):
+    """K9's bound, the empty launch, has no plain version: the CPU is
+    refused before the library is built, and so is a CUDA device when
+    torch finds none (no fallback)."""
+    with pytest.raises(ValueError, match="CUDA device"):
+        hardware.empty_launcher(48 * 1024, "cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        hardware.empty_launcher(48 * 1024)
+
+
 def test_hardware_model_queries_without_card(monkeypatch):
     """device_kind is '' without a card (a query, not a fallback); the ALU
     table holds only measured kinds, each floor the quotient of its

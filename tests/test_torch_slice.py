@@ -243,5 +243,5 @@ def test_port_imports_no_jax():
     for name in ("__main__", "cli", "decoder.core_cuda", "sharding.launch",
                  "scripts.sass_compare", "scripts.channel_throughput",
                  "scripts.small_msg_sweep", "scripts.scaling_curve",
-                 "utils.native"):
+                 "scripts.ber_curve", "utils.native"):
         assert f"tpu_viterbi_torch.{name}" in names

@@ -14,16 +14,21 @@
 //     one block may opt in to, which PyTorch's device properties do not
 //     expose (they give the 48 KB default and the SM's total).  That
 //     attribute read is K9's plain counterpart on the card.
+//   - the empty kernel, viterbi_k9_empty_launch: one block of 128 threads
+//     with `nbytes` of dynamic shared memory that touches nothing, its
+//     attribute set once by viterbi_k9_empty_attribute.  It is K9's
+//     bound: a launch of the same shape with no work, read by CUDA-graph
+//     replay beside K9 (chip_smoke.py's hardware phase).
 // The wrapper and the binary search are in tpu_viterbi_torch/hardware.py.
 //
-// What bounds it: nothing on the card; a launch moves 4 KB and its time is
-// the launch latency.  What the design does about it: the probe is a
-// search over launches, about 20 of microseconds each, so it costs less
-// than one TPU compile of the JAX probe.  Where the TPU's limit showed at
-// compile time, here a request over the limit is refused at launch: by
-// cudaFuncSetAttribute (above the opt-in maximum) or by the launch itself,
-// both as cudaErrorInvalidValue.  Either refusal is cleared with
-// cudaGetLastError, so the next probe reads no stale error.
+// What bounds it: the launch; it moves 4 KB, and its least time is the
+// empty kernel's launch at the same shared memory.  What the design does
+// about it: the probe is a search over about 20 launches of microseconds
+// each, so it costs less than one TPU compile of the JAX probe.  Where the
+// TPU's limit showed at compile time, here a request over the limit is
+// refused at launch: by cudaFuncSetAttribute (above the opt-in maximum) or
+// by the launch itself, both as cudaErrorInvalidValue.  Either refusal is
+// cleared with cudaGetLastError, so the next probe reads no stale error.
 
 #include <cuda_runtime.h>
 
@@ -49,6 +54,9 @@ smem_probe_kernel(int* __restrict__ out) {
   for (int r = 0; r < kRows; ++r) out[r * kCols + col] = scratch[r * kCols + col];
 }
 
+// A launch with nothing in it: K9's floor.
+__global__ void __launch_bounds__(kCols) empty_kernel() {}
+
 }  // namespace viterbi_hw
 
 using namespace viterbi_hw;
@@ -69,6 +77,23 @@ extern "C" int viterbi_k9_launch(int nbytes, void* out, void* stream) {
   }
   smem_probe_kernel<<<1, kCols, nbytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<int*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Opt the empty kernel in to `nbytes` of dynamic shared memory; returns the
+// cudaError_t (cleared).  Called once, before its launches are timed.
+extern "C" int viterbi_k9_empty_attribute(int nbytes) {
+  cudaError_t err = cudaFuncSetAttribute(
+      empty_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, nbytes);
+  if (err != cudaSuccess) cudaGetLastError();
+  return static_cast<int>(err);
+}
+
+// Launch the empty kernel with `nbytes` of dynamic shared memory on
+// `stream`, the attribute as viterbi_k9_empty_attribute left it; returns
+// the cudaError_t (0 = launched).
+extern "C" int viterbi_k9_empty_launch(int nbytes, void* stream) {
+  empty_kernel<<<1, kCols, nbytes, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
 

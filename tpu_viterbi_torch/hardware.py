@@ -223,6 +223,32 @@ def k9_fits(out: torch.Tensor) -> Callable[[int], bool]:
     return fits
 
 
+def empty_launcher(nbytes: int, device="cuda") -> Callable[[], int]:
+    """K9's bound: a launch of ``viterbi_k9_empty_launch``, one block of
+    K9's 128 threads with ``nbytes`` of dynamic shared memory that touches
+    nothing.  Opts the kernel in to ``nbytes`` once, here, and returns a
+    call that launches it on the current stream and returns the
+    cudaError_t, so a CUDA graph captured from the calls holds the launches
+    and nothing else.  It computes nothing, so it has no plain version: a
+    device that is not CUDA raises, as a refused attribute does."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"the empty launch runs on a CUDA device, got "
+                         f"{dev}")
+    err = library.bind("viterbi_k9_empty_attribute", [ctypes.c_int])(
+        int(nbytes))
+    if err != 0:
+        raise RuntimeError(f"the empty kernel refused {nbytes} bytes of "
+                           f"dynamic shared memory: cudaError_t {err}")
+    launch = library.bind("viterbi_k9_empty_launch",
+                          [ctypes.c_int, ctypes.c_void_p])
+
+    def call() -> int:
+        return launch(int(nbytes),
+                      torch.cuda.current_stream(dev).cuda_stream)
+    return call
+
+
 def probe_smem_budget(lo: int = 48 * 1024, hi: int = 1 << 20,
                       fits: Optional[Callable[[int], bool]] = None) -> int:
     """Measure the dynamic shared memory one CUDA block may opt in to, by

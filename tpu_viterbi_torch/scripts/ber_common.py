@@ -1,7 +1,8 @@
 """What the BER and fuzz scripts (``ber_deep``, ``ber_deep_tail``,
-``check_gen_ber``, ``fuzz_gpu``) share: the ``+Ns`` log line, a row's
-configuration, the survivor JAX's one-device run resolved on the TPU, the
-kernels a row launched, and the JSON rows, written only to ``--out``.
+``check_gen_ber``, ``fuzz_gpu``, ``ber_sharded``, ``ber_curve``) share: the
+``+Ns`` log line, a row's configuration, the survivor JAX's one-device run
+resolved on the TPU, the kernels a row launched, the BEN and digest of
+host output words, and the JSON rows, written only to ``--out``.
 
 The scripts keep the JAX scripts' seeds, scales and ``dec_len``: at the
 same seed K7/K8 draw the JAX generator's message bits, and its noise up to
@@ -12,9 +13,13 @@ run's count for count (``chain/genkernel.py``).
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import time
+
+import numpy as np
+import torch
 
 from .. import hardware
 from ..chain import genkernel
@@ -22,6 +27,7 @@ from ..config import NUM_STATES, ChannelIn, DecodeOut, DecoderConfig
 from ..decoder import core_cuda
 from ..decoder.core_torch import (WARMUP, plan_blocks,
                                   survivor_window_slots)
+from ..utils.bits import count_bit_errors
 
 CALL_BITS = 32_000_000           # message bits a simulate() call (the JAX N)
 # the TPU's scoped-VMEM budget that resolved JAX's survivor plan
@@ -114,6 +120,19 @@ def parser(description: str) -> argparse.ArgumentParser:
                    help="write the rows there as JSON; without it the "
                         "script only prints")
     return p
+
+
+def sha(words: np.ndarray) -> str:
+    """A short digest of decoded words (the rows compare words by it)."""
+    return hashlib.sha256(np.ascontiguousarray(words).tobytes()
+                          ).hexdigest()[:16]
+
+
+def errors(words: np.ndarray, cfg: DecoderConfig, bits: np.ndarray) -> int:
+    """BEN of host output words (uint32 or uint16) against the message."""
+    return count_bit_errors(torch.from_numpy(words.astype(np.int64)),
+                            cfg.bits_per_pack,
+                            torch.from_numpy(bits[cfg.extra_l:]), 0)
 
 
 def write_rows(rows: list, out, log: Log, only=None) -> None:

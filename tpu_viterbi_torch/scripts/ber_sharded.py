@@ -32,7 +32,6 @@ check).  Rank 0 prints a line a point and writes the rows to ``--out``.
 
 from __future__ import annotations
 
-import hashlib
 import os
 import sys
 
@@ -48,8 +47,7 @@ from ..hardware import resolve_device
 from ..sharding import launch
 from ..sharding.blocks import decode_all_ranks, decode_sharded
 from ..sharding.mesh import initialize_distributed, make_block_mesh
-from ..utils.bits import count_bit_errors
-from .ber_common import Launches, Log, parser, write_rows
+from .ber_common import Launches, Log, errors, parser, sha, write_rows
 
 SEED = 99
 DEC_LEN = 2048
@@ -72,19 +70,6 @@ def workloads(n: int, snrs=SNRS):
                                    sym.shape).astype(np.float32)
             packed = quantize_and_pack(torch.from_numpy(sym), ch, scale)
             yield ch, scale, snr, bits, packed.numpy()
-
-
-def sha(words: np.ndarray) -> str:
-    """A short digest of decoded words (the rows compare words by it)."""
-    return hashlib.sha256(np.ascontiguousarray(words).tobytes()
-                          ).hexdigest()[:16]
-
-
-def errors(words: np.ndarray, cfg: DecoderConfig, bits: np.ndarray) -> int:
-    """BEN of host output words (uint32 or uint16) against the message."""
-    return count_bit_errors(torch.from_numpy(words.astype(np.int64)),
-                            cfg.bits_per_pack,
-                            torch.from_numpy(bits[cfg.extra_l:]), 0)
 
 
 def within(ber_split: float, ber_one: float) -> bool:
