@@ -21,7 +21,9 @@ the plain version and the same kernel on the appended stream, the sharded
 generator's slabs and the split's ranks (in this process) on the card;
 one 32M-bit call of each deep-BER tail row (the kernels' words and BEN
 equal to the plain versions'), the fuzz script's trials, the generator
-BER check, ``--profile`` (a trace holding K7's and K1's launches), and
+BER check, ``--profile`` (a trace holding K7's and K1's launches; each
+decode kernel of a traced ``run_on_device`` linked to its launch inside
+``api.launch``), and
 the timing sweeps' rows at small sizes; a BER-curve point of each
 configuration against the plain decode.
 Every test here needs a CUDA GPU and skips without one; the
@@ -1557,6 +1559,40 @@ def test_profile_trace_holds_k7_and_k1_on_gpu(gpu, tmp_path, capsys):
     names = " ".join(s["kernel_ms"])
     assert "gen_words_kernel" in names and "viterbi_kernel" in names
     assert 0 < s["busy_share"] < 1
+
+
+def test_decode_kernel_launch_lies_in_api_launch_on_gpu(gpu, rng,
+                                                        tmp_path):
+    """Traced run_on_device calls on the card: every decode kernel carries
+    the ``correlation`` of a runtime launch call, and that call starts
+    inside the call's ``api.launch`` range."""
+    cfg = DecoderConfig(ChannelIn.SOFT8)
+    input_num = 2 * 1_000_000
+    dec = ViterbiGPU(cfg, input_num=input_num)
+    x = torch.from_numpy(rng.integers(
+        -2 ** 31, 2 ** 31, size=cfg.get_input_words(input_num),
+        dtype=np.int64).astype(np.int32)).to(gpu)
+    dec.run_on_device(x, input_num)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            dec.run_on_device(x, input_num)
+    path = tmp_path / "run.pt.trace.json"
+    prof.export_chrome_trace(str(path))
+    events = profile.load_events(path)
+    launches = {e["args"]["correlation"]: e for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    ranges = [(e["ts"], e["ts"] + e["dur"]) for e in events
+              if e.get("cat") == "user_annotation"
+              and e["name"] == "api.launch"]
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and profile.short_name(e["name"]).endswith("viterbi_kernel")]
+    assert len(kernels) == len(ranges) == 3
+    for k in kernels:
+        start = launches[k["args"]["correlation"]]["ts"]
+        assert sum(lo <= start <= hi for lo, hi in ranges) == 1
 
 
 # --- the timing sweeps -------------------------------------------------------

@@ -2,7 +2,9 @@
 
 - ``--profile DIR`` (utils/profile.py) writes a Chrome trace that parses
   and names the run's ranges and ops, for the chain, ``--e2e-device`` and
-  ``--decode-file``; an unwritable DIR is refused with an error line;
+  ``--decode-file``; an unwritable DIR is refused with an error line; the
+  spans of ``run_on_device``, ``run_stream`` and ``simulate`` nest in
+  order, and ``span`` outside a trace is one shared object;
 - the BER scripts (scripts/ber_deep.py, ber_deep_tail.py, check_gen_ber.py)
   run their plain path at 131,072 bits a call at a waterfall SNR: on the
   words JAX's generator draws (interpret mode), each counts exactly the
@@ -41,8 +43,9 @@ from tpu_viterbi.decoder.core_xla import (decode_packed_xla,
 from tpu_viterbi.hardware import vmem_budget_bytes
 from tpu_viterbi.sharding.mesh import make_block_mesh
 from tpu_viterbi.sharding.simulate import simulate_sharded as jsimulate
-from tpu_viterbi_torch import cli
-from tpu_viterbi_torch.config import ALL_VALID_CONFIGS, CompMode
+from tpu_viterbi_torch import ViterbiGPU, cli
+from tpu_viterbi_torch.config import (ALL_VALID_CONFIGS, ChannelIn,
+                                      CompMode, DecoderConfig)
 from tpu_viterbi_torch.decoder.core_cuda import decode_packed_cuda
 from tpu_viterbi_torch.decoder.core_torch import decode_packed_torch
 from tpu_viterbi_torch.scripts import (ber_common, ber_deep, ber_deep_tail,
@@ -115,8 +118,101 @@ def test_profile_traces_a_file_decode(tmp_path, capsys):
     s, _, out = _trace(tmp_path, ["-i", "s8", "--decode-file", str(f),
                                   "--dec-len", "64", "--device", "cpu"],
                        capsys)
-    assert s["annotations"] == {"decode": 1}
+    assert s["annotations"] == {"api.call": 1, "api.stage": 1, "decode": 1,
+                                "api.launch": 1, "api.assemble": 1}
     assert out.splitlines()[0] == "Decode executed."
+
+
+def _user_ranges(prof, tmp_path, names):
+    """The user ranges named in ``names`` of a finished CPU profile, as
+    (name, start ns, end ns) sorted by start, outer before inner."""
+    path = tmp_path / "spans.pt.trace.json"
+    prof.export_chrome_trace(str(path))
+    spans = [(e["name"], round(e["ts"] * 1e3),
+              round((e["ts"] + e["dur"]) * 1e3))
+             for e in profile.load_events(path)
+             if e.get("cat") == "user_annotation" and e["name"] in names]
+    return sorted(spans, key=lambda s: (s[1], -s[2]))
+
+
+def _holds(outer, inner):
+    return outer[1] <= inner[1] and inner[2] <= outer[2]
+
+
+def _in_turn(spans):
+    return all(a[2] <= b[1] for a, b in zip(spans, spans[1:]))
+
+
+API_SPANS = ("api.call", "api.stage", "decode", "api.launch", "api.wait",
+             "api.assemble")
+
+
+def _cpu_decoder():
+    cfg = DecoderConfig(ChannelIn.SOFT8)
+    input_num = 2 * 3000
+    words = np.random.default_rng(3).integers(
+        -2 ** 31, 2 ** 31, size=cfg.get_input_words(input_num),
+        dtype=np.int64).astype(np.int32)
+    return ViterbiGPU(cfg, dec_len=64, device="cpu"), words, input_num
+
+
+def test_run_on_device_spans_nest_in_order(tmp_path):
+    """One run_on_device call under a CPU profiler: api.call holds
+    api.stage, then decode (holding api.launch), then api.assemble, each
+    after the last; on the CPU there is no api.wait."""
+    dec, words, input_num = _cpu_decoder()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        dec.run_on_device(words, input_num)
+    spans = _user_ranges(prof, tmp_path, API_SPANS)
+    assert [s[0] for s in spans] == ["api.call", "api.stage", "decode",
+                                     "api.launch", "api.assemble"]
+    call, stage, decode, launch, assemble = spans
+    assert all(_holds(call, s) for s in (stage, decode, assemble))
+    assert _holds(decode, launch)
+    assert _in_turn([stage, decode, assemble])
+
+
+def test_run_stream_spans_nest_in_order(tmp_path):
+    """run_stream takes the same names: api.call holds api.stage, one
+    api.launch for every queued decode, and api.assemble."""
+    dec, words, input_num = _cpu_decoder()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        outs, _ = dec.run_stream([words, words[::-1].copy()], input_num)
+    assert len(outs) == 2
+    spans = _user_ranges(prof, tmp_path, API_SPANS)
+    assert [s[0] for s in spans] == ["api.call", "api.stage", "api.launch",
+                                     "api.assemble"]
+    assert all(_holds(spans[0], s) for s in spans[1:])
+    assert _in_turn(spans[1:])
+
+
+def test_simulate_span_holds_its_steps(tmp_path):
+    """simulate(seed) is a range holding generate, ref, the decode's
+    api.call and count, in that order."""
+    fn, _ = sim.build_sharded_simulation(
+        DecoderConfig(ChannelIn.SOFT8), 3000, snr_db=3.0,
+        dec_len=64, device="cpu")
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        fn(11)
+    spans = _user_ranges(prof, tmp_path, ("simulate", "generate", "ref",
+                                          "api.call", "count"))
+    assert [s[0] for s in spans] == ["simulate", "generate", "ref",
+                                     "api.call", "count"]
+    assert all(_holds(spans[0], s) for s in spans[1:])
+    assert _in_turn(spans[1:])
+
+
+def test_span_without_a_profiler_is_one_shared_object():
+    a, b = profile.span("api.call"), profile.span("api.wait")
+    assert a is b
+    with a, b:      # reentrant: nested in itself
+        pass
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        assert profile.span("api.call") is not a
 
 
 def test_profile_unwritable_dir_is_refused(tmp_path, capsys):

@@ -172,26 +172,34 @@ class ViterbiGPU:
         (numpy array or tensor) and keep the result on the device.
 
         Returns (flat int32 packed output words on ``self.device``,
-        seconds of the decode launch)."""
+        seconds of the decode launch).  In a trace: ``api.call`` holding
+        ``api.stage``, ``decode`` (``api.launch``, ``api.wait``) and
+        ``api.assemble`` (``utils/profile.py``)."""
         cfg = self.config
-        self._check_message(input_num)
-        x = self._stage(packed_input, input_num)
-        plan = self.plan(input_num)
-        decode = self._decoder(input_num)
-        with span("decode"):
-            if self.device.type == "cuda":
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                packs = decode(x, cfg, plan)
-                end.record()
-                end.synchronize()
-                seconds = start.elapsed_time(end) / 1e3
-            else:
-                t0 = time.perf_counter()
-                packs = decode(x, cfg, plan)
-                seconds = time.perf_counter() - t0
-        return assemble_output(packs, cfg, plan), seconds
+        with span("api.call"):
+            with span("api.stage"):
+                self._check_message(input_num)
+                x = self._stage(packed_input, input_num)
+                plan = self.plan(input_num)
+                decode = self._decoder(input_num)
+            with span("decode"):
+                if self.device.type == "cuda":
+                    with span("api.launch"):
+                        start = torch.cuda.Event(enable_timing=True)
+                        end = torch.cuda.Event(enable_timing=True)
+                        start.record()
+                        packs = decode(x, cfg, plan)
+                        end.record()
+                    with span("api.wait"):
+                        end.synchronize()
+                        seconds = start.elapsed_time(end) / 1e3
+                else:
+                    with span("api.launch"):
+                        t0 = time.perf_counter()
+                        packs = decode(x, cfg, plan)
+                        seconds = time.perf_counter() - t0
+            with span("api.assemble"):
+                return assemble_output(packs, cfg, plan), seconds
 
     def run(self, packed_input, input_num: int
             ) -> Tuple[np.ndarray, float]:
@@ -214,26 +222,37 @@ class ViterbiGPU:
         synchronize in between, between two CUDA events (on the CPU, the
         host clock).
 
-        Returns (outputs in input order, seconds per message or None)."""
+        Returns (outputs in input order, seconds per message or None).
+        In a trace: ``api.call`` holding ``api.stage``, ``api.launch``,
+        ``api.wait`` and ``api.assemble``, as ``run_on_device``'s."""
         cfg = self.config
-        self._check_message(input_num)
-        xs = [self._stage(p, input_num, "packed input")
-              for p in packed_inputs]
-        plan = self.plan(input_num)
-        decode = self._decoder(input_num)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)     # staging stays untimed
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            packs = [decode(x, cfg, plan) for x in xs]
-            end.record()
-            end.synchronize()
-            seconds = start.elapsed_time(end) / 1e3
-        else:
-            t0 = time.perf_counter()
-            packs = [decode(x, cfg, plan) for x in xs]
-            seconds = time.perf_counter() - t0
-        per = seconds / max(1, len(packs)) if want_time else None
-        return [self._to_host(assemble_output(p, cfg, plan))
-                for p in packs], per
+        cuda = self.device.type == "cuda"
+        with span("api.call"):
+            with span("api.stage"):
+                self._check_message(input_num)
+                xs = [self._stage(p, input_num, "packed input")
+                      for p in packed_inputs]
+                plan = self.plan(input_num)
+                decode = self._decoder(input_num)
+                if cuda:
+                    # staging stays untimed
+                    torch.cuda.synchronize(self.device)
+            if cuda:
+                with span("api.launch"):
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    packs = [decode(x, cfg, plan) for x in xs]
+                    end.record()
+                with span("api.wait"):
+                    end.synchronize()
+                    seconds = start.elapsed_time(end) / 1e3
+            else:
+                with span("api.launch"):
+                    t0 = time.perf_counter()
+                    packs = [decode(x, cfg, plan) for x in xs]
+                    seconds = time.perf_counter() - t0
+            per = seconds / max(1, len(packs)) if want_time else None
+            with span("api.assemble"):
+                return [self._to_host(assemble_output(p, cfg, plan))
+                        for p in packs], per

@@ -266,23 +266,26 @@ def build_sharded_simulation(cfg: DecoderConfig, message_len: int,
     m32 = -(-m // 32) * 32
 
     def simulate(seed: int):
-        with span("generate"):
-            if generator == "cuda":
-                packs, words = packed_workload_cuda(
-                    seed, message_len, cfg.channel_in, snr_db, scale, device)
-            else:
-                gen = torch.Generator(device=device)
-                gen.manual_seed(seed)
-                bits, words = packed_workload(gen, message_len,
-                                              cfg.channel_in, snr_db, scale)
-        with span("ref"):
-            ref32 = ref_words_from_packs(packs, cfg.extra_l, m32) \
-                if generator == "cuda" else \
-                _ref_words32(bits, cfg.extra_l, m32)
-        out, _ = dec.run_on_device(words, input_num)
-        with span("count"):
-            ben = count_errors(out, ref32, cfg.bits_per_pack, m)
-        return (ben, out) if return_output else ben
+        with span("simulate"):
+            with span("generate"):
+                if generator == "cuda":
+                    packs, words = packed_workload_cuda(
+                        seed, message_len, cfg.channel_in, snr_db, scale,
+                        device)
+                else:
+                    gen = torch.Generator(device=device)
+                    gen.manual_seed(seed)
+                    bits, words = packed_workload(gen, message_len,
+                                                  cfg.channel_in, snr_db,
+                                                  scale)
+            with span("ref"):
+                ref32 = ref_words_from_packs(packs, cfg.extra_l, m32) \
+                    if generator == "cuda" else \
+                    _ref_words32(bits, cfg.extra_l, m32)
+            out, _ = dec.run_on_device(words, input_num)
+            with span("count"):
+                ben = count_errors(out, ref32, cfg.bits_per_pack, m)
+            return (ben, out) if return_output else ben
 
     return simulate, m
 

@@ -4,11 +4,30 @@ as a Chrome trace; the counterpart of the JAX CLI's ``jax.profiler.trace``
 device's busy share over the traced window, its longest idle gap and what
 the host was doing in it.
 
-``span(name)`` marks a host range in the trace (``record_function``) only
-while a profiler records: the chain's elements, the in-graph simulation's
-generate / ref / decode / count, and every launch of K1-K8 under the
-kernel's name.  Outside a trace it costs a flag test, where ``record_function``
-itself costs microseconds a call.
+``span(name)`` marks a host range in the trace (a ``record_function``
+range, a ``user_annotation`` event) only while a profiler records;
+outside a trace it costs a flag test and hands back one shared
+``nullcontext``, where a range costs microseconds.  Ranges of one thread
+nest.  The spans:
+
+- each element of a chain (``Pipeline.run``), under its class name;
+- ``ViterbiGPU.run_on_device`` and ``run_stream``: ``api.call``, the whole
+  call, holding in turn ``api.stage`` (the message's checks, its staging on
+  the device, the plan and the kernel's lookup), ``api.launch`` (the host's
+  time between the two timing events: making them, recording the first,
+  the decode's launch, recording the second; on the CPU the plain decode),
+  ``api.wait`` (on a CUDA device: the wait for the second event and the
+  events' elapsed time) and ``api.assemble`` (the output words put
+  together, and in ``run_stream`` copied to the host); in
+  ``run_on_device`` ``api.launch`` and ``api.wait`` lie inside ``decode``;
+- ``simulate`` (``build_sharded_simulation``'s call), holding
+  ``generate`` (the message and its channel words), ``ref`` (the words a
+  decode without error gives), the decode's ``api.call`` and ``count``
+  (the bit errors);
+- every launch of K1-K8 under the kernel's name (``K1`` ... ``K8``).
+
+A device operation is put down to a range through the runtime call that
+launched it: a trace carries the same ``correlation`` on both.
 """
 
 from __future__ import annotations
@@ -23,7 +42,7 @@ from collections import Counter
 from pathlib import Path
 
 import torch
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import ProfilerActivity, profile
 
 # device activity in a Chrome trace of torch.profiler (Kineto's categories)
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -35,12 +54,35 @@ class ProfileError(RuntimeError):
     """The trace could not be taken or written."""
 
 
+_OFF = contextlib.nullcontext()     # reusable and reentrant
+
+
+class _Range:
+    """The range ``record_function`` opens (a user-scope record
+    function), entered through torch's own binding, which skips the
+    operator dispatch ``record_function`` goes through: about a third of
+    its host cost under a profiler, where every range adds to a traced
+    call's time."""
+
+    __slots__ = ("name", "handle")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.handle = torch.autograd._record_function_with_args_enter(
+            self.name)
+
+    def __exit__(self, *exc):
+        torch.autograd._record_function_with_args_exit(self.handle)
+
+
 def span(name: str):
     """A host range named ``name`` in the trace while a profiler records,
-    else nothing."""
+    else nothing (one shared context manager)."""
     if torch.autograd._profiler_enabled():
-        return record_function(name)
-    return contextlib.nullcontext()
+        return _Range(name)
+    return _OFF
 
 
 class Trace:
